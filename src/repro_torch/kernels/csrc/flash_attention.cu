@@ -1,0 +1,487 @@
+// Forward flash attention for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `_fa_kernel` / `flash_attention_pallas`
+// (src/repro/kernels/flash_attention.py).  Same function: softmax attention
+// of q (B,T,H,D) against k, v (B,S,K,D), H % K == 0, query row t at global
+// position S-T+t, optional causal mask and sliding window, f32 m / l / acc,
+// output in the dtype of q.  A row that sees no key at all returns 0.
+//
+// Common design.  One thread block per (batch*head, query tile), 128
+// threads.  The block walks the KV tiles its rows can see, staged in shared
+// memory; this loop replaces the sequential "arbitrary" grid axis of the TPU
+// kernel, whose online-softmax state lived in VMEM scratch across grid
+// steps.  Tiles wholly past the causal diagonal or before the window are
+// never loaded.  GQA reads K/V head h / (H/K) directly; K/V are never
+// repeated in memory.  Until a row has seen a visible key its running max is
+// -inf, and the kernel keeps p = 0 and the correction at 1 instead of
+// computing exp(-inf - -inf).
+//
+// Two paths, chosen from the inputs:
+// * bf16 with D in {16, 32, 64, 128} (the serving path): the two products
+//   run on the tensor cores as mma.sync m16n8k16 (bf16 in, f32 accumulate).
+//   Each warp owns 16 query rows of a 64-row tile; its Q fragments stay in
+//   registers, the scores of a 64-key tile come back in the accumulator
+//   layout, the softmax runs on them in f32 registers (quad shuffles for the
+//   row max and sum), and they are repacked as bf16 A fragments for P.V
+//   without touching shared memory.  V fragments come from ldmatrix.trans.
+// * everything else (f32, other head dims up to 256): f32 FMAs on the CUDA
+//   cores.  Each query row of a 32-row tile is owned by 4 lanes of one warp
+//   that split its 32 scores and its D outputs, so the row's max, sum and
+//   correction never leave registers.  Q and K rows are padded to D+1 floats
+//   so the dot products read shared memory without bank conflicts.
+//
+// Bound on an H100 SXM at the main-path prefill (B=4, T=S=1024, H=64, K=8,
+// D=128, causal, bf16): 4*D per visible (query, key) pair is 68.8 GFLOP,
+// about 70 us at 989 TFLOP/s bf16 on the tensor cores; reading q, k, v once
+// and writing o once is 151 MB, about 45 us at 3.35 TB/s.  So the work is
+// bound by operations, which is why the bf16 path uses the tensor cores.
+// It is synchronous (no cp.async / TMA pipelining of the KV tiles, no
+// wgmma), so loads and products do not overlap; those are the next steps
+// (see ROADMAP.md).  The FMA path is bound by the CUDA cores' 67 TFLOP/s
+// f32 rate at best.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 32;          // query rows per block
+constexpr int BK = 32;          // keys per KV tile
+constexpr int THREADS = 128;    // 4 lanes per query row
+constexpr int LANES_PER_ROW = THREADS / BQ;
+constexpr int SCORES_PER_LANE = BK / LANES_PER_ROW;
+
+__device__ __forceinline__ float load_f32(const float* p, long i) { return p[i]; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ void store_f32(float* p, long i, float x) { p[i] = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, long i, float x) {
+  p[i] = __float2bfloat16(x);
+}
+
+// DPT: output columns per lane (>= ceil(D / 4)), a compile-time bound so the
+// accumulator stays in registers.
+template <typename T, int DPT>
+__global__ void __launch_bounds__(THREADS)
+fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
+              int T_, int S, int H, int K, int D, int causal, int window,
+              float scale) {
+  extern __shared__ float smem[];
+  const int DS = D + 1;                      // padded row stride of Q and K
+  float* Qs = smem;                          // BQ x DS
+  float* Ks = Qs + BQ * DS;                  // BK x DS
+  float* Vs = Ks + BK * DS;                  // BK x D
+  float* Ps = Vs + BK * D;                   // BQ x (BK+1)
+
+  const int tid = threadIdx.x;
+  const int row = tid / LANES_PER_ROW;       // query row within the tile
+  const int sub = tid % LANES_PER_ROW;       // lane within the row's group
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  const int q0 = blockIdx.x * BQ;
+  const int offs = S - T_;                   // query t sits at key position offs+t
+
+  // Stage the query tile (rows past T are zero and never written out).
+  for (int idx = tid; idx < BQ * D; idx += THREADS) {
+    const int r = idx / D, d = idx % D;
+    const int t = q0 + r;
+    Qs[r * DS + d] = t < T_ ? load_f32(q, ((long)(b * T_ + t) * H + h) * D + d) : 0.f;
+  }
+
+  // Keys any row of this tile can see.
+  const int q_last = min(q0 + BQ, T_) - 1;
+  const int pos_lo = offs + q0, pos_hi = offs + q_last;
+  int kv_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  int kv_end = causal ? min(S, pos_hi + 1) : S;
+  kv_begin = (kv_begin / BK) * BK;
+
+  const int qpos = offs + q0 + row;
+  float m = -INFINITY, l = 0.f;
+  float acc[DPT];
+#pragma unroll
+  for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
+
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
+    __syncthreads();                         // previous tile fully consumed
+    for (int idx = tid; idx < BK * D; idx += THREADS) {
+      const int r = idx / D, d = idx % D;
+      const int s = k0 + r;
+      float kx = 0.f, vx = 0.f;
+      if (s < S) {
+        const long g = ((long)(b * S + s) * K + kh) * D + d;
+        kx = load_f32(k, g);
+        vx = load_f32(v, g);
+      }
+      Ks[r * DS + d] = kx;
+      Vs[r * D + d] = vx;
+    }
+    __syncthreads();
+
+    // Scores of this lane: row `row`, keys sub + 4*j.
+    float s_[SCORES_PER_LANE];
+#pragma unroll
+    for (int j = 0; j < SCORES_PER_LANE; ++j) s_[j] = 0.f;
+    const float* qr = Qs + row * DS;
+    for (int d = 0; d < D; ++d) {
+      const float qd = qr[d];
+#pragma unroll
+      for (int j = 0; j < SCORES_PER_LANE; ++j)
+        s_[j] = fmaf(qd, Ks[(sub + LANES_PER_ROW * j) * DS + d], s_[j]);
+    }
+    float tile_max = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < SCORES_PER_LANE; ++j) {
+      const int kpos = k0 + sub + LANES_PER_ROW * j;
+      bool ok = kpos < S;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && kpos > qpos - window;
+      s_[j] = ok ? s_[j] * scale : -INFINITY;
+      tile_max = fmaxf(tile_max, s_[j]);
+    }
+#pragma unroll
+    for (int w = 1; w < LANES_PER_ROW; w <<= 1)
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, w));
+
+    const float m_new = fmaxf(m, tile_max);
+    // Until the row has seen a visible key, m_new is -inf: keep p = 0 and
+    // corr = 1 (acc and l are still 0) instead of exp(-inf - -inf).
+    const bool seen = m_new != -INFINITY;
+    const float corr = seen ? expf(m - m_new) : 1.f;
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < SCORES_PER_LANE; ++j) {
+      const float p = seen ? expf(s_[j] - m_new) : 0.f;   // exp(-inf) = 0
+      psum += p;
+      Ps[row * (BK + 1) + sub + LANES_PER_ROW * j] = p;
+    }
+#pragma unroll
+    for (int w = 1; w < LANES_PER_ROW; w <<= 1)
+      psum += __shfl_xor_sync(0xffffffffu, psum, w);
+    l = l * corr + psum;
+    m = m_new;
+    __syncwarp();                            // the row's P is written by its warp
+
+    const float* pr = Ps + row * (BK + 1);
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[c] *= corr;
+    for (int j = 0; j < BK; ++j) {
+      const float p = pr[j];
+      const float* vr = Vs + j * D;
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) {
+        const int d = sub + LANES_PER_ROW * c;
+        if (d < D) acc[c] = fmaf(p, vr[d], acc[c]);
+      }
+    }
+  }
+
+  const int t = q0 + row;
+  if (t < T_) {
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const long base = ((long)(b * T_ + t) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) {
+      const int d = sub + LANES_PER_ROW * c;
+      if (d < D) store_f32(o, base + d, acc[c] * inv);
+    }
+  }
+}
+
+template <typename T, int DPT>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int T_, int S, int H, int K, int D, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
+                       (size_t)BK * D + (size_t)BQ * (BK + 1));
+  auto kern = fa_fwd_kernel<T, DPT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_ + BQ - 1) / BQ, B * H);
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), T_, S, H, K, D, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
+                       int B, int T_, int S, int H, int K, int D, int causal,
+                       int window, float scale, cudaStream_t stream) {
+  if (D <= 32) return launch<T, 8>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 64) return launch<T, 16>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 128) return launch<T, 32>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 256) return launch<T, 64>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core path
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BQ = 64;          // query rows per block: 4 warps x 16 rows
+constexpr int BK = 64;          // keys per KV tile
+constexpr int THREADS = 128;
+constexpr int PAD = 8;          // bf16 elements of row padding (16 bytes)
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices, transposed; lanes 8i..8i+7 give matrix i's rows.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Fragment layouts are those of the PTX ISA for m16n8k16: lane = 4*g + t;
+// A holds rows g and g+8, columns 2t,2t+1 and 2t+8,2t+9; B holds rows (k)
+// 2t,2t+1 and 2t+8,2t+9 of column (n) g; C holds rows g and g+8, columns
+// 2t,2t+1.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, int T_, int S, int H, int K,
+                  int causal, int window, float scale_log2) {
+  constexpr int DP = D + PAD;       // row stride of the staged tiles
+  constexpr int KC = D / 16;        // k-chunks of QK^T over the head dim
+  constexpr int NS = BK / 8;        // score n-tiles per warp
+  constexpr int NO = D / 8;         // output n-tiles per warp
+  constexpr int CH = D / 8;         // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BQ * DP;
+  __nv_bfloat16* Vs = Ks + BK * DP;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  // Heaviest causal tiles (last queries) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int offs = S - T_;
+
+  for (int idx = tid; idx < BQ * CH; idx += THREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const int tq = q0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (tq < T_)
+      val = *reinterpret_cast<const uint4*>(q + ((long)(b * T_ + tq) * H + h) * D + c * 8);
+    *reinterpret_cast<uint4*>(Qs + r * DP + c * 8) = val;
+  }
+  __syncthreads();
+  uint32_t qf[KC][4];
+  const __nv_bfloat16* qw = Qs + warp * 16 * DP;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    qf[kc][0] = ld_u32(qw + g * DP + kc * 16 + 2 * t);
+    qf[kc][1] = ld_u32(qw + (g + 8) * DP + kc * 16 + 2 * t);
+    qf[kc][2] = ld_u32(qw + g * DP + kc * 16 + 8 + 2 * t);
+    qf[kc][3] = ld_u32(qw + (g + 8) * DP + kc * 16 + 8 + 2 * t);
+  }
+
+  const int q_last = min(q0 + BQ, T_) - 1;
+  const int pos_lo = offs + q0, pos_hi = offs + q_last;
+  int kv_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  const int kv_end = causal ? min(S, pos_hi + 1) : S;
+  kv_begin = (kv_begin / BK) * BK;
+
+  const int qpos[2] = {offs + q0 + warp * 16 + g, offs + q0 + warp * 16 + g + 8};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
+    __syncthreads();                         // previous tile fully consumed
+    for (int idx = tid; idx < BK * CH; idx += THREADS) {
+      const int r = idx / CH, c = idx % CH;
+      const int s = k0 + r;
+      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
+      if (s < S) {
+        const long gi = ((long)(b * S + s) * K + kh) * D + c * 8;
+        kx = *reinterpret_cast<const uint4*>(k + gi);
+        vx = *reinterpret_cast<const uint4*>(v + gi);
+      }
+      *reinterpret_cast<uint4*>(Ks + r * DP + c * 8) = kx;
+      *reinterpret_cast<uint4*>(Vs + r * DP + c * 8) = vx;
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const __nv_bfloat16* kr = Ks + (n * 8 + g) * DP + kc * 16 + 2 * t;
+        mma_bf16(sc[n], qf[kc], ld_u32(kr), ld_u32(kr + 8));
+      }
+    }
+
+    // Mask, scale into the log2 domain, running max per row.
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const int kpos = k0 + n * 8 + 2 * t + (i & 1);
+        bool ok = kpos < S;
+        if (causal) ok = ok && kpos <= qpos[r];
+        if (window > 0) ok = ok && kpos > qpos[r] - window;
+        const float x = ok ? sc[n][i] * scale_log2 : -INFINITY;
+        sc[n][i] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    }
+    float corr[2];
+    bool seen[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      seen[r] = m_new != -INFINITY;
+      corr[r] = seen[r] ? exp2f(m[r] - m_new) : 1.f;     // exp2(-inf) = 0
+      m[r] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const float p = seen[r] ? exp2f(sc[n][i] - m[r]) : 0.f;
+        sc[n][i] = p;
+        ps[r] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+      l[r] = l[r] * corr[r] + ps[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // O += P V: the score accumulators of key n-tiles 2j, 2j+1 are the A
+    // fragment of key chunk j.
+    const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
+                              pack_bf16(sc[2 * j][2], sc[2 * j][3]),
+                              pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
+                              pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(
+            vb, Vs + (j * 16 + (mi & 1) * 8 + mr) * DP + (n + (mi >> 1)) * 8);
+        mma_bf16(acc[n], pa, vb[0], vb[1]);
+        mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tq = q0 + warp * 16 + g + 8 * r;
+    if (tq < T_) {
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      __nv_bfloat16* orow = o + ((long)(b * T_ + tq) * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
+            pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int T_, int S, int H, int K, int causal, int window,
+                   float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + PAD);
+  auto kern = fa_fwd_mma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_ + BQ - 1) / BQ, B * H);
+  kern<<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T_,
+      S, H, K, causal, window, scale * LOG2E);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All tensors are
+// contiguous: q, o (B,T,H,D); k, v (B,S,K,D).  Returns the launch's
+// cudaError_t (0 on success); the kernel runs asynchronously on `stream`.
+extern "C" int repro_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    int T, int S, int H, int K, int D, int causal, int window, float scale,
+    void* stream) {
+  if (B <= 0 || T <= 0 || S <= 0 || K <= 0 || H % K != 0 || D <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dispatch_d<float>(q, k, v, o, B, T, S, H, K, D, causal, window, scale, st);
+  if (dtype == 1) {
+    // The tensor-core path loads 16-byte chunks: it needs aligned pointers.
+    const bool aligned =
+        ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+    if (aligned && D == 128) return (int)tc::launch<128>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
+    if (aligned && D == 64) return (int)tc::launch<64>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
+    if (aligned && D == 32) return (int)tc::launch<32>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
+    if (aligned && D == 16) return (int)tc::launch<16>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, B, T, S, H, K, D, causal, window, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}

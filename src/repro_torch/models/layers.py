@@ -1,0 +1,151 @@
+"""Shared neural building blocks: norms, RoPE, GQA attention, FFN, embedding.
+
+Ported from ``repro.models.layers``.  Each function takes its parameters as
+a mapping of tensors (a plain dict or an ``nn.ParameterDict``) in the
+reference's layouts: ``wq (D,H,hd)``, ``wk``/``wv (D,K,hd)``,
+``wo (H,hd,D)``, ``wi``/``wg (D,F)``, FFN ``wo (F,D)``, ``table (Vp,D)``,
+``head (D,Vp)``.  The f32 upcasts of the reference are kept exactly: norms,
+RoPE angles, the FFN gate's activation and attention scores.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+
+Params = Mapping[str, torch.Tensor]
+
+
+def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps)
+        y = y * p["scale"]
+    return y.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B,T,H,D) with even D; positions: (T,) or (B,T)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    if positions.dim() == 1:
+        ang = positions[None, :, None].float() * freqs      # (1,T,half)
+    else:
+        ang = positions[..., None].float() * freqs          # (B,T,half)
+    ang = ang[..., None, :]                                 # (.,T,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _qk_normalize(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps) * scale
+    return y.to(x.dtype)
+
+
+def attn_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+             positions: Optional[torch.Tensor],
+             kv_from: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project to (q, k, v); applies bias, qk-norm, RoPE."""
+    src = x if kv_from is None else kv_from
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    if cfg.qk_norm:
+        q = _qk_normalize(q, p["q_norm"])
+        k = _qk_normalize(k, p["k_norm"])
+    if positions is not None and kv_from is None:   # no RoPE on cross-attn
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bthk,hkd->btd", o, p["wo"])
+
+
+def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                 causal: bool = True, window: int = 0,
+                 positions: Optional[torch.Tensor] = None,
+                 kv_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill / encoder)."""
+    if positions is None and kv_from is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = attn_qkv(p, x, cfg, positions, kv_from)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    return attn_out(p, o)
+
+
+def attn_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                cache_k: torch.Tensor, cache_v: torch.Tensor, index: int, *,
+                window: int = 0, ring: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode.  x: (B,1,D); cache: (B,S,K,hd); index: position.
+
+    Writes the new K/V into ``cache_k``/``cache_v`` IN PLACE (the reference
+    returns updated copies) and returns them.  ``ring=True`` writes at
+    ``index % S`` (bounded local-window cache); positions stay absolute
+    for RoPE.
+    """
+    B = x.shape[0]
+    S = cache_k.shape[1]
+    pos = torch.full((B, 1), index, dtype=torch.int64, device=x.device)
+    q, k, v = attn_qkv(p, x, cfg, pos)
+    slot = index % S if ring else min(index, S - 1)
+    cache_k[:, slot] = k[:, 0]
+    cache_v[:, slot] = v[:, 0]
+    if ring:
+        # Ring cache: all S slots are valid once full; mask handles warmup.
+        o = ops.decode_attention(q, cache_k, cache_v, min(index + 1, S))
+    else:
+        o = ops.decode_attention(q, cache_k, cache_v, index + 1, window=window)
+    return attn_out(p, o), cache_k, cache_v
+
+
+def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = torch.einsum("btd,df->btf", x, p["wi"])
+    if cfg.ffn == "swiglu":
+        g = torch.einsum("btd,df->btf", x, p["wg"])
+        h = F.silu(g.float()).to(h.dtype) * h
+    elif cfg.ffn == "geglu":
+        g = torch.einsum("btd,df->btf", x, p["wg"])
+        h = F.gelu(g.float(), approximate="tanh").to(h.dtype) * h
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    return torch.einsum("btf,fd->btd", h, p["wo"])
+
+
+def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return p["table"][tokens] * math.sqrt(cfg.d_model)
+
+
+def unembed(p: Params, x: torch.Tensor,
+            cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    logits = torch.einsum("btd,dv->btv", x, p["head"])
+    Vp = p["head"].shape[-1]
+    if cfg is not None and Vp > cfg.vocab:
+        # Padded vocab slots never win argmax / contribute to logsumexp.
+        ids = torch.arange(Vp, device=logits.device)
+        mask = torch.where(ids < cfg.vocab, 0.0, -1e30)
+        logits = logits + mask.to(logits.dtype)
+    return logits
