@@ -4,17 +4,18 @@ The names of the reference's other architectures are known, so asking for
 one of them says it is not yet ported rather than that it does not exist.
 """
 
-from repro_torch.configs import qwen3_32b
+from repro_torch.configs import falcon_mamba_7b, qwen3_32b, recurrentgemma_9b
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen3-32b": qwen3_32b,
+    "falcon-mamba-7b": falcon_mamba_7b,
+    "recurrentgemma-9b": recurrentgemma_9b,
 }
 
 NOT_YET_PORTED = (
     "whisper-small", "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
-    "recurrentgemma-9b", "llama3-405b", "qwen2-72b", "starcoder2-3b",
-    "paligemma-3b", "falcon-mamba-7b",
+    "llama3-405b", "qwen2-72b", "starcoder2-3b", "paligemma-3b",
 )
 
 ARCHS = {name: mod.CONFIG for name, mod in _MODULES.items()}

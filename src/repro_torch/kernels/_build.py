@@ -15,8 +15,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -64,10 +65,20 @@ def build(source: str) -> Path:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<source>``; cached per process."""
+    """Build (if needed) and load ``csrc/<source>``; cached per process.
+    Builds of different sources may run in parallel threads."""
     with _LOCK:
         lib = _LOADED.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            _LOADED[source] = lib
-        return lib
+    if lib is None:
+        path = build(source)
+        with _LOCK:
+            lib = _LOADED.setdefault(source, ctypes.CDLL(str(path)))
+    return lib
+
+
+def load_all(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """Load several sources, with one ``nvcc`` per source, all started
+    together."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        return dict(zip(sources, pool.map(load, sources)))

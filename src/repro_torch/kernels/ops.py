@@ -1,18 +1,23 @@
 """Kernel entry points used by the model code.
 
-``flash_attention`` sends a CUDA tensor to the hand-written kernel and a CPU
-tensor to the plain version; there is no other route.  ``decode_attention``
-is plain torch, as the reference's is plain jnp (``repro.kernels.ops``).
+``flash_attention``, ``ssm_scan`` and ``rglru`` send a CUDA tensor to their
+hand-written kernel and a CPU tensor to the plain version; there is no other
+route.  The one-token decode functions ``decode_attention``, ``ssm_step``
+and ``rglru_step`` are plain torch, as the reference's are plain jnp
+(``repro.kernels.ops``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
 _NEG_INF = -1e30
 
@@ -54,3 +59,48 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrqs,bskd->bqkrd", p, v.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba1 selective scan.  Shapes as :func:`ref.ssm_scan_ref`."""
+    if x.is_cuda:
+        return ssm_scan_cuda(x.contiguous(), dt, A, B, C, D, h0)
+    return _ref.ssm_scan_ref(x, dt, A, B, C, D, h0)
+
+
+def ssm_step(xt: torch.Tensor, dtt: torch.Tensor, A: torch.Tensor,
+             Bt_: torch.Tensor, Ct: torch.Tensor, D: torch.Tensor,
+             h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  xt, dtt: (B,I); Bt_, Ct: (B,N); h: (B,I,N)."""
+    xf, dtf = xt.float(), dtt.float()
+    dA = torch.exp(dtf[..., None] * A[None])                 # (B,I,N)
+    dBx = dtf[..., None] * Bt_.float()[:, None, :] * xf[..., None]
+    h = dA * h.float() + dBx
+    y = torch.einsum("bin,bn->bi", h, Ct.float()) + xf * D[None].float()
+    return y.to(xt.dtype), h
+
+
+def rglru(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
+          log_lam: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+          c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU over a sequence.  Shapes as :func:`ref.rglru_ref`."""
+    if x.is_cuda:
+        return rglru_scan_cuda(x.contiguous(), a_gate.contiguous(),
+                               i_gate.contiguous(), log_lam, h0, c=c)
+    return _ref.rglru_ref(x, a_gate, i_gate, log_lam, h0, c=c)
+
+
+def rglru_step(xt: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
+               log_lam: torch.Tensor, h: torch.Tensor, *, c: float = 8.0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  xt, gates: (B,L); h: (B,L)."""
+    xf = xt.float()
+    lam = F.softplus(log_lam.float())
+    log_a = -c * lam[None] * torch.sigmoid(a_gate.float())
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    h = a * h.float() + mult * torch.sigmoid(i_gate.float()) * xf
+    return h.to(xt.dtype), h

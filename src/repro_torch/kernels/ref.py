@@ -7,9 +7,10 @@ holds each CUDA kernel against on the card.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,3 +40,58 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.nan_to_num(p, nan=0.0)             # fully-masked rows
     out = torch.einsum("bhts,bshd->bthd", p, v.float())
     return out.to(q.dtype)
+
+
+def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba1 selective scan, sequential.
+
+    x, dt: (Bt,T,I);  A: (I,N);  B, C: (Bt,T,N);  D: (I,).
+    h_t = exp(dt_t*A) h_{t-1} + dt_t * B_t * x_t;  y_t = C_t . h_t + D * x_t.
+    All math in f32; ``D*x`` is added in f32 before the cast to x's dtype.
+    Returns (y (Bt,T,I) in x's dtype, h_T (Bt,I,N) f32).  The reference
+    materializes exp(dt*A) for every step at once; here it is formed one
+    step at a time, which is the same arithmetic in less memory.
+    """
+    Bt, T, I = x.shape
+    N = A.shape[1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = B.float(), C.float()
+    h = (h0.float().clone() if h0 is not None
+         else torch.zeros((Bt, I, N), dtype=torch.float32, device=x.device))
+    ys = torch.empty((Bt, T, I), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        dA = torch.exp(dtf[:, t, :, None] * Af)                # (Bt,I,N)
+        dBx = dtf[:, t, :, None] * Bf[:, t, None, :] * xf[:, t, :, None]
+        h = dA * h + dBx
+        ys[:, t] = torch.einsum("bin,bn->bi", h, Cf[:, t])
+    y = ys + xf * D.float()
+    return y.to(x.dtype), h
+
+
+def rglru_ref(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
+              log_lam: torch.Tensor, h0: Optional[torch.Tensor] = None,
+              c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU (Griffin eq. 3-4), sequential over exactly T steps.
+
+    x, a_gate, i_gate: (B,T,L), gates pre-sigmoid;  log_lam: (L,).
+    h_t = a_t * h_{t-1} + sqrt(1-a_t^2) * sigmoid(i_t) * x_t,
+    a_t = exp(-c * softplus(log_lam) * sigmoid(a_gate_t)).
+    Returns (h sequence (B,T,L) in x's dtype, h_T (B,L) f32).
+    """
+    B, T, L = x.shape
+    lam = F.softplus(log_lam.float())
+    log_a = -c * lam * torch.sigmoid(a_gate.float())
+    a = torch.exp(log_a)
+    # sqrt(1 - a^2) from log_a, clamped away from 0 as in the reference
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    inp = mult * (torch.sigmoid(i_gate.float()) * x.float())
+    h = (h0.float().clone() if h0 is not None
+         else torch.zeros((B, L), dtype=torch.float32, device=x.device))
+    hs = torch.empty((B, T, L), dtype=torch.float32, device=x.device)
+    for t in range(T):
+        h = a[:, t] * h + inp[:, t]
+        hs[:, t] = h
+    return hs.to(x.dtype), h

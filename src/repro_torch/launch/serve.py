@@ -2,13 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-32b \\
         --layers 8 --batch 4 --prompt-len 1024 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+        --layers 8 --batch 4 --prompt-len 1024 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
+        --layers 8 --batch 4 --prompt-len 3000 --steps 32
 
 Runs on the CUDA card unless ``--device cpu`` is given; ``--device cuda``
 without a card raises.  Weights are random, drawn from ``--seed`` on the
 device; ``--layers`` cuts the depth, every width stays the architecture's.
 ``--tiny`` selects the architecture's tiny test config in f32, as the
 reference launcher does.  Prints prefill ms, decode ms/step and tok/s, with
-the clocks read after a device synchronize.
+the clocks read after a device synchronize.  The first prefill in a
+process also loads the CUDA kernels it runs, and in a fresh checkout
+builds them (``repro_torch.kernels._build``); ``launch.profile_serve``
+times warm runs.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ class ModelConfig:
     """One architecture.  Exact assigned values live in ``repro_torch.configs``.
 
     ``pattern`` is one period of the block layout, cycled over the depth
-    (recurrentgemma: ``("rglru", "rglru", "attn")``; mamba: ``("mamba",)``;
+    (recurrentgemma: ``("rglru", "rglru", "local")``; mamba: ``("mamba",)``;
     plain transformers: ``("attn",)``).
     """
 

@@ -6,12 +6,16 @@ reference's layouts: ``wq (D,H,hd)``, ``wk``/``wv (D,K,hd)``,
 ``wo (H,hd,D)``, ``wi``/``wg (D,F)``, FFN ``wo (F,D)``, ``table (Vp,D)``,
 ``head (D,Vp)``.  The f32 upcasts of the reference are kept exactly: norms,
 RoPE angles, the FFN gate's activation and attention scores.
+
+``*_params(cfg)`` give each parameter group's ``{name: (shape, dtype)}`` and
+``*_init_`` fill such a group in place with the reference's initialization
+(``repro.models.layers.*_init``), drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +24,81 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 Params = Mapping[str, torch.Tensor]
+Shapes = Dict[str, Tuple[tuple, torch.dtype]]
+
+
+def dense_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """Fill ``w`` with N(0,1)/sqrt(fan_in) drawn in f32 and cast to its dtype
+    (the reference's ``_dense``)."""
+    w.copy_(torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                        device=w.device) * fan_in ** -0.5)
+
+
+def norm_params(cfg: ModelConfig) -> Shapes:
+    names = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
+    return {n: ((cfg.d_model,), torch.float32) for n in names}
+
+
+def norm_init_(p: Params) -> None:
+    p["scale"].fill_(1.0)
+    if "bias" in p:
+        p["bias"].zero_()
+
+
+def attn_params(cfg: ModelConfig) -> Shapes:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": ((D, H, hd), cfg.dtype), "wk": ((D, K, hd), cfg.dtype),
+         "wv": ((D, K, hd), cfg.dtype), "wo": ((H, hd, D), cfg.dtype)}
+    if cfg.qkv_bias:
+        p.update(bq=((H, hd), torch.float32), bk=((K, hd), torch.float32),
+                 bv=((K, hd), torch.float32))
+    if cfg.qk_norm:
+        p.update(q_norm=((hd,), torch.float32), k_norm=((hd,), torch.float32))
+    return p
+
+
+def attn_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:
+    D = cfg.d_model
+    for name, fan_in in (("wq", D), ("wk", D), ("wv", D),
+                         ("wo", cfg.n_heads * cfg.head_dim)):
+        dense_(p[name], fan_in, generator)
+    for name in ("bq", "bk", "bv"):
+        if name in p:
+            p[name].zero_()
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name].fill_(1.0)
+
+
+def ffn_params(cfg: ModelConfig) -> Shapes:
+    D, Fd = cfg.d_model, cfg.d_ff
+    p = {"wi": ((D, Fd), cfg.dtype), "wo": ((Fd, D), cfg.dtype)}
+    if cfg.ffn in ("swiglu", "geglu"):
+        p["wg"] = ((D, Fd), cfg.dtype)
+    return p
+
+
+def ffn_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:
+    for name, fan_in in (("wi", cfg.d_model), ("wg", cfg.d_model),
+                         ("wo", cfg.d_ff)):
+        if name in p:
+            dense_(p[name], fan_in, generator)
+
+
+def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time.  u: (B,T,C); w: (W,C); b: (C,).
+
+    Summed tap by tap in u's dtype, as the reference's mixers do."""
+    W, T = w.shape[0], u.shape[1]
+    upad = F.pad(u, (0, 0, W - 1, 0))
+    return sum(upad[:, k:k + T] * w[k] for k in range(W)) + b.to(u.dtype)
+
+
+def conv_tail(u: torch.Tensor, W: int) -> torch.Tensor:
+    """The last W-1 steps of u (B,T,C), zero-padded in front when T < W-1:
+    the conv window a decode step continues from.  A fresh tensor, so the
+    cache does not keep u alive."""
+    return F.pad(u[:, -(W - 1):], (0, 0, max(W - 1 - u.shape[1], 0), 0))
 
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -1,0 +1,101 @@
+"""RecurrentGemma recurrent block: conv + RG-LRU gated linear recurrence.
+
+Ported from ``repro.models.rglru``.  Griffin-style: x -> two branches;
+branch 1: linear -> GeLU (gate); branch 2: linear -> causal conv (width 4)
+-> RG-LRU (:func:`repro_torch.kernels.ops.rglru`, the CUDA kernel on the
+card); merge by product -> out projection.  Decode state is (conv window,
+lru hidden), O(1) in context.  The reference's sharding specs do nothing on
+one card and are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = L.Params
+CONV_W = 4
+
+
+def rglru_params(cfg: ModelConfig) -> L.Shapes:
+    D, Lw = cfg.d_model, cfg.lru
+    f32 = torch.float32
+    return {
+        "w_gate": ((D, Lw), cfg.dtype),
+        "w_rec": ((D, Lw), cfg.dtype),
+        "conv_w": ((CONV_W, Lw), cfg.dtype),
+        "conv_b": ((Lw,), f32),
+        "w_a": ((Lw, Lw), cfg.dtype),
+        "w_i": ((Lw, Lw), cfg.dtype),
+        "log_lam": ((Lw,), f32),
+        "w_out": ((Lw, D), cfg.dtype),
+    }
+
+
+def rglru_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:
+    """The reference's ``rglru_init``: lambda such that a ~ U(0.9, 0.999) at
+    zero gate input."""
+    D, Lw = cfg.d_model, cfg.lru
+    for name, fan_in in (("w_gate", D), ("w_rec", D), ("conv_w", CONV_W),
+                         ("w_a", Lw), ("w_i", Lw), ("w_out", Lw)):
+        L.dense_(p[name], fan_in, generator)
+    p["conv_b"].zero_()
+    lam0 = torch.linspace(0.12, 0.9, Lw, dtype=torch.float32,
+                          device=p["log_lam"].device)
+    p["log_lam"].copy_(torch.log(torch.expm1(lam0)))      # softplus^-1
+
+
+def _branches(p: Params, x: torch.Tensor):
+    gate = torch.einsum("btd,dl->btl", x, p["w_gate"])
+    rec = torch.einsum("btd,dl->btl", x, p["w_rec"])
+    return gate, rec
+
+
+def rglru_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The mixer over a full sequence.  x: (B,T,D).  Returns (out (B,T,D),
+    the pre-conv branch rec (B,T,L), the final hidden state (B,L) f32)."""
+    gate, rec = _branches(p, x)
+    gate = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
+    conv = L.causal_conv(rec, p["conv_w"], p["conv_b"])
+    a_gate = torch.einsum("btl,lm->btm", conv, p["w_a"])
+    i_gate = torch.einsum("btl,lm->btm", conv, p["w_i"])
+    hs, hT = ops.rglru(conv, a_gate, i_gate, p["log_lam"])
+    return torch.einsum("btl,ld->btd", hs * gate, p["w_out"]), rec, hT
+
+
+def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Train / prefill.  x: (B,T,D)."""
+    return rglru_mix(p, x, cfg)[0]
+
+
+def rglru_cache_init(cfg: ModelConfig, batch: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    return {
+        "conv": torch.zeros((batch, CONV_W - 1, cfg.lru), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, cfg.lru), dtype=torch.float32, device=device),
+    }
+
+
+def rglru_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 cache: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token.  x: (B,1,D)."""
+    gate, rec = _branches(p, x)                           # (B,1,L)
+    gate = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
+    window = torch.cat([cache["conv"], rec], dim=1)       # (B,W,L)
+    conv = (torch.einsum("bwl,wl->bl", window, p["conv_w"])
+            + p["conv_b"].to(rec.dtype))
+    a_gate = torch.einsum("bl,lm->bm", conv, p["w_a"])
+    i_gate = torch.einsum("bl,lm->bm", conv, p["w_i"])
+    _, h = ops.rglru_step(conv, a_gate, i_gate, p["log_lam"], cache["h"])
+    y = h.to(x.dtype) * gate[:, 0]
+    out = torch.einsum("bl,ld->bd", y, p["w_out"])[:, None]
+    return out, {"conv": window[:, 1:], "h": h}

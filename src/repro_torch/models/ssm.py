@@ -1,0 +1,108 @@
+"""Mamba1 block (falcon-mamba-7b): gated selective-state-space mixer.
+
+Ported from ``repro.models.ssm``.  x -> in_proj -> (u, z); u -> causal
+depthwise conv -> silu -> selective scan (:func:`repro_torch.kernels.ops.ssm_scan`,
+the CUDA kernel on the card) -> gate by silu(z) -> out_proj.  Decode keeps
+(conv window of pre-conv inputs u, ssm state) as the recurrent cache, O(1)
+in context length.  The reference's sharding specs do nothing on one card
+and are dropped.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = L.Params
+
+
+def mamba_params(cfg: ModelConfig) -> L.Shapes:
+    D, I, R, N = cfg.d_model, cfg.inner, cfg.dtrank, cfg.ssm_state
+    f32 = torch.float32
+    return {
+        "in_proj": ((D, 2 * I), cfg.dtype),
+        "conv_w": ((cfg.ssm_conv, I), cfg.dtype),
+        "conv_b": ((I,), f32),
+        "x_proj": ((I, R + 2 * N), cfg.dtype),
+        "dt_proj": ((R, I), cfg.dtype),
+        "dt_bias": ((I,), f32),
+        "A_log": ((I, N), f32),
+        "D": ((I,), f32),
+        "out_proj": ((I, D), cfg.dtype),
+    }
+
+
+def mamba_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:
+    """The reference's ``mamba_init``: S4D-real A, dt bias softplus^-1(~0.01)."""
+    I, N = cfg.inner, cfg.ssm_state
+    for name, fan_in in (("in_proj", cfg.d_model), ("conv_w", cfg.ssm_conv),
+                         ("x_proj", I), ("dt_proj", cfg.dtrank), ("out_proj", I)):
+        L.dense_(p[name], fan_in, generator)
+    p["conv_b"].zero_()
+    p["dt_bias"].fill_(-4.6)
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=p["A_log"].device)
+    p["A_log"].copy_(torch.log(A).expand(I, N))
+    p["D"].fill_(1.0)
+
+
+def _split_xproj(p: Params, u: torch.Tensor, cfg: ModelConfig):
+    R, N = cfg.dtrank, cfg.ssm_state
+    proj = torch.einsum("...i,ir->...r", u, p["x_proj"])
+    dt_r, B, C = torch.split(proj, [R, N, N], dim=-1)
+    dt = torch.einsum("...r,ri->...i", dt_r, p["dt_proj"])
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    return dt, B, C
+
+
+def mamba_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The mixer over a full sequence.  x: (B,T,D).  Returns (out (B,T,D),
+    the pre-conv inputs u (B,T,I), the final ssm state (B,I,N) f32)."""
+    uz = torch.einsum("btd,di->bti", x, p["in_proj"])
+    u, z = torch.chunk(uz, 2, dim=-1)                     # (B,T,I) each
+    conv = L.causal_conv(u, p["conv_w"], p["conv_b"])
+    uc = F.silu(conv.float()).to(x.dtype)
+    dt, Bm, Cm = _split_xproj(p, uc, cfg)
+    A = -torch.exp(p["A_log"])                            # (I,N), negative
+    y, hT = ops.ssm_scan(uc, dt, A, Bm, Cm, p["D"])
+    y = y * F.silu(z.float()).to(y.dtype)
+    return torch.einsum("bti,id->btd", y, p["out_proj"]), u, hT
+
+
+def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Train / prefill over a full sequence.  x: (B,T,D)."""
+    return mamba_mix(p, x, cfg)[0]
+
+
+def mamba_cache_init(cfg: ModelConfig, batch: int, dtype,
+                     device) -> Dict[str, torch.Tensor]:
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.inner), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, cfg.inner, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 cache: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One token.  x: (B,1,D); cache: conv window (B,W-1,I) + state (B,I,N)."""
+    uz = torch.einsum("btd,di->bti", x, p["in_proj"])
+    u, z = torch.chunk(uz, 2, dim=-1)                     # (B,1,I)
+    window = torch.cat([cache["conv"], u], dim=1)         # (B,W,I)
+    conv = (torch.einsum("bwi,wi->bi", window, p["conv_w"])
+            + p["conv_b"].to(u.dtype))
+    ut = F.silu(conv.float()).to(x.dtype)                 # (B,I)
+    dt, Bm, Cm = _split_xproj(p, ut, cfg)
+    A = -torch.exp(p["A_log"])
+    yt, h = ops.ssm_step(ut, dt, A, Bm, Cm, p["D"], cache["h"])
+    yt = yt * F.silu(z[:, 0].float()).to(yt.dtype)
+    y = torch.einsum("bi,id->bd", yt, p["out_proj"])[:, None]
+    return y, {"conv": window[:, 1:], "h": h}

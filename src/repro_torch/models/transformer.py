@@ -1,70 +1,85 @@
-"""Model assembly for dense attention decoders (block pattern ``("attn",)``).
+"""Model assembly for decoder LMs built from a block pattern.
 
-Ported from ``repro.models.transformer``.  The reference scans stacked
-per-layer parameters; here the layers are an ``nn.ModuleList``, so layer
-``i`` holds what the reference keeps at index ``i`` of ``blocks.b0``.  The
-reference's sharding constraints and block-boundary optimization barrier
-do nothing on one card and are dropped.  Other block patterns, MoE,
-encoder-decoders and multimodal frontends raise ``NotImplementedError``.
+Ported from ``repro.models.transformer``.  Block types: ``attn`` (global
+causal attention), ``local`` (sliding-window attention with a ring KV
+cache), ``rglru`` (RecurrentGemma's recurrent block) and ``mamba`` (mamba1,
+mixer only).  Layer ``i`` has type ``cfg.pattern[i % len(cfg.pattern)]``.
+The reference scans stacked parameters over super-blocks (one period of the
+pattern) and unrolls the remainder; here the layers are an
+``nn.ModuleList`` in the same order, so port layer ``s*P + i`` holds index
+``s`` of the reference's ``blocks.b{i}`` and layer ``n_super*P + i`` its
+``rem{i}`` (see :func:`repro_torch.convert.params_from_reference`).  The
+reference's sharding constraints and block-boundary optimization barrier do
+nothing on one card and are dropped.  MoE, encoder-decoders and multimodal
+frontends raise ``NotImplementedError``.
 
 Entry points, as in the reference:
 * :meth:`Transformer.forward`     -- full-sequence logits.
-* :meth:`Transformer.prefill`     -- runs the prompt, builds the KV cache,
-  returns last-position logits.
+* :meth:`Transformer.prefill`     -- runs the prompt, builds the KV / state
+  cache, returns last-position logits.
 * :meth:`Transformer.decode_step` -- one token against the cache.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Cache = List[Dict[str, torch.Tensor]]
 
+# Mixer parameters of each block type: (shapes, in-place initializer).
+_MIXERS = {
+    "attn": (L.attn_params, L.attn_init_),
+    "local": (L.attn_params, L.attn_init_),
+    "rglru": (R.rglru_params, R.rglru_init_),
+    "mamba": (S.mamba_params, S.mamba_init_),
+}
 
-def _pdict(shapes: Dict[str, tuple], dtypes: Dict[str, torch.dtype],
-           device) -> nn.ParameterDict:
+
+def _pdict(shapes: L.Shapes, device) -> nn.ParameterDict:
     return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(shape, dtype=dtypes[name],
-                                       device=device), requires_grad=False)
-        for name, shape in shapes.items()
+        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                           requires_grad=False)
+        for name, (shape, dtype) in shapes.items()
     })
 
 
-def _norm(cfg: ModelConfig, device) -> nn.ParameterDict:
-    names = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
-    return _pdict({n: (cfg.d_model,) for n in names},
-                  {n: torch.float32 for n in names}, device)
-
-
 class Block(nn.Module):
-    """One attention block: norm1 -> attention -> norm2 -> FFN."""
+    """One block of type ``btype``: norm1 -> mixer, then norm2 -> FFN except
+    for ``mamba``, whose block is norm + mixer only."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, btype: str, cfg: ModelConfig, device):
         super().__init__()
-        D, H, K, hd, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, cfg.d_ff)
-        mixer = {"wq": (D, H, hd), "wk": (D, K, hd), "wv": (D, K, hd),
-                 "wo": (H, hd, D)}
-        dtypes = {n: cfg.dtype for n in mixer}
-        if cfg.qkv_bias:
-            mixer.update(bq=(H, hd), bk=(K, hd), bv=(K, hd))
-        if cfg.qk_norm:
-            mixer.update(q_norm=(hd,), k_norm=(hd,))
-        dtypes.update({n: torch.float32 for n in mixer if n not in dtypes})
-        ffn = {"wi": (D, Fd), "wo": (Fd, D)}
-        if cfg.ffn in ("swiglu", "geglu"):
-            ffn["wg"] = (D, Fd)
-        self.norm1 = _norm(cfg, device)
-        self.mixer = _pdict(mixer, dtypes, device)
-        self.norm2 = _norm(cfg, device)
-        self.ffn = _pdict(ffn, {n: cfg.dtype for n in ffn}, device)
+        self.btype = btype
+        self.norm1 = _pdict(L.norm_params(cfg), device)
+        self.mixer = _pdict(_MIXERS[btype][0](cfg), device)
+        if btype != "mamba":
+            self.norm2 = _pdict(L.norm_params(cfg), device)
+            self.ffn = _pdict(L.ffn_params(cfg), device)
+
+
+def _fill_kv(c: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+             ring: bool) -> None:
+    """Write the prompt's K/V into the cache in place.  ``ring``: the cache
+    holds the last S_ positions, token t at slot t % S_."""
+    S_, T = c["k"].shape[1], k.shape[1]
+    if ring:
+        # The last S_ chronological KVs are a rotation by T % S_.
+        k, v = k[:, -S_:], v[:, -S_:]
+        if T >= S_:
+            k, v = torch.roll(k, T % S_, dims=1), torch.roll(v, T % S_, dims=1)
+    else:
+        k, v = k[:, :S_], v[:, :S_]
+    c["k"][:, :k.shape[1]] = k
+    c["v"][:, :v.shape[1]] = v
 
 
 class Transformer(nn.Module):
@@ -76,34 +91,51 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if (cfg.kind != "decoder" or tuple(cfg.pattern) != ("attn",)
-                or cfg.is_moe or cfg.frontend):
+        if (cfg.kind != "decoder" or cfg.is_moe or cfg.frontend
+                or any(b not in _MIXERS for b in cfg.pattern)):
             raise NotImplementedError(
-                f"{cfg.name}: only dense decoders with pattern ('attn',) are "
-                f"ported (kind={cfg.kind}, pattern={cfg.pattern}, "
+                f"{cfg.name}: only decoders made of {sorted(_MIXERS)} blocks "
+                f"are ported (kind={cfg.kind}, pattern={cfg.pattern}, "
                 f"moe_experts={cfg.moe_experts}, frontend={cfg.frontend!r})")
         self.cfg = cfg
         Vp, D = cfg.vocab_padded, cfg.d_model
-        self.embed = _pdict({"table": (Vp, D), "head": (D, Vp)},
-                            {"table": cfg.dtype, "head": cfg.dtype}, device)
-        self.layers = nn.ModuleList(Block(cfg, device)
-                                    for _ in range(cfg.n_layers))
-        self.final_norm = _norm(cfg, device)
+        self.embed = _pdict({"table": ((Vp, D), cfg.dtype),
+                             "head": ((D, Vp), cfg.dtype)}, device)
+        P = len(cfg.pattern)
+        self.layers = nn.ModuleList(Block(cfg.pattern[i % P], cfg, device)
+                                    for i in range(cfg.n_layers))
+        self.final_norm = _pdict(L.norm_params(cfg), device)
 
     @property
     def device(self) -> torch.device:
         return self.embed["table"].device
 
     # -- full sequence --------------------------------------------------------
-    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """One block over the whole sequence; returns (x, k, v)."""
+    def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+               cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """One block over the whole sequence; fills ``cache`` in place when
+        given (prefill)."""
         cfg = self.cfg
         h = L.apply_norm(blk.norm1, x, cfg)
-        q, k, v = L.attn_qkv(blk.mixer, h, cfg, positions)
-        x = x + L.attn_out(blk.mixer, ops.flash_attention(q, k, v, causal=True))
+        if blk.btype == "mamba":
+            mix, st = _mamba_prefill(blk.mixer, h, cfg)
+            if cache is not None:
+                cache.update(st)
+            return x + mix
+        if blk.btype == "rglru":
+            mix, rec, hT = R.rglru_mix(blk.mixer, h, cfg)
+            if cache is not None:
+                cache.update(conv=L.conv_tail(rec, R.CONV_W), h=hT)
+        else:
+            window = cfg.local_window if blk.btype == "local" else 0
+            q, k, v = L.attn_qkv(blk.mixer, h, cfg, positions)
+            mix = L.attn_out(blk.mixer, ops.flash_attention(
+                q, k, v, causal=True, window=window))
+            if cache is not None:
+                _fill_kv(cache, k, v, ring=blk.btype == "local")
+        x = x + mix
         h2 = L.apply_norm(blk.norm2, x, cfg)
-        return x + L.ffn_forward(blk.ffn, h2, cfg), k, v
+        return x + L.ffn_forward(blk.ffn, h2, cfg)
 
     def forward(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,18 +144,30 @@ class Transformer(nn.Module):
         x = L.embed(self.embed, tokens, cfg)
         positions = torch.arange(x.shape[1], device=x.device)
         for blk in self.layers:
-            x, _, _ = self._block(blk, x, positions)
+            x = self._block(blk, x, positions)
         x = L.apply_norm(self.final_norm, x, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return L.unembed(self.embed, x, cfg), aux
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:
-        cfg = self.cfg
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
-                for _ in self.layers]
+        """Per layer: ``{"k", "v"}`` for attention (a ring of
+        ``min(max_len, local_window)`` slots for ``local``), ``{"conv", "h"}``
+        for ``rglru`` and ``mamba``."""
+        cfg, dev = self.cfg, self.device
+        cache: Cache = []
+        for blk in self.layers:
+            if blk.btype == "rglru":
+                cache.append(R.rglru_cache_init(cfg, batch, cfg.dtype, dev))
+            elif blk.btype == "mamba":
+                cache.append(S.mamba_cache_init(cfg, batch, cfg.dtype, dev))
+            else:
+                S_ = (min(max_len, cfg.local_window) if blk.btype == "local"
+                      else max_len)
+                shape = (batch, S_, cfg.n_kv_heads, cfg.head_dim)
+                cache.append({"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                              "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)})
+        return cache
 
     def prefill(self, tokens: torch.Tensor, max_len: int
                 ) -> Tuple[torch.Tensor, Cache]:
@@ -134,11 +178,8 @@ class Transformer(nn.Module):
         x = L.embed(self.embed, tokens, cfg)
         positions = torch.arange(T, device=x.device)
         cache = self.init_cache(B, max_len)
-        n = min(T, max_len)
         for blk, c in zip(self.layers, cache):
-            x, k, v = self._block(blk, x, positions)
-            c["k"][:, :n] = k[:, :n]
-            c["v"][:, :n] = v[:, :n]
+            x = self._block(blk, x, positions, c)
         x = L.apply_norm(self.final_norm, x[:, -1:], cfg)
         return L.unembed(self.embed, x, cfg), cache
 
@@ -150,8 +191,19 @@ class Transformer(nn.Module):
         x = L.embed(self.embed, tokens, cfg)
         for blk, c in zip(self.layers, cache):
             h = L.apply_norm(blk.norm1, x, cfg)
-            mix, c["k"], c["v"] = L.attn_decode(blk.mixer, h, cfg, c["k"],
-                                                c["v"], index)
+            if blk.btype == "mamba":
+                mix, st = S.mamba_decode(blk.mixer, h, cfg, c)
+                c.update(st)
+                x = x + mix
+                continue
+            if blk.btype == "rglru":
+                mix, st = R.rglru_decode(blk.mixer, h, cfg, c)
+                c.update(st)
+            else:
+                local = blk.btype == "local"
+                mix, c["k"], c["v"] = L.attn_decode(
+                    blk.mixer, h, cfg, c["k"], c["v"], index,
+                    window=cfg.local_window if local else 0, ring=local)
             x = x + mix
             h2 = L.apply_norm(blk.norm2, x, cfg)
             x = x + L.ffn_forward(blk.ffn, h2, cfg)
@@ -159,28 +211,32 @@ class Transformer(nn.Module):
         return L.unembed(self.embed, x, cfg), cache
 
 
+def _mamba_prefill(p: L.Params, x: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The mamba mixer over the prompt, with its decode state: the last W-1
+    pre-conv inputs u (not the conv output) and the final ssm state."""
+    out, u, hT = S.mamba_mix(p, x, cfg)
+    return out, {"conv": L.conv_tail(u, cfg.ssm_conv), "h": hT}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Transformer:
     """A model with the reference's initialization scheme: dense weights
     N(0,1)/sqrt(fan_in) drawn in f32 and cast to ``cfg.dtype``; norm and
-    qk-norm scales 1, biases 0.  ``generator`` must live on ``device``.
+    qk-norm scales 1, biases 0; the recurrent mixers' constants as in
+    ``repro.models.ssm.mamba_init`` and ``repro.models.rglru.rglru_init``.
+    ``generator`` must live on ``device``.
     """
     model = Transformer(cfg, device=device)
     D = cfg.d_model
-    fan_in = {("embed", "table"): D, ("embed", "head"): D,
-              ("mixer", "wq"): D, ("mixer", "wk"): D, ("mixer", "wv"): D,
-              ("mixer", "wo"): cfg.n_heads * cfg.head_dim,
-              ("ffn", "wi"): D, ("ffn", "wg"): D, ("ffn", "wo"): cfg.d_ff}
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            group, leaf = name.split(".")[-2:]
-            if (group, leaf) in fan_in:
-                w = torch.randn(p.shape, generator=generator,
-                                dtype=torch.float32, device=p.device)
-                p.copy_(w * fan_in[group, leaf] ** -0.5)
-                del w
-            elif leaf in ("scale", "q_norm", "k_norm"):
-                p.fill_(1.0)
-            else:
-                p.zero_()
+        L.dense_(model.embed["table"], D, generator)
+        L.dense_(model.embed["head"], D, generator)
+        L.norm_init_(model.final_norm)
+        for blk in model.layers:
+            L.norm_init_(blk.norm1)
+            _MIXERS[blk.btype][1](blk.mixer, cfg, generator)
+            if blk.btype != "mamba":
+                L.norm_init_(blk.norm2)
+                L.ffn_init_(blk.ffn, cfg, generator)
     return model

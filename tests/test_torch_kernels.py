@@ -116,18 +116,23 @@ def test_flash_attention_cuda_rejects_cpu_tensors():
         flash_attention_cuda(q, k, k)
 
 
-def test_ctypes_signature_matches_cuda_source():
+@pytest.mark.parametrize("module,symbol", [
+    ("flash_attention", "repro_flash_attention_fwd"),
+    ("ssm_scan", "repro_ssm_scan_fwd"),
+    ("rglru_scan", "repro_rglru_scan_fwd"),
+])
+def test_ctypes_signature_matches_cuda_source(module, symbol):
     """The ctypes argument list agrees with the C entry point's prototype."""
     import ctypes
+    import importlib
     import re
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-    src = (_build.CSRC / fa.SOURCE).read_text()
-    proto = re.search(r'extern "C" int repro_flash_attention_fwd\((.*?)\)',
-                      src, re.S).group(1)
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    src = (_build.CSRC / mod.SOURCE).read_text()
+    proto = re.search(rf'extern "C" int {symbol}\((.*?)\)', src, re.S).group(1)
     ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
              "float": ctypes.c_float}
     types = [re.fullmatch(r"(?:const\s+)?(\w+\s*\*?)\s*\w+", p.strip()).group(1)
              for p in proto.split(",")]
-    assert [ctype[t.replace(" ", "")] for t in types] == fa.ARGTYPES
+    assert [ctype[t.replace(" ", "")] for t in types] == mod.ARGTYPES

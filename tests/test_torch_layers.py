@@ -67,7 +67,7 @@ def test_registry_ports_qwen3_and_names_the_rest():
     assert tiny_config("qwen3-32b") is tqwen.TINY
     assert tqwen.CONFIG.vocab_padded == 152064
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("falcon-mamba-7b")
+        get_config("whisper-small")
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
 

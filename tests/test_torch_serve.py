@@ -111,9 +111,10 @@ def test_bf16_conversion_is_bit_exact():
 
 
 def test_unported_patterns_raise():
-    cfg = dataclasses.replace(ttiny(ARCH), pattern=("mamba",))
-    with pytest.raises(NotImplementedError):
-        TT.Transformer(cfg, device="cpu")
+    for kw in (dict(pattern=("attn", "moe")), dict(kind="encdec"),
+               dict(frontend="vision")):
+        with pytest.raises(NotImplementedError):
+            TT.Transformer(dataclasses.replace(ttiny(ARCH), **kw), device="cpu")
     with pytest.raises(NotImplementedError):
         TT.Transformer(dataclasses.replace(ttiny(ARCH), moe_experts=4,
                                            moe_topk=2), device="cpu")
