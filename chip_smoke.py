@@ -7,25 +7,49 @@ Phases, each printed as it ends; any failure raises and exits nonzero
 without the final result line:
 
 1. Device: the card's name and power limit, from nvidia-smi.
-2. Build: every CUDA kernel of the serving paths (flash attention, the
-   selective scan, the RG-LRU), compiled from the sources under
+2. Build: every CUDA kernel of the serving and training paths (flash
+   attention forward and backward, the selective scan, the RG-LRU, int8
+   quantization), compiled from the sources under
    src/repro_torch/kernels/csrc with one nvcc per source, all started
    together.
 3. Kernel against plain: each kernel's wrapper against its plain PyTorch
    version on the card, over the reference's kernel test cases, cases
    beyond them (an initial state, T not a multiple of the time tile,
-   channels not a multiple of the block) and the main-path shapes, in f32
-   and bf16.  Tolerances: f32 atol/rtol 1e-4, bf16 outputs 2e-2, the scans'
-   f32 final states 1e-4.
+   channels not a multiple of the block, rows that see no key, rounding
+   ties, a row of zeros) and the main-path shapes, in f32 and bf16.
+   Tolerances: f32 atol/rtol 1e-4, bf16 outputs 2e-2, the scans' f32 final
+   states 1e-4; the flash forward's log-sum-exp (written for the backward)
+   against a plain logsumexp at 1e-4, with its output bit-identical to the
+   forward without it; the flash backward's dQ, dK, dV against autograd of
+   the plain attention at the same f32 / bf16 tolerances; quantization's
+   int8 codes exactly equal and its scales within 1e-6.
 4. Whole models at full width, f32, kernels against plain (atol 1e-3 on
    the last-position logits): qwen3-32b 2 layers, B=1, T=256;
    falcon-mamba-7b 2 layers, B=1, T=256; recurrentgemma-9b 3 layers (one
    rglru, rglru, local super-block), B=1, T=2100, past its 2048 window.
-5. Main paths: ``repro_torch.launch.serve`` at full width, bf16, batch 4,
-   32 greedy decode steps, with every kernel's launch count set to 0 just
-   before each run and read just after: qwen3-32b 8 layers, prompt 1024
+   Then one starcoder2-3b train step (2 layers, B=2, T=256, AdamW lr 3e-4)
+   with the flash kernels against the same step on plain attention: loss,
+   grad norm and every updated parameter within 1e-3, and each leaf's
+   gradient, read from its first moment ((1-b1) * clip * g after one step
+   from zero), within 1e-3 of that leaf's norm; and the step with 2
+   microbatches against 1 on the card, held to the same checks.
+5. Main paths, with every kernel's launch count set to 0 just before each
+   run and read just after.  ``repro_torch.launch.serve`` at full width,
+   bf16, batch 4, 32 greedy decode steps: qwen3-32b 8 layers, prompt 1024
    (flash 8); falcon-mamba-7b 8 layers, prompt 1024 (ssm 8);
    recurrentgemma-9b 8 layers, prompt 3000 (rglru 6, flash 2).
+   ``repro_torch.launch.train`` for starcoder2-3b at full width, 8 layers,
+   bf16, B=4, T=1024, 3 steps on fresh batches: with remat, 16 flash
+   forward and 8 flash backward launches per step; the loss is finite.
+   The trained state then takes 3 more steps of the same train step on one
+   batch, where the loss must fall (the reference's memorization check,
+   tests/test_train.py).  Then the gradients of one more loss go through
+   one error-feedback int8 round (``train.grad_compress.ef_round``) leaf
+   by leaf, one quantize launch per leaf: each leaf's codes must equal the
+   plain quantization's of ``g + err`` exactly and its scales within 1e-6,
+   ``decompress + new_err`` must give back ``g + err`` (relative 1e-6), and
+   ``|new_err| <= scale/2`` on every row (up to the f32 rounding of
+   x/scale and q*scale, 2**-15 of the scale).
 6. Times at the main-path shapes: kernel, plain version, the least time
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
@@ -39,6 +63,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -79,6 +104,12 @@ EXTRA_CASES = [
 ]
 MAIN_SHAPE = (4, 1024, 1024, 64, 8, 128, True, 0)      # qwen3-32b prefill, B=4
 LOCAL_SHAPE = (4, 3000, 3000, 16, 1, 256, True, 2048)  # recurrentgemma local
+TRAIN_SHAPE = (4, 1024, 1024, 24, 2, 128, True, 0)     # starcoder2-3b train, B=4
+# Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
+# ties, and the largest gradient leaf of the starcoder2-3b main path (the
+# (3072, 12288) FFN matrix cut into 1024-wide rows by grad_compress._rows).
+QUANT_CASES = [(8, 16), (7, 33), (128, 256), (1, 5), "zero-row", "ties"]
+QUANT_MAIN = (36864, 1024)
 # Bt, T, I, N, with h0 -- tests/test_kernels.py SSM_CASES, then an initial
 # state, T past the 16-step tile (20, 1000), I not a multiple of the
 # 128-channel block, and the falcon-mamba-7b prefill shape.
@@ -102,6 +133,9 @@ def serve_args(arch: str, prompt: int) -> list:
 MAIN_PATHS = [("qwen3-32b", serve_args("qwen3-32b", 1024)),
               ("falcon-mamba-7b", serve_args("falcon-mamba-7b", 1024)),
               ("recurrentgemma-9b", serve_args("recurrentgemma-9b", 3000))]
+TRAIN_ARGS = ["--arch", "starcoder2-3b", "--layers", "8", "--batch", "4",
+              "--seq", "1024", "--steps", "3", "--device", "cuda", "--seed", "0"]
+MEMORIZE_STEPS = 3
 
 
 def phase(n: int, name: str, detail: str = "") -> None:
@@ -162,6 +196,22 @@ def rglru_inputs(torch, case, dtype, seed):
     return x, a, i, randn(torch, g, (L,)), (randn(torch, g, (B, L)) if with_h0 else None)
 
 
+def quant_input(torch, case, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if case == "zero-row":
+        x = 3 * randn(torch, g, (4, 40))
+        x[2] = 0.0
+    elif case == "ties":
+        # amax 127 and 254 give scales 1 and 2, so x/scale lands on .5 ties.
+        h = torch.arange(64, device="cuda", dtype=torch.float32) % 8 - 3.5
+        r1, r2 = h.clone(), 2 * h
+        r1[0], r2[-1] = 127.0, -254.0
+        x = torch.stack([r1, r2, -r1])
+    else:
+        x = 3 * randn(torch, g, case)
+    return x.to(dtype)
+
+
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -204,6 +254,23 @@ def compare(torch, got, want, tol, what):
     return err.max().item()
 
 
+def lse_plain(torch, q, k, causal: bool, window: int):
+    """Each query row's log-sum-exp of its scaled, masked scores, (B,H,T)
+    f32; -inf where a row sees no key."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // K, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), kf) * D ** -0.5
+    qpos = torch.arange(T, device=q.device)[:, None] + (S - T)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+
+
 def main() -> int:
     import torch
 
@@ -221,13 +288,35 @@ def main() -> int:
 
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.launch import serve
+    from repro_torch.launch import train as train_launch
     from repro_torch.models.transformer import init_params
     from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train import grad_compress as gc_
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (loss_fn, make_train_step,
+                                              train_state_init)
 
-    kernels = {"flash_attention": fa, "ssm_scan": ss, "rglru_scan": rs}
+    # name -> (module, its source attribute, its launch counter)
+    kernels = {"flash_attention": (fa, "SOURCE", "LAUNCHES"),
+               "flash_attention_bwd": (fa, "BWD_SOURCE", "BWD_LAUNCHES"),
+               "ssm_scan": (ss, "SOURCE", "LAUNCHES"),
+               "rglru_scan": (rs, "SOURCE", "LAUNCHES"),
+               "quantize": (qz, "SOURCE", "LAUNCHES")}
+    sources = [getattr(m, src) for m, src, _ in kernels.values()]
+
+    def reset_counts():
+        for m, _, counter in kernels.values():
+            setattr(m, counter, 0)
+
+    def read_counts():
+        return {name: getattr(m, counter)
+                for name, (m, _, counter) in kernels.items()}
+
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
     # -- 1. device ------------------------------------------------------------
@@ -242,56 +331,132 @@ def main() -> int:
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load_all(m.SOURCE for m in kernels.values())
-    phase(2, "build", f"{', '.join(m.SOURCE for m in kernels.values())} in "
+    _build.load_all(sources)
+    phase(2, "build", f"{', '.join(sources)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernels against plain ---------------------------------------------
     main_err = {}
     n_cases = 0
+    with torch.inference_mode():
+        for dtype, tol in tols.items():
+            for i, case in enumerate(ATTN_CASES + EXTRA_CASES
+                                     + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE]):
+                causal, window = case[6], case[7]
+                q, k, v = attn_inputs(torch, case, dtype, seed=i)
+                got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+                want = ref.attention_ref(q, k, v, causal=causal, window=window)
+                err = compare(torch, got, want, tol, f"flash_attention_cuda {case} {dtype}")
+                if dtype == torch.bfloat16 and case in (MAIN_SHAPE, LOCAL_SHAPE,
+                                                        TRAIN_SHAPE):
+                    main_err[("flash_attention", case)] = err
+                # The forward as training calls it, writing the log-sum-exp.
+                o, lse = fa._forward(q, k, v, causal, window, case[5] ** -0.5,
+                                     with_lse=True)
+                check(torch.equal(o, got), f"flash_attention_cuda {case} {dtype}: "
+                      "output with the log-sum-exp differs from without")
+                lse_want = lse_plain(torch, q, k, causal, window)
+                fin = torch.isfinite(lse_want)
+                check(torch.equal(fin, torch.isfinite(lse)),
+                      f"flash_attention_cuda lse {case} {dtype}: rows that see "
+                      "no key differ from plain")
+                lerr = compare(torch, lse[fin], lse_want[fin], 1e-4,
+                               f"flash_attention_cuda lse {case} {dtype}")
+                if dtype == torch.bfloat16 and case == TRAIN_SHAPE:
+                    main_err["flash_lse"] = lerr
+                n_cases += 1
+                del q, k, v, got, want, o, lse, lse_want, fin
+                free()
+            for i, case in enumerate(SSM_CASES + [SSM_MAIN]):
+                args = ssm_inputs(torch, case, dtype, seed=100 + i)
+                y, hT = ss.ssm_scan_cuda(*args)
+                y_ref, hT_ref = ref.ssm_scan_ref(*args)
+                err = compare(torch, y, y_ref, tol, f"ssm_scan_cuda y {case} {dtype}")
+                compare(torch, hT, hT_ref, 1e-4, f"ssm_scan_cuda h_T {case} {dtype}")
+                if dtype == torch.bfloat16 and case == SSM_MAIN:
+                    main_err["ssm_scan"] = err
+                n_cases += 1
+                del args, y, hT, y_ref, hT_ref
+                free()
+            for i, case in enumerate(RGLRU_CASES + [RGLRU_MAIN]):
+                args = rglru_inputs(torch, case, dtype, seed=200 + i)
+                hs, hT = rs.rglru_scan_cuda(*args)
+                hs_ref, hT_ref = ref.rglru_ref(*args)
+                err = compare(torch, hs, hs_ref, tol, f"rglru_scan_cuda h {case} {dtype}")
+                compare(torch, hT, hT_ref, 1e-4, f"rglru_scan_cuda h_T {case} {dtype}")
+                if dtype == torch.bfloat16 and case == RGLRU_MAIN:
+                    main_err["rglru_scan"] = err
+                n_cases += 1
+                del args, hs, hT, hs_ref, hT_ref
+                free()
+            for i, case in enumerate(QUANT_CASES + [QUANT_MAIN]):
+                x = quant_input(torch, case, dtype, seed=300 + i)
+                q, s = qz.quantize_cuda(x)
+                q_ref, s_ref = ref.quantize_ref(x)
+                diff = int((q != q_ref).sum())
+                check(diff == 0, f"quantize_cuda {case} {dtype}: {diff} int8 "
+                      "codes differ from plain")
+                err = compare(torch, s, s_ref, 1e-6, f"quantize_cuda scale {case} {dtype}")
+                if dtype == torch.float32 and case == QUANT_MAIN:
+                    main_err["quantize"] = err
+                n_cases += 1
+                del x, q, s, q_ref, s_ref
+                free()
+    # The backward needs grad: autograd through the kernels against autograd
+    # through the plain attention, on the same inputs and output gradient.
+    # The plain side runs in f32 on the inputs' values: in bf16 its autograd
+    # rounds each query head's dK/dV to bf16 before summing the GQA group,
+    # which alone misses the f32 gradient by up to 0.06 (the kernel sums in
+    # f32 and rounds once).
     for dtype, tol in tols.items():
-        for i, case in enumerate(ATTN_CASES + EXTRA_CASES + [MAIN_SHAPE, LOCAL_SHAPE]):
+        for i, case in enumerate(ATTN_CASES + EXTRA_CASES
+                                 + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE]):
             causal, window = case[6], case[7]
-            q, k, v = attn_inputs(torch, case, dtype, seed=i)
-            got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
-            want = ref.attention_ref(q, k, v, causal=causal, window=window)
-            err = compare(torch, got, want, tol, f"flash_attention_cuda {case} {dtype}")
-            if dtype == torch.bfloat16 and case in (MAIN_SHAPE, LOCAL_SHAPE):
-                main_err[("flash_attention", case)] = err
+            q, k, v = (x.requires_grad_() for x in
+                       attn_inputs(torch, case, dtype, seed=400 + i))
+            dout = randn(torch, torch.Generator(device="cuda").manual_seed(500 + i),
+                         q.shape, dtype)
+            got = torch.autograd.grad(
+                fa.flash_attention_cuda(q, k, v, causal=causal, window=window),
+                (q, k, v), dout)
+            qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+            want = torch.autograd.grad(
+                ref.attention_ref(qf, kf, vf, causal=causal, window=window),
+                (qf, kf, vf), dout.float())
+            errs = [compare(torch, g, w, tol,
+                            f"flash_attention backward d{name} {case} {dtype}")
+                    for name, g, w in zip("qkv", got, want)]
+            if dtype == torch.bfloat16 and case == TRAIN_SHAPE:
+                main_err["flash_attention_bwd"] = max(errs)
             n_cases += 1
-            del q, k, v, got, want
-            free()
-        for i, case in enumerate(SSM_CASES + [SSM_MAIN]):
-            args = ssm_inputs(torch, case, dtype, seed=100 + i)
-            y, hT = ss.ssm_scan_cuda(*args)
-            y_ref, hT_ref = ref.ssm_scan_ref(*args)
-            err = compare(torch, y, y_ref, tol, f"ssm_scan_cuda y {case} {dtype}")
-            compare(torch, hT, hT_ref, 1e-4, f"ssm_scan_cuda h_T {case} {dtype}")
-            if dtype == torch.bfloat16 and case == SSM_MAIN:
-                main_err["ssm_scan"] = err
-            n_cases += 1
-            del args, y, hT, y_ref, hT_ref
-            free()
-        for i, case in enumerate(RGLRU_CASES + [RGLRU_MAIN]):
-            args = rglru_inputs(torch, case, dtype, seed=200 + i)
-            hs, hT = rs.rglru_scan_cuda(*args)
-            hs_ref, hT_ref = ref.rglru_ref(*args)
-            err = compare(torch, hs, hs_ref, tol, f"rglru_scan_cuda h {case} {dtype}")
-            compare(torch, hT, hT_ref, 1e-4, f"rglru_scan_cuda h_T {case} {dtype}")
-            if dtype == torch.bfloat16 and case == RGLRU_MAIN:
-                main_err["rglru_scan"] = err
-            n_cases += 1
-            del args, hs, hT, hs_ref, hT_ref
+            del q, k, v, qf, kf, vf, dout, got, want
             free()
     phase(3, "kernels against plain",
-          f"{n_cases} cases; main-path bf16 max abs err: flash qwen3 "
-          f"{main_err[('flash_attention', MAIN_SHAPE)]:.3e}, flash local "
-          f"{main_err[('flash_attention', LOCAL_SHAPE)]:.3e}, ssm "
-          f"{main_err['ssm_scan']:.3e}, rglru {main_err['rglru_scan']:.3e}")
+          f"{n_cases} cases; main-path max abs err: flash qwen3 bf16 "
+          f"{main_err[('flash_attention', MAIN_SHAPE)]:.3e}, flash local bf16 "
+          f"{main_err[('flash_attention', LOCAL_SHAPE)]:.3e}, flash starcoder2 "
+          f"bf16 {main_err[('flash_attention', TRAIN_SHAPE)]:.3e} (its lse "
+          f"{main_err['flash_lse']:.3e}), ssm bf16 "
+          f"{main_err['ssm_scan']:.3e}, rglru bf16 {main_err['rglru_scan']:.3e}, "
+          f"flash backward starcoder2 bf16 {main_err['flash_attention_bwd']:.3e} "
+          "(against f32 autograd of plain), "
+          f"quantize scales f32 {main_err['quantize']:.3e} (codes equal)")
 
     # -- 4. whole models at full width, kernels against plain -----------------
     plain = {"flash_attention": ref.attention_ref, "ssm_scan": ref.ssm_scan_ref,
              "rglru": ref.rglru_ref}
+
+    def on_plain(fn):
+        """fn() with ops' kernel entry points swapped for the plain versions."""
+        saved = {name: getattr(ops, name) for name in plain}
+        for name, f in plain.items():
+            setattr(ops, name, f)
+        try:
+            return fn()
+        finally:
+            for name, f in saved.items():
+                setattr(ops, name, f)
+
     details = []
     for arch, layers, T in (("qwen3-32b", 2, 256), ("falcon-mamba-7b", 2, 256),
                             ("recurrentgemma-9b", 3, 2100)):
@@ -303,14 +468,7 @@ def main() -> int:
                              generator=torch.Generator(device="cuda").manual_seed(2))
         with torch.inference_mode():
             with_kernel, cache_k = model.prefill(toks, T)
-            saved = {name: getattr(ops, name) for name in plain}
-            for name, fn in plain.items():
-                setattr(ops, name, fn)
-            try:
-                with_plain, cache_p = model.prefill(toks, T)
-            finally:
-                for name, fn in saved.items():
-                    setattr(ops, name, fn)
+            with_plain, cache_p = on_plain(lambda: model.prefill(toks, T))
         torch.cuda.synchronize()
         V = cfg.vocab
         werr = (with_kernel[..., :V] - with_plain[..., :V]).abs().max().item()
@@ -325,22 +483,68 @@ def main() -> int:
                        + (f" state {herr:.3e}" if cfg.pattern != ("attn",) else ""))
         del model, with_kernel, with_plain, cache_k, cache_p
         free()
-    phase(4, "whole models kernels against plain", "f32 B=1, max abs err: "
+
+    # One train step: with the flash kernels (forward and backward) against
+    # the same step on plain attention, then M=2 against M=1 on the kernels.
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), n_layers=2,
+                              dtype=torch.float32)
+    opt = AdamWConfig()
+
+    def fresh_state():
+        return train_state_init(torch.Generator(device="cuda").manual_seed(3),
+                                cfg, opt, "cuda")
+
+    batch = synthetic_batch(4, cfg, 2, 256, "cuda")
+    step1 = make_train_step(cfg, opt, num_microbatches=1)
+    runs = {"kernels": step1(fresh_state(), batch),
+            "plain": on_plain(lambda: step1(fresh_state(), batch)),
+            "M=2": make_train_step(cfg, opt, num_microbatches=2)(fresh_state(), batch)}
+    (sk, mk) = runs.pop("kernels")
+    pk = dict(sk["params"].named_parameters())
+    train_errs = {}
+    for name, (so, mo) in runs.items():
+        for key in ("loss", "grad_norm"):
+            a, b = float(mk[key]), float(mo[key])
+            check(abs(a - b) <= 1e-3, f"starcoder2 train step, kernels vs "
+                  f"{name}: {key} {b} vs {a}")
+        perr = max((p - pk[n]).abs().max().item()
+                   for n, p in so["params"].named_parameters())
+        check(perr <= 1e-3, f"starcoder2 train step, kernels vs {name}: updated "
+              f"parameters differ by {perr:.3e} > 1e-3")
+        # A first AdamW step moves each weight by about lr * sign(g) whatever
+        # |g| is, so the gradients are held leaf by leaf, through the first
+        # moments: m = (1 - b1) * clip * g after one step from zero.
+        gerr = 0.0
+        for n, m in so["opt"]["m"].items():
+            rel = ((m - sk["opt"]["m"][n]).norm() / m.norm().clamp(min=1e-30)).item()
+            check(rel <= 1e-3, f"starcoder2 train step, kernels vs {name}: "
+                  f"gradient of {n} misses by {rel:.3e} of its norm")
+            gerr = max(gerr, rel)
+        train_errs[name] = (abs(float(mk["loss"]) - float(mo["loss"])), perr, gerr)
+    details.append(
+        f"starcoder2-3b 2L train step B=2 T=256: loss {float(mk['loss']):.5f}, "
+        f"kernels vs plain loss {train_errs['plain'][0]:.3e} params "
+        f"{train_errs['plain'][1]:.3e} gradients (relative, per leaf) "
+        f"{train_errs['plain'][2]:.3e}; M=2 vs M=1 loss {train_errs['M=2'][0]:.3e} "
+        f"params {train_errs['M=2'][1]:.3e} gradients {train_errs['M=2'][2]:.3e}")
+    del sk, mk, pk, runs, batch
+    free()
+    phase(4, "whole models kernels against plain", "f32, max abs err: "
           + "; ".join(details))
 
     # -- 5. main paths --------------------------------------------------------
     launches = {}
     for arch, argv in MAIN_PATHS:
-        for m in kernels.values():
-            m.LAUNCHES = 0
+        reset_counts()
         res = serve.run(argv)
-        counts = {name: m.LAUNCHES for name, m in kernels.items()}
+        counts = read_counts()
         launches[arch] = counts
         cfg = res.cfg
         types = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
         want = {"flash_attention": sum(t in ("attn", "local") for t in types),
+                "flash_attention_bwd": 0,
                 "ssm_scan": types.count("mamba"),
-                "rglru_scan": types.count("rglru")}
+                "rglru_scan": types.count("rglru"), "quantize": 0}
         check(counts == want, f"{arch}: kernel launches {counts} in the main "
               f"path, expected one per layer of its type in prefill {want}")
         B, steps = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--steps") + 1])
@@ -358,6 +562,97 @@ def main() -> int:
               f"ms/step, {res.decode_tok_s:.1f} tok/s; launches {counts}")
         del res
         free()
+
+    # Training: launch.train's own function, then one error-feedback int8
+    # round over the gradients of one more loss on the trained state.
+    reset_counts()
+    tr = train_launch.run(TRAIN_ARGS)
+    counts = read_counts()
+    launches["starcoder2-3b train"] = counts
+    cfg, n_steps = tr.cfg, len(tr.losses)
+    want = {"flash_attention": 2 * cfg.n_layers * n_steps,
+            "flash_attention_bwd": cfg.n_layers * n_steps,
+            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    check(counts == want, f"starcoder2-3b train: kernel launches {counts}, "
+          f"expected {want} (with remat, two forwards and one backward per "
+          "layer and step)")
+    check(all(math.isfinite(x) for x in tr.losses),
+          f"starcoder2-3b train: losses {tr.losses} not finite")
+    phase(5, "main path starcoder2-3b train",
+          f"{cfg.n_layers} layers {str(cfg.dtype).removeprefix('torch.')} "
+          f"B=4 T=1024, {n_steps} steps on fresh batches: losses "
+          f"{', '.join(f'{x:.4f}' for x in tr.losses)}; step ms "
+          f"{', '.join(f'{x:.3f}' for x in tr.step_ms)}; "
+          f"{tr.tokens_per_s:.1f} tokens/s over steps 2..{n_steps}; peak "
+          f"{tr.peak_bytes / 1e9:.3f} GB; launches {counts}")
+
+    # The trained state goes on through the same train step on one batch.
+    reset_counts()
+    step = make_train_step(cfg, tr.opt)
+    one = synthetic_batch(12, cfg, 4, 1024, "cuda")
+    state, mem_losses = tr.state, []
+    for _ in range(MEMORIZE_STEPS):
+        state, metrics = step(state, one)
+        mem_losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    launches["starcoder2-3b memorize"] = counts
+    want = {"flash_attention": 2 * cfg.n_layers * MEMORIZE_STEPS,
+            "flash_attention_bwd": cfg.n_layers * MEMORIZE_STEPS,
+            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    check(counts == want, f"starcoder2-3b memorize: kernel launches {counts}, "
+          f"expected {want}")
+    check(all(math.isfinite(x) for x in mem_losses)
+          and mem_losses[-1] < mem_losses[0],
+          f"starcoder2-3b memorize: losses {mem_losses} not finite and falling")
+    phase(5, "main path starcoder2-3b memorize one batch",
+          f"{MEMORIZE_STEPS} more steps of the trained state on one batch: "
+          f"losses {', '.join(f'{x:.4f}' for x in mem_losses)}; launches {counts}")
+    del one, state, metrics
+
+    reset_counts()
+    model = tr.state["params"]
+    params = dict(model.named_parameters())
+    loss, _ = loss_fn(model, synthetic_batch(11, cfg, 4, 1024, "cuda"), cfg)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    del loss
+    errs = gc_.ef_init(params)
+    worst_sum, worst_err, worst_scale = 0.0, 0.0, 0.0
+    for name, g in grads.items():
+        q, s, ghat, new_err = gc_.ef_round(g, errs[name])
+        check(ghat.dtype == g.dtype and ghat.shape == g.shape,
+              f"ef_round {name}: ghat {ghat.dtype} {tuple(ghat.shape)}")
+        target = g.float() + errs[name]
+        # The kernel on this leaf against the plain quantization.
+        q_ref, s_ref = ref.quantize_ref(gc_._rows(target))
+        diff = int((q != q_ref).sum())
+        check(diff == 0, f"ef_round {name}: {diff} int8 codes differ from plain")
+        worst_scale = max(worst_scale, compare(torch, s, s_ref, 1e-6,
+                                               f"ef_round {name} scales"))
+        back = gc_.decompress(q, s, g.shape, torch.float32) + new_err
+        rel = ((back - target).abs() / target.abs().clamp(min=1e-30)).max().item()
+        check(rel <= 1e-6, f"ef_round {name}: decompress + new_err misses "
+              f"g + err by {rel:.3e} relative")
+        # Half a scale, plus the f32 rounding of x/scale and of q*scale for
+        # |q| <= 127: 2 * 127.5 * 2**-24 < 2**-15 of the scale.
+        ratio = (gc_._rows(new_err).abs() / s).max().item()
+        check(ratio <= 0.5 + 2 ** -15, f"ef_round {name}: |new_err| reaches "
+              f"{ratio:.7f} of its row's scale, more than 1/2")
+        worst_sum, worst_err = max(worst_sum, rel), max(worst_err, ratio)
+        del q, s, ghat, new_err, target, back, q_ref, s_ref
+    counts = read_counts()
+    launches["starcoder2-3b ef_round"] = counts
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers,
+            "ssm_scan": 0, "rglru_scan": 0, "quantize": len(grads)}
+    check(counts == want, f"starcoder2-3b loss backward + ef_round: launches "
+          f"{counts}, expected {want}")
+    phase(5, "main path starcoder2-3b gradient compression",
+          f"ef_round over {len(grads)} gradient leaves: codes equal plain, "
+          f"scales max abs err {worst_scale:.3e}; decompress + new_err "
+          f"vs g + err max rel err {worst_sum:.3e}; max |new_err| / scale "
+          f"{worst_err:.7f}; launches {counts}")
+    del tr, model, params, grads, errs
+    free()
 
     # -- 6. times at the main-path shapes ---------------------------------------
     def flash_times(shape):
@@ -394,6 +689,44 @@ def main() -> int:
     lines.append(line)
     times["flash_local"], line = flash_times(LOCAL_SHAPE)
     lines.append(line)
+    times["flash_train"], line = flash_times(TRAIN_SHAPE)
+    lines.append(line)
+
+    # The flash backward at the starcoder2 training shape: each call is the
+    # backward alone, from one forward's saved tensors.
+    B, T, S, H, K, D, causal, window = TRAIN_SHAPE
+    q, k, v = (x.requires_grad_() for x in
+               attn_inputs(torch, TRAIN_SHAPE, torch.bfloat16, seed=96))
+    dout = randn(torch, torch.Generator(device="cuda").manual_seed(95), q.shape,
+                 torch.bfloat16)
+    with torch.no_grad():
+        o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, o, lse, dout, causal=causal, window=window), iters=10)
+
+    def grad_ms(out, iters):
+        return time_ms(torch, lambda: torch.autograd.grad(
+            out, (q, k, v), dout, retain_graph=True), iters=iters)
+
+    plain_ms = grad_ms(ref.attention_ref(q, k, v, causal=causal, window=window), 3)
+    free()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
+    library_ms = grad_ms(library_out, 10)
+    # Five products of 2*D flops per visible pair (S, dP, dV, dQ, dK); q, k,
+    # v, o, dout and lse read once, dq, dk, dv written once.
+    flops = 10 * D * visible_pairs(T, S, causal, window) * B * H
+    b_ms, b_by, detail = bound(flops, PEAK_BF16_FLOPS, 0,
+                               nbytes(q, k, v, o, dout, lse, q, k, v))
+    times["flash_attention_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                        bound_by=b_by, library_ms=library_ms)
+    lines.append(f"flash_attention backward bf16 {TRAIN_SHAPE}: kernel {ms:.4f} "
+                 f"ms, plain (autograd) {plain_ms:.4f} ms, sdpa backward "
+                 f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({detail}; "
+                 f"f32 CUDA-core bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
+    del q, k, v, dout, o, lse, qt, kt, vt, library_out
+    free()
 
     args = ssm_inputs(torch, SSM_MAIN, torch.bfloat16, seed=98)
     Bt, T, I, N, _ = SSM_MAIN
@@ -428,24 +761,52 @@ def main() -> int:
                  "no library call computes an RG-LRU")
     del args, hs, hT
     free()
+
+    x = quant_input(torch, QUANT_MAIN, torch.float32, seed=94)
+    ms = time_ms(torch, lambda: qz.quantize_cuda(x), iters=20)
+    plain_ms = time_ms(torch, lambda: ref.quantize_ref(x), iters=20)
+    q, s = qz.quantize_cuda(x)
+    R, C = QUANT_MAIN
+    # per element: |x|, a max, a division, a rint, two clamps (the division
+    # and rint are counted as one operation each).
+    b_ms, b_by, detail = bound(6 * R * C, PEAK_F32_FLOPS, 0, nbytes(x, q, s))
+    times["quantize"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+    lines.append(f"quantize f32 {QUANT_MAIN}: kernel {ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({detail}); "
+                 "no single PyTorch call computes per-row amax int8 "
+                 "quantization")
+    del x, q, s
+    free()
     phase(6, "times", " | ".join(lines))
 
     # -- 7. kernels line and result -------------------------------------------
-    errs = {"flash_attention": main_err[("flash_attention", MAIN_SHAPE)],
-            "ssm_scan": main_err["ssm_scan"], "rglru_scan": main_err["rglru_scan"]}
     line = []
-    for name, m in kernels.items():
-        by_path = {arch: counts[name] for arch, counts in launches.items()}
+    for name, (m, src, _) in kernels.items():
+        by_path = {path: counts[name] for path, counts in launches.items()}
+        err = (main_err[("flash_attention", MAIN_SHAPE)]
+               if name == "flash_attention" else main_err[name])
         entry = {"name": name, "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/" + m.SOURCE,
-                 "replaces": m.REPLACES, "launches": sum(by_path.values()),
-                 "max_abs_err": errs[name], **times[name],
+                 "source": "src/repro_torch/kernels/csrc/" + getattr(m, src),
+                 "replaces": m.REPLACES,
+                 "launches": sum(by_path.values()),
+                 "max_abs_err": err, **times[name],
                  "launches_by_path": by_path}
         if name == "flash_attention":
             entry["at_recurrentgemma_local"] = dict(
                 shape=list(LOCAL_SHAPE),
                 max_abs_err=main_err[("flash_attention", LOCAL_SHAPE)],
                 **times["flash_local"])
+            entry["at_starcoder2_train"] = dict(
+                shape=list(TRAIN_SHAPE),
+                max_abs_err=main_err[("flash_attention", TRAIN_SHAPE)],
+                lse_max_abs_err=main_err["flash_lse"], **times["flash_train"])
+        if name == "flash_attention_bwd":
+            entry["note"] = ("the backward of the function flash_attention_pallas "
+                             "computes; the Pallas kernel has none, and the "
+                             "reference differentiates its chunked jnp attention "
+                             "(src/repro/kernels/ops.py:47)")
+            entry["shape"] = list(TRAIN_SHAPE)
         line.append(entry)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

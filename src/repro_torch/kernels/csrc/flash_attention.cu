@@ -5,6 +5,10 @@
 // of q (B,T,H,D) against k, v (B,S,K,D), H % K == 0, query row t at global
 // position S-T+t, optional causal mask and sliding window, f32 m / l / acc,
 // output in the dtype of q.  A row that sees no key at all returns 0.
+// Optionally (a non-null `lse`, f32 (B,H,T)) it also writes each row's
+// log-sum-exp of the scaled scores, m + log(l), for the backward in
+// flash_attention_bwd.cu; a row that sees no key writes -inf.  Serving
+// passes a null pointer and writes nothing more.
 //
 // Common design.  One thread block per (batch*head, query tile), 128
 // threads.  The block walks the KV tiles its rows can see, staged in shared
@@ -68,8 +72,8 @@ template <typename T, int DPT>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
-              int T_, int S, int H, int K, int D, int causal, int window,
-              float scale) {
+              float* __restrict__ lse, int T_, int S, int H, int K, int D,
+              int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int DS = D + 1;                      // padded row stride of Q and K
   float* Qs = smem;                          // BQ x DS
@@ -189,13 +193,15 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = sub + LANES_PER_ROW * c;
       if (d < D) store_f32(o, base + d, acc[c] * inv);
     }
+    if (lse != nullptr && sub == 0)
+      lse[(long)bh * T_ + t] = l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
 template <typename T, int DPT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int T_, int S, int H, int K, int D, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, int B, int T_, int S, int H, int K, int D,
+                   int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
                        (size_t)BK * D + (size_t)BQ * (BK + 1));
@@ -206,19 +212,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((T_ + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), T_, S, H, K, D, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, T_, S, H, K, D,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int B, int T_, int S, int H, int K, int D, int causal,
-                       int window, float scale, cudaStream_t stream) {
-  if (D <= 32) return launch<T, 8>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
-  if (D <= 64) return launch<T, 16>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
-  if (D <= 128) return launch<T, 32>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
-  if (D <= 256) return launch<T, 64>(q, k, v, o, B, T_, S, H, K, D, causal, window, scale, stream);
+                       float* lse, int B, int T_, int S, int H, int K, int D,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
+  if (D <= 32) return launch<T, 8>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 64) return launch<T, 16>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 128) return launch<T, 32>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 256) return launch<T, 64>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -232,6 +239,7 @@ constexpr int BK = 64;          // keys per KV tile
 constexpr int THREADS = 128;
 constexpr int PAD = 8;          // bf16 elements of row padding (16 bytes)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
@@ -271,8 +279,9 @@ __global__ void __launch_bounds__(THREADS)
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int T_, int S, int H, int K,
-                  int causal, int window, float scale_log2) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int T_, int S, int H, int K, int causal, int window,
+                  float scale_log2) {
   constexpr int DP = D + PAD;       // row stride of the staged tiles
   constexpr int KC = D / 16;        // k-chunks of QK^T over the head dim
   constexpr int NS = BK / 8;        // score n-tiles per warp
@@ -435,14 +444,17 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int n = 0; n < NO; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
             pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      // m is in the log2 domain: lse = ln(2^m * l).
+      if (lse != nullptr && t == 0)
+        lse[(long)bh * T_ + tq] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
     }
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int T_, int S, int H, int K, int causal, int window,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int B, int T_, int S, int H, int K, int causal,
+                   int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + PAD);
   auto kern = fa_fwd_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -451,8 +463,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((T_ + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T_,
-      S, H, K, causal, window, scale * LOG2E);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      lse, T_, S, H, K, causal, window, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -461,27 +473,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All tensors are
-// contiguous: q, o (B,T,H,D); k, v (B,S,K,D).  Returns the launch's
-// cudaError_t (0 on success); the kernel runs asynchronously on `stream`.
+// contiguous: q, o (B,T,H,D); k, v (B,S,K,D); lse (B,H,T) f32 or null.
+// Returns the launch's cudaError_t (0 on success); the kernel runs
+// asynchronously on `stream`.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int T, int S, int H, int K, int D, int causal, int window, float scale,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+    int B, int T, int S, int H, int K, int D, int causal, int window,
+    float scale, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || K <= 0 || H % K != 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, B, T, S, H, K, D, causal, window, scale, st);
+    return (int)dispatch_d<float>(q, k, v, o, ls, B, T, S, H, K, D, causal, window, scale, st);
   if (dtype == 1) {
     // The tensor-core path loads 16-byte chunks: it needs aligned pointers.
     const bool aligned =
         ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15) == 0;
-    if (aligned && D == 128) return (int)tc::launch<128>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
-    if (aligned && D == 64) return (int)tc::launch<64>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
-    if (aligned && D == 32) return (int)tc::launch<32>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
-    if (aligned && D == 16) return (int)tc::launch<16>(q, k, v, o, B, T, S, H, K, causal, window, scale, st);
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, B, T, S, H, K, D, causal, window, scale, st);
+    if (aligned && D == 128) return (int)tc::launch<128>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
+    if (aligned && D == 64) return (int)tc::launch<64>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
+    if (aligned && D == 32) return (int)tc::launch<32>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
+    if (aligned && D == 16) return (int)tc::launch<16>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, ls, B, T, S, H, K, D, causal, window, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

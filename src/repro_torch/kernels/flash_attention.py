@@ -1,35 +1,47 @@
-"""Forward flash attention: the hand-written CUDA kernel and its wrapper.
+"""Flash attention: the hand-written CUDA kernels, forward and backward, and
+their wrapper.
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas`` (the
 Pallas TPU kernel ``_fa_kernel``) with ``csrc/flash_attention.cu``, built
 with ``nvcc`` for ``sm_90a`` at first use and bound through ctypes.  The
-plain version of the same function is :func:`repro_torch.kernels.ref.attention_ref`.
+Pallas kernel has no backward (the reference trains through its chunked jnp
+attention and lets JAX differentiate it); here the gradient is
+``csrc/flash_attention_bwd.cu``, joined to the forward by a
+``torch.autograd.Function``.  The plain version of the same function is
+:func:`repro_torch.kernels.ref.attention_ref`, and of its gradient autograd
+through it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:116"   # its pl.pallas_call
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches in this process; read and reset by callers that must show
-# a path went through the kernel.
+# Launches of the forward and of the backward kernels in this process; read
+# and reset by callers that must show a path went through the kernels.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
-# C signature of ``repro_flash_attention_fwd``: q, k, v, o; dtype, B, T, S,
-# H, K, D, causal, window; scale; stream.
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+# C signature of ``repro_flash_attention_fwd``: q, k, v, o, lse; dtype, B, T,
+# S, H, K, D, causal, window; scale; stream.
+ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p])
+# C signature of ``repro_flash_attention_bwd``: q, k, v, o, dout, lse, delta,
+# dq, dk, dv; dtype, B, T, S, H, K, D, causal, window; scale; stream.
+BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                + [ctypes.c_float, ctypes.c_void_p])
 
 
 @functools.cache
@@ -40,15 +52,34 @@ def _fn():
     return fn
 
 
+@functools.cache
+def _bwd_fn():
+    fn = _build.load(BWD_SOURCE).repro_flash_attention_bwd
+    fn.argtypes = BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,T,H,D); k,v: (B,S,K,D), all on one CUDA device.  Returns (B,T,H,D).
 
-    Layout and arguments as ``flash_attention_pallas``.  Raises on a CPU
-    tensor, an unsupported dtype or shape, or a refused launch.
+    Layout and arguments as ``flash_attention_pallas``.  When grad is
+    enabled and an input requires it, the result carries a graph whose
+    backward is the CUDA backward kernel.  Raises on a CPU tensor, an
+    unsupported dtype or shape, or a refused launch.
     """
-    global LAUNCHES
+    _check(q, k, v)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                     float(scale))
+    return _forward(q, k, v, causal, window, scale, with_lse=False)[0]
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"flash_attention_cuda: {name} is on {x.device}, "
@@ -73,14 +104,25 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_cuda: head dim {D} not in "
                          f"1..{MAX_HEAD_DIM}")
-    scale = scale if scale is not None else D ** -0.5
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             window: int, scale: float, with_lse: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel on checked inputs: (o, lse (B,H,T) f32 or None)."""
+    global LAUNCHES
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0 or S == 0:
-        return out.zero_()
+        return out.zero_(), None if lse is None else lse.fill_(float("-inf"))
     fn = _fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  _DTYPES[q.dtype], B, T, S, H, K, D, int(causal), int(window),
                  float(scale), stream)
     if err != 0:
@@ -88,4 +130,70 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"cudaError_t {err} (B={B} T={T} S={S} H={H} "
                            f"K={K} D={D})")
     LAUNCHES += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of the forward's output ``o`` given ``dout``
+    (B,T,H,D) and the forward's log-sum-exp ``lse`` (B,H,T) f32.  Inputs as
+    :func:`flash_attention_cuda`; the gradients have their inputs' dtypes.
+    Raises on a CPU tensor, a mismatched shape or dtype, or a refused
+    launch."""
+    global BWD_LAUNCHES
+    _check(q, k, v)
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("dout", dout)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} is "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}, "
+                             f"q is {tuple(q.shape)} {q.dtype} on {q.device}")
+    if lse.shape != (B, H, T) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd_cuda: lse is {tuple(lse.shape)} "
+                         f"{lse.dtype}, expected ({B}, {H}, {T}) float32")
+    scale = scale if scale is not None else D ** -0.5
+    o, dout, lse = o.contiguous(), dout.contiguous(), lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or S == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    fn = _bwd_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPES[q.dtype], B, T, S, H, K, D, int(causal), int(window),
+                 float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_cuda: launch failed with "
+                           f"cudaError_t {err} (B={B} T={T} S={S} H={H} "
+                           f"K={K} D={D})")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, saving (q, k, v, o, lse); its backward is the
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = _forward(q, k, v, causal, window, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, o, lse, dout.to(q.dtype), causal=causal, window=window,
+            scale=scale)
+        return dq, dk, dv, None, None, None

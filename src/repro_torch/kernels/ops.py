@@ -1,9 +1,13 @@
 """Kernel entry points used by the model code.
 
-``flash_attention``, ``ssm_scan`` and ``rglru`` send a CUDA tensor to their
-hand-written kernel and a CPU tensor to the plain version; there is no other
-route.  The one-token decode functions ``decode_attention``, ``ssm_step``
-and ``rglru_step`` are plain torch, as the reference's are plain jnp
+``flash_attention``, ``ssm_scan``, ``rglru`` and ``quantize`` send a CUDA
+tensor to their hand-written kernel and a CPU tensor to the plain version;
+there is no other route.  Under autograd, ``flash_attention`` on the card
+differentiates through its CUDA backward kernel, and ``ssm_scan`` / ``rglru``
+on the card raise (their backward kernels are not yet ported); on the CPU
+all three differentiate through the plain versions.  The one-token decode
+functions ``decode_attention``, ``ssm_step`` and ``rglru_step`` and
+``dequantize`` are plain torch, as the reference's are plain jnp
 (``repro.kernels.ops``).
 """
 
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
@@ -104,3 +109,16 @@ def rglru_step(xt: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     h = a * h.float() + mult * torch.sigmoid(i_gate.float()) * xf
     return h.to(xt.dtype), h
+
+
+def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization of x (R,C): (int8 (R,C), f32
+    scales (R,1))."""
+    if x.is_cuda:
+        return quantize_cuda(x)
+    return _ref.quantize_ref(x)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return _ref.dequantize_ref(q, scale, dtype)

@@ -95,3 +95,24 @@ def rglru_ref(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
         h = a[:, t] * h + inp[:, t]
         hs[:, t] = h
     return hs.to(x.dtype), h
+
+
+def quantize_ref(x: torch.Tensor, axis: int = -1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization.  Returns (int8 codes, f32 scales
+    with ``axis`` kept as size 1): scale = amax/127 (1 where amax is 0),
+    q = clip(round(x/scale), -127, 127), rounding half to even."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis, keepdim=True)
+    # A tensor divisor, not the Python scalar 127.0: CUDA torch divides by a
+    # scalar as a multiply by its reciprocal, which can miss amax/127 by an
+    # ulp and move a code that sits on a rounding tie.
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_ref(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)

@@ -52,6 +52,13 @@ def rglru_scan_cuda(x: torch.Tensor, a_gate: torch.Tensor,
     dtype or shape, or a refused launch.
     """
     global LAUNCHES
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, a_gate, i_gate, log_lam, h0)):
+        raise NotImplementedError(
+            "rglru_scan_cuda: backward not yet ported, and the kernel's result "
+            "would carry no graph; train this architecture on the CPU "
+            "(plain autograd) or call the kernel under torch.no_grad()")
     for name, t in (("x", x), ("a_gate", a_gate), ("i_gate", i_gate),
                     ("log_lam", log_lam)) + ((("h0", h0),) if h0 is not None else ()):
         if not t.is_cuda:

@@ -68,6 +68,13 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dtype or shape, or a refused launch.
     """
     global LAUNCHES
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, B, C, D, h0)):
+        raise NotImplementedError(
+            "ssm_scan_cuda: backward not yet ported, and the kernel's result "
+            "would carry no graph; train this architecture on the CPU "
+            "(plain autograd) or call the kernel under torch.no_grad()")
     if not x.is_cuda:
         raise ValueError(f"ssm_scan_cuda: x is on {x.device}, not a CUDA device")
     if x.dtype not in _DTYPES:

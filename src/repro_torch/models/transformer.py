@@ -14,7 +14,9 @@ nothing on one card and are dropped.  MoE, encoder-decoders and multimodal
 frontends raise ``NotImplementedError``.
 
 Entry points, as in the reference:
-* :meth:`Transformer.forward`     -- full-sequence logits.
+* :meth:`Transformer.forward`     -- full-sequence logits; differentiable,
+  with ``cfg.remat`` checkpointing each super-block as the reference's
+  ``jax.checkpoint`` of its scan body does.
 * :meth:`Transformer.prefill`     -- runs the prompt, builds the KV / state
   cache, returns last-position logits.
 * :meth:`Transformer.decode_step` -- one token against the cache.
@@ -22,10 +24,12 @@ Entry points, as in the reference:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -34,6 +38,29 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 Cache = List[Dict[str, torch.Tensor]]
+
+
+# ``remat_policy="save_attn"``: the reference names each attention block's
+# mixer output (``checkpoint_name(mix, "attn_out")``) and saves only that
+# name.  Here that output passes through this identity op, and the
+# selective-checkpoint policy saves the op's outputs and recomputes the rest.
+@torch.library.custom_op("repro_torch::saved_mixer_out", mutates_args=())
+def _saved_mixer_out(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+@_saved_mixer_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_saved_mixer_out.register_autograd(lambda ctx, g: g)
+
+
+def _save_attn_policy(ctx, op, *args, **kwargs):
+    if op is torch.ops.repro_torch.saved_mixer_out.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 # Mixer parameters of each block type: (shapes, in-place initializer).
 _MIXERS = {
@@ -86,7 +113,9 @@ class Transformer(nn.Module):
     """Decoder LM; parameters are allocated uninitialized on ``device``.
 
     Fill them with :func:`init_params` or ``load_state_dict`` (see
-    :func:`repro_torch.convert.params_from_reference`).
+    :func:`repro_torch.convert.params_from_reference`).  Parameters do not
+    require grad, so serving builds no graph; the trainer
+    (:mod:`repro_torch.train.train_step`) turns it on.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -131,19 +160,46 @@ class Transformer(nn.Module):
             q, k, v = L.attn_qkv(blk.mixer, h, cfg, positions)
             mix = L.attn_out(blk.mixer, ops.flash_attention(
                 q, k, v, causal=True, window=window))
+            if cfg.remat_policy == "save_attn" and torch.is_grad_enabled():
+                mix = _saved_mixer_out(mix)
             if cache is not None:
                 _fill_kv(cache, k, v, ring=blk.btype == "local")
         x = x + mix
         h2 = L.apply_norm(blk.norm2, x, cfg)
         return x + L.ffn_forward(blk.ffn, h2, cfg)
 
+    def _super_block(self, s: int, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        P = len(self.cfg.pattern)
+        for blk in self.layers[s * P:(s + 1) * P]:
+            x = self._block(blk, x, positions)
+        return x
+
     def forward(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B,T) integer.  Returns (logits (B,T,Vp), moe_aux = 0)."""
+        """tokens: (B,T) integer.  Returns (logits (B,T,Vp), moe_aux = 0).
+
+        Under grad with ``cfg.remat``, each super-block (one period of the
+        pattern) is a non-reentrant ``torch.utils.checkpoint``: only its
+        input is kept, and the backward recomputes it (``remat_policy=
+        "save_attn"`` also keeps each mixer output).  The remainder layers
+        are not checkpointed, as in the reference."""
         cfg = self.cfg
         x = L.embed(self.embed, tokens, cfg)
         positions = torch.arange(x.shape[1], device=x.device)
-        for blk in self.layers:
+        remat = cfg.remat and torch.is_grad_enabled()
+        context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                        _save_attn_policy)
+                      if cfg.remat_policy == "save_attn" else ckpt.noop_context_fn)
+        for s in range(cfg.n_super):
+            if remat:
+                x = ckpt.checkpoint(self._super_block, s, x, positions,
+                                    use_reentrant=False, context_fn=context_fn,
+                                    preserve_rng_state=False)
+            else:
+                x = self._super_block(s, x, positions)
+        P = len(cfg.pattern)
+        for blk in self.layers[cfg.n_super * P:]:
             x = self._block(blk, x, positions)
         x = L.apply_norm(self.final_norm, x, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,0 +1,109 @@
+"""The train step: microbatched gradient accumulation + AdamW.
+
+Ported from ``repro.train.train_step``.  ``make_train_step(cfg, opt, M)``
+returns ``train_step(state, batch) -> (state, metrics)``.  The state is
+``{"params": Transformer, "opt": adamw state, "step": int32 tensor}``; the
+step updates the model's parameters and the moments in place (see
+:func:`repro_torch.train.optimizer.adamw_update`) and returns the same
+objects.
+
+* The model forward checkpoints each super-block (``cfg.remat``), so peak
+  activation memory is one super-block of one microbatch plus the saved
+  block inputs.
+* With M > 1 the batch is split contiguously into M microbatches, as the
+  reference's reshape does; gradients accumulate in f32 divided by M, and
+  the loss and CE by M.  The reference checkpoints the microbatch body of
+  its scan; here each microbatch's graph is freed after its backward, which
+  keeps one microbatch's activations alive at a time without it.
+* The step does not compress gradients, as the reference's does not
+  (:mod:`repro_torch.train.grad_compress` is a library).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+
+TrainState = Dict[str, Any]   # {"params": Transformer, "opt": ..., "step": int32}
+Batch = Mapping[str, torch.Tensor]
+
+
+def train_state_init(generator: torch.Generator, cfg: ModelConfig,
+                     opt: AdamWConfig, device="cuda") -> TrainState:
+    """A fresh model (:func:`init_params` from ``generator``, which lives on
+    ``device``) with grad turned on, zero AdamW state and step 0."""
+    model = init_params(cfg, generator, device).requires_grad_(True)
+    return {"params": model,
+            "opt": adamw_init(dict(model.named_parameters()), opt),
+            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+
+
+def loss_fn(model: Transformer, batch: Batch, cfg: ModelConfig,
+            aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Causal-LM cross entropy in f32 over ``logits[:, -Tl:]``, masked to
+    ``labels >= 0`` and averaged over the unmasked tokens.  batch: tokens,
+    labels."""
+    logits, aux = model(batch["tokens"])
+    labels = batch["labels"]
+    Tl = labels.shape[1]
+    logits = logits[:, -Tl:].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    # A masked label (< 0) gathers slot 0; the mask zeroes its term.
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    mask = (labels >= 0).float()
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    ce = torch.sum((logz - gold) * mask) / ntok
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "moe_aux": aux}
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
+                    num_microbatches: int = 1, aux_weight: float = 0.01):
+    """Build the train step for this arch."""
+    M = num_microbatches
+
+    def grad_fn(model: Transformer, batch: Batch):
+        params = dict(model.named_parameters())
+        loss, aux = loss_fn(model, batch, cfg, aux_weight)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), {k: a.detach() for k, a in aux.items()}, dict(
+            zip(params, grads))
+
+    def train_step(state: TrainState, batch: Batch
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model = state["params"]
+        if M == 1:
+            loss, aux, grads = grad_fn(model, batch)
+        else:
+            B = next(iter(batch.values())).shape[0]
+            if B % M:
+                raise ValueError(f"batch {B} is not a multiple of "
+                                 f"{M} microbatches")
+            mb = B // M
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in model.named_parameters()}
+            loss = torch.zeros((), dtype=torch.float32, device=model.device)
+            ce = torch.zeros_like(loss)
+            for i in range(M):
+                part = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
+                lval, a, g = grad_fn(model, part)
+                for n, gi in g.items():
+                    grads[n].add_(gi.float() / M)
+                loss = loss + lval / M
+                ce = ce + a["ce"] / M
+            aux = {"ce": ce, "moe_aux": torch.zeros_like(loss)}
+
+        params = dict(model.named_parameters())
+        _, newopt, om = adamw_update(grads, state["opt"], params, opt)
+        step = state["step"] + 1
+        metrics = {"loss": loss, **aux, **om, "step": step}
+        return {"params": model, "opt": newopt, "step": step}, metrics
+
+    return train_step

@@ -7,7 +7,9 @@ it runs on a machine with a card and PyTorch alone:
 
 Tolerances are those ``chip_smoke.py`` holds the kernels to: f32 1e-4 (sums
 in another order than the plain version), bf16 outputs 2e-2, and the scans'
-f32 final states 1e-4 whatever the input dtype.
+f32 final states 1e-4 whatever the input dtype.  The flash backward is held
+against autograd of the plain attention at the same tolerances, and the
+quantize kernel's int8 codes must equal the plain version's exactly.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import ssm_scan as ss
 
@@ -121,3 +124,145 @@ def test_rglru_scan_cuda_vs_plain(case, dtype, with_h0):
     hs_ref, hT_ref = ref.rglru_ref(x, a, i, lam, h0)
     _close(hs, hs_ref, TOL[dtype])
     _close(hT, hT_ref, 1e-4)
+
+
+# The forward's cases plus every head dim the backward templates on (16, 32,
+# 64, 128, 256), a window that empties no row, and the starcoder2-3b shape
+# at B=1.
+BWD_CASES = CASES + [
+    (1, 40, 40, 4, 2, 256, True, 16),
+    (1, 70, 70, 4, 4, 32, False, 0),
+    (2, 33, 50, 4, 1, 16, True, 0),
+    (1, 1024, 1024, 24, 2, 128, True, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_bwd_cuda_vs_autograd_of_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, S, H, K, D, causal, window = case
+    rng = np.random.default_rng(7)
+    q, k, v = (_cuda(rng, shape, dtype).requires_grad_()
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    dout = _cuda(rng, (B, T, H, D), dtype)
+    before, before_bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (before + 1, before_bwd + 1)
+    # Plain in f32 on the same values: bf16 autograd of the plain attention
+    # rounds each query head's dK/dV before summing the GQA group.
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(
+        ref.attention_ref(qf, kf, vf, causal=causal, window=window),
+        (qf, kf, vf), dout.float())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        _close(g, w, TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_bwd_rows_that_see_no_key_get_zero_grads(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(8)
+    q, k, v = (_cuda(rng, shape, dtype).requires_grad_()
+               for shape in ((1, 40, 4, 64), (1, 8, 2, 64), (1, 8, 2, 64)))
+    out = ops.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert bool(torch.isfinite(dq).all() & torch.isfinite(dk).all()
+                & torch.isfinite(dv).all())
+    assert bool((dq[:, :32] == 0).all())        # rows t < T-S see no key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_serving_unchanged_by_lse(case, dtype):
+    """The forward that writes the log-sum-exp gives the same bits as the
+    serving forward, and its lse is the plain one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, S, H, K, D, causal, window = case
+    rng = np.random.default_rng(9)
+    q, k, v = (_cuda(rng, shape, dtype)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    scale = D ** -0.5
+    plain_out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out, lse = fa._forward(q, k, v, causal, window, scale, with_lse=True)
+    assert torch.equal(out, plain_out)
+    kf, qf = k.float().repeat_interleave(H // K, 2), q.float()
+    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    qpos = torch.arange(T, device="cuda")[:, None] + (S - T)
+    kpos = torch.arange(S, device="cuda")[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
+    seen = mask.any(-1).expand_as(want)
+    assert bool((lse[~seen] == float("-inf")).all())
+    _close(lse[seen], want[seen], 1e-4)
+
+
+@pytest.mark.gpu
+def test_scan_kernels_raise_under_grad():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(10)
+    x = _cuda(rng, (1, 8, 4)).requires_grad_()
+    dt, Bm, Cm = _cuda(rng, (1, 8, 4)), _cuda(rng, (1, 8, 2)), _cuda(rng, (1, 8, 2))
+    with pytest.raises(NotImplementedError, match="backward not yet ported"):
+        ss.ssm_scan_cuda(x, dt, -torch.ones(4, 2, device="cuda"), Bm, Cm,
+                         torch.ones(4, device="cuda"))
+    with pytest.raises(NotImplementedError, match="backward not yet ported"):
+        rs.rglru_scan_cuda(x, x.detach(), x.detach(), torch.zeros(4, device="cuda"))
+    with torch.no_grad():                        # no graph wanted: the kernel runs
+        ss.ssm_scan_cuda(x, dt, -torch.ones(4, 2, device="cuda"), Bm, Cm,
+                         torch.ones(4, device="cuda"))
+
+
+def _tie_rows(C):
+    """Rows whose codes hit exact .5 ties: amax 127 (scale 1) and 254
+    (scale 2), with halves of both parities."""
+    halves = np.arange(C, dtype=np.float32) % 8 - 3.5
+    r1 = halves.copy()
+    r1[0] = 127.0
+    r2 = 2 * halves
+    r2[-1] = -254.0
+    return np.stack([r1, r2, -r1])
+
+
+def _quant_input(name):
+    rng = np.random.default_rng(11)
+    if name == "ties":
+        return _tie_rows(64)
+    if name == "zero-row":
+        x = 3 * rng.standard_normal((4, 40), dtype=np.float32)
+        x[2] = 0.0
+        return x
+    return 3 * rng.standard_normal(name, dtype=np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [(8, 16), (7, 33), (128, 256), (1, 5),
+                                  "ties", "zero-row", (36864, 1024)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_quantize_cuda_vs_plain(name, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.from_numpy(_quant_input(name)).to(dtype).cuda()
+    before = qz.LAUNCHES
+    q, s = ops.quantize(x)
+    torch.cuda.synchronize()
+    assert qz.LAUNCHES == before + 1
+    q_ref, s_ref = ref.quantize_ref(x)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert s.shape == (x.shape[0], 1)
+    assert torch.equal(q, q_ref)
+    _close(s, s_ref, 1e-6)

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import falcon_mamba_7b as jmamba  # noqa: E402
 from repro.configs import recurrentgemma_9b as jrg  # noqa: E402
+from repro.configs import starcoder2_3b as jsc  # noqa: E402
 from repro.configs.registry import tiny_config as jtiny  # noqa: E402
 from repro.models import rglru as JR  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
@@ -29,6 +30,7 @@ from repro.serve.decode import generate as jgenerate  # noqa: E402
 from repro_torch.configs import falcon_mamba_7b as tmamba  # noqa: E402
 from repro_torch.configs import qwen3_32b as tqwen  # noqa: E402
 from repro_torch.configs import recurrentgemma_9b as trg  # noqa: E402
+from repro_torch.configs import starcoder2_3b as tsc  # noqa: E402
 from repro_torch.configs.registry import ARCHS, get_config, tiny_config  # noqa: E402
 from repro_torch.convert import params_from_reference, to_tensor  # noqa: E402
 from repro_torch.launch import profile_serve as tprofile  # noqa: E402
@@ -70,8 +72,9 @@ def _params(init, jc, seed, shift):
 # --------------------------------------------------------------------------
 # configs and registry
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("pair", [(jmamba, tmamba), (jrg, trg)],
-                         ids=["falcon-mamba-7b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("pair", [(jmamba, tmamba), (jrg, trg), (jsc, tsc)],
+                         ids=["falcon-mamba-7b", "recurrentgemma-9b",
+                              "starcoder2-3b"])
 @pytest.mark.parametrize("which", ["CONFIG", "TINY"])
 def test_config_field_equal_to_reference(pair, which):
     jc, tc = (getattr(m, which) for m in pair)
@@ -89,9 +92,11 @@ def test_config_field_equal_to_reference(pair, which):
 
 
 def test_registry_resolves_the_three_ported_archs():
-    assert sorted(ARCHS) == ["falcon-mamba-7b", "qwen3-32b", "recurrentgemma-9b"]
+    # The name is older than the fourth arch, starcoder2-3b (training slice).
+    assert sorted(ARCHS) == ["falcon-mamba-7b", "qwen3-32b", "recurrentgemma-9b",
+                             "starcoder2-3b"]
     for name, mod in (("qwen3-32b", tqwen), ("falcon-mamba-7b", tmamba),
-                      ("recurrentgemma-9b", trg)):
+                      ("recurrentgemma-9b", trg), ("starcoder2-3b", tsc)):
         assert get_config(name) is mod.CONFIG and tiny_config(name) is mod.TINY
     assert trg.CONFIG.head_dim == 256 and trg.CONFIG.remainder == ("rglru", "rglru")
 

@@ -243,3 +243,53 @@ def test_rglru_scan_cuda_rejects_cpu_tensors():
     x = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError, match="not a CUDA device"):
         rglru_scan_cuda(x, x, x, torch.zeros(8))
+
+
+def test_scan_wrappers_refuse_to_run_under_grad():
+    """Under grad the CUDA scans would return a result without a graph, so
+    they raise before anything else (here before the device check)."""
+    x = torch.zeros(1, 4, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward not yet ported"):
+        ssm_scan_cuda(x, x.detach(), torch.zeros(8, 2), torch.zeros(1, 4, 2),
+                      torch.zeros(1, 4, 2), torch.zeros(8))
+    with pytest.raises(NotImplementedError, match="backward not yet ported"):
+        rglru_scan_cuda(x.detach(), x.detach(), x.detach(),
+                        torch.zeros(8, requires_grad=True))
+
+
+# --------------------------------------------------------------------------
+# gradients of the plain scans (CPU training of the recurrent archs)
+# --------------------------------------------------------------------------
+def test_ssm_scan_grads_vs_reference_chunked():
+    a = _ssm_inputs(20, 2, 13, 6, 3)
+    keys = "x dt A B C D h0".split()
+    wy = _rng(21).standard_normal((2, 13, 6), dtype=np.float32)
+    wh = _rng(22).standard_normal((2, 6, 3), dtype=np.float32)
+
+    def jloss(*args):
+        y, h = jops.ssm_scan(*args, time_chunk=4)
+        return jnp.sum(y * wy) + jnp.sum(h * wh)
+
+    want = jax.grad(jloss, argnums=tuple(range(7)))(*(jnp.asarray(a[k]) for k in keys))
+    ts = [_t(a[k]).requires_grad_() for k in keys]
+    y, h = ops.ssm_scan(*ts)
+    got = torch.autograd.grad((y * _t(wy)).sum() + (h * _t(wh)).sum(), ts)
+    for k, g, w in zip(keys, got, want):
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=k, **TOL)
+
+
+def test_rglru_grads_vs_reference_chunked():
+    a = _rglru_inputs(23, 2, 13, 6)
+    keys = "x a i lam h0".split()
+    wy = _rng(24).standard_normal((2, 13, 6), dtype=np.float32)
+
+    def jloss(x, ag, ig, lam, h0):
+        hs, hT = jops.rglru(x, ag, ig, lam, h0, time_chunk=4)
+        return jnp.sum(hs * wy) + jnp.sum(hT)
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(*(jnp.asarray(a[k]) for k in keys))
+    ts = [_t(a[k]).requires_grad_() for k in keys]
+    hs, hT = ops.rglru(*ts)
+    got = torch.autograd.grad((hs * _t(wy)).sum() + hT.sum(), ts)
+    for k, g, w in zip(keys, got, want):
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=k, **TOL)
