@@ -16,13 +16,18 @@ without the final result line:
    version on the card, over the reference's kernel test cases, cases
    beyond them (an initial state, T not a multiple of the time tile,
    channels not a multiple of the block, rows that see no key, rounding
-   ties, a row of zeros) and the main-path shapes, in f32 and bf16.
+   ties, a row of zeros; head dim 256 and the backward's GQA group splits
+   on the tensor cores) and the main-path shapes, in f32 and bf16.
    Tolerances: f32 atol/rtol 1e-4, bf16 outputs 2e-2, the scans' f32 final
    states 1e-4; the flash forward's log-sum-exp (written for the backward)
    against a plain logsumexp at 1e-4, with its output bit-identical to the
    forward without it; the flash backward's dQ, dK, dV against autograd of
-   the plain attention at the same f32 / bf16 tolerances; quantization's
-   int8 codes exactly equal and its scales within 1e-6.
+   the plain attention at the same f32 / bf16 tolerances, and bit for bit
+   equal on a second call; quantization's int8 codes exactly equal and its
+   scales within 1e-6.  The flash kernels' path queries must put the bf16
+   main shapes (qwen3, recurrentgemma-local and starcoder2 forward,
+   starcoder2 backward) on the tensor cores and f32 on the FMA kernels,
+   and the backward's group split must be the one each case expects.
 4. Whole models at full width, f32, kernels against plain (atol 1e-3 on
    the last-position logits): qwen3-32b 2 layers, B=1, T=256;
    falcon-mamba-7b 2 layers, B=1, T=256; recurrentgemma-9b 3 layers (one
@@ -53,7 +58,8 @@ without the final result line:
 6. Times at the main-path shapes: kernel, plain version, the least time
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
-   the same function (the port never calls it).
+   the same function (the port never calls it); each flash line names the
+   path it took.
 7. The ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -91,8 +97,9 @@ ATTN_CASES = [
     (1, 20, 20, 2, 2, 8, True, 0),
 ]
 # ... and head dims, ragged tiles and fully masked rows (T > S) beyond them,
-# on both paths of the kernel (bf16 with D in {16, 32, 64, 128} runs on the
-# tensor cores; f32 and other head dims on the CUDA cores).
+# on both paths of the kernels (bf16 with D in {16, 32, 64, 128, 256} runs
+# the forward on the tensor cores, and D in {16, 32, 64, 128} the backward;
+# f32 and other head dims run on the CUDA cores).
 EXTRA_CASES = [
     (1, 40, 40, 4, 2, 256, True, 16),
     (2, 24, 8, 4, 2, 64, True, 0),
@@ -102,9 +109,34 @@ EXTRA_CASES = [
     (1, 70, 70, 4, 4, 32, False, 0),
     (1, 50, 50, 2, 1, 96, True, 0),
 ]
+# Head dim 256: T ragged against the 64-row query tile and the 32-key KV
+# tile, rows that see no key (T > S), non-causal T != S, a window that
+# empties whole KV tiles, suffix queries; H/K in {1, 2, 16}.
+D256_CASES = [
+    (1, 100, 100, 2, 2, 256, True, 0),
+    (2, 40, 24, 4, 2, 256, True, 0),
+    (1, 33, 90, 16, 1, 256, False, 0),
+    (1, 300, 300, 16, 1, 256, True, 64),
+    (1, 130, 200, 4, 2, 256, True, 48),
+]
+# The tensor-core backward's GQA group splits: case -> the number of groups
+# G its dK/dV pass splits a KV head's H/K query heads into.  Group sizes 1,
+# 3 and 12; G = 2 over a group of 3, which it does not divide; ragged T and
+# S, T > S, suffix queries, a window, non-causal T != S.
+BWD_TC_GROUPS = {
+    (1, 100, 100, 4, 4, 64, True, 0): 1,
+    (2, 70, 90, 6, 2, 32, True, 0): 3,
+    (1, 40, 24, 12, 4, 64, True, 0): 3,
+    (1, 130, 130, 12, 1, 128, True, 48): 12,
+    (1, 200, 150, 12, 1, 32, False, 0): 12,
+    (4, 1024, 1024, 12, 4, 64, True, 0): 2,
+}
 MAIN_SHAPE = (4, 1024, 1024, 64, 8, 128, True, 0)      # qwen3-32b prefill, B=4
 LOCAL_SHAPE = (4, 3000, 3000, 16, 1, 256, True, 2048)  # recurrentgemma local
 TRAIN_SHAPE = (4, 1024, 1024, 24, 2, 128, True, 0)     # starcoder2-3b train, B=4
+ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
+            + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE])
+BWD_TC_GROUPS[TRAIN_SHAPE] = 4
 # Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
 # ties, and the largest gradient leaf of the starcoder2-3b main path (the
 # (3072, 12288) FFN matrix cut into 1024-wide rows by grad_compress._rows).
@@ -336,23 +368,30 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernels against plain ---------------------------------------------
-    main_err = {}
+    main_err, paths = {}, {}
     n_cases = 0
     with torch.inference_mode():
         for dtype, tol in tols.items():
-            for i, case in enumerate(ATTN_CASES + EXTRA_CASES
-                                     + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE]):
+            for i, case in enumerate(ALL_ATTN):
                 causal, window = case[6], case[7]
                 q, k, v = attn_inputs(torch, case, dtype, seed=i)
                 got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+                path = fa.fwd_path(dtype, case[5], fa._aligned(q, k, v, got))
+                check(dtype == torch.bfloat16 or path == 0,
+                      f"flash_attention_cuda {case} f32: path {path}, not the FMA kernel")
+                if dtype == torch.bfloat16 and case in (MAIN_SHAPE, LOCAL_SHAPE,
+                                                        TRAIN_SHAPE):
+                    check(path == 1, f"flash_attention_cuda {case} bf16: path "
+                          f"{fa.PATHS[path]}, not the tensor cores")
+                    paths[("flash_attention", case)] = path
                 want = ref.attention_ref(q, k, v, causal=causal, window=window)
                 err = compare(torch, got, want, tol, f"flash_attention_cuda {case} {dtype}")
                 if dtype == torch.bfloat16 and case in (MAIN_SHAPE, LOCAL_SHAPE,
                                                         TRAIN_SHAPE):
                     main_err[("flash_attention", case)] = err
                 # The forward as training calls it, writing the log-sum-exp.
-                o, lse = fa._forward(q, k, v, causal, window, case[5] ** -0.5,
-                                     with_lse=True)
+                o, lse, _ = fa._forward(q, k, v, causal, window, case[5] ** -0.5,
+                                        with_lse=True)
                 check(torch.equal(o, got), f"flash_attention_cuda {case} {dtype}: "
                       "output with the log-sum-exp differs from without")
                 lse_want = lse_plain(torch, q, k, causal, window)
@@ -409,9 +448,8 @@ def main() -> int:
     # which alone misses the f32 gradient by up to 0.06 (the kernel sums in
     # f32 and rounds once).
     for dtype, tol in tols.items():
-        for i, case in enumerate(ATTN_CASES + EXTRA_CASES
-                                 + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE]):
-            causal, window = case[6], case[7]
+        for i, case in enumerate(ALL_ATTN):
+            B, T, S, H, K, D, causal, window = case
             q, k, v = (x.requires_grad_() for x in
                        attn_inputs(torch, case, dtype, seed=400 + i))
             dout = randn(torch, torch.Generator(device="cuda").manual_seed(500 + i),
@@ -419,6 +457,17 @@ def main() -> int:
             got = torch.autograd.grad(
                 fa.flash_attention_cuda(q, k, v, causal=causal, window=window),
                 (q, k, v), dout)
+            path = fa.bwd_path(dtype, D, fa._aligned(q, k, v, dout))
+            check(dtype == torch.bfloat16 or path == 0,
+                  f"flash_attention backward {case} f32: path {path}, not the "
+                  "FMA kernels")
+            if dtype == torch.bfloat16 and case in BWD_TC_GROUPS:
+                check(path == 1 and fa.bwd_groups(B, S, H, K) == BWD_TC_GROUPS[case],
+                      f"flash_attention backward {case} bf16: path "
+                      f"{fa.PATHS[path]}, {fa.bwd_groups(B, S, H, K)} groups; "
+                      f"expected the tensor cores, {BWD_TC_GROUPS[case]} groups")
+            if dtype == torch.bfloat16 and case == TRAIN_SHAPE:
+                paths["flash_attention_bwd"] = path
             qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
             want = torch.autograd.grad(
                 ref.attention_ref(qf, kf, vf, causal=causal, window=window),
@@ -431,8 +480,34 @@ def main() -> int:
             n_cases += 1
             del q, k, v, qf, kf, vf, dout, got, want
             free()
+    # The backward is deterministic: a second call gives the same bits (G=4
+    # at the training shape, G=2 over a group of 3).
+    for i, case in enumerate((TRAIN_SHAPE, (4, 1024, 1024, 12, 4, 64, True, 0))):
+        B, T, S, H, K, D, causal, window = case
+        q, k, v = attn_inputs(torch, case, torch.bfloat16, seed=600 + i)
+        dout = randn(torch, torch.Generator(device="cuda").manual_seed(700 + i),
+                     q.shape, torch.bfloat16)
+        with torch.no_grad():
+            o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
+                                       with_lse=True)
+            first, second = (fa.flash_attention_bwd_cuda(
+                q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo)
+                for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"flash_attention backward {case} bf16: two calls differ")
+        n_cases += 1
+        del q, k, v, dout, o, lse, o_lo, first, second
+        free()
+    path_line = ", ".join(
+        f"{name} {fa.PATHS[p]}" for name, p in (
+            ("qwen3 forward", paths[("flash_attention", MAIN_SHAPE)]),
+            ("recurrentgemma-local forward", paths[("flash_attention", LOCAL_SHAPE)]),
+            ("starcoder2 forward", paths[("flash_attention", TRAIN_SHAPE)]),
+            ("starcoder2 backward", paths["flash_attention_bwd"])))
     phase(3, "kernels against plain",
-          f"{n_cases} cases; main-path max abs err: flash qwen3 bf16 "
+          f"{n_cases} cases; paths (bf16): {path_line}; f32 on the FMA "
+          "kernels; backward deterministic (2 cases bitwise equal); "
+          "main-path max abs err: flash qwen3 bf16 "
           f"{main_err[('flash_attention', MAIN_SHAPE)]:.3e}, flash local bf16 "
           f"{main_err[('flash_attention', LOCAL_SHAPE)]:.3e}, flash starcoder2 "
           f"bf16 {main_err[('flash_attention', TRAIN_SHAPE)]:.3e} (its lse "
@@ -658,6 +733,7 @@ def main() -> int:
     def flash_times(shape):
         B, T, S, H, K, D, causal, window = shape
         q, k, v = attn_inputs(torch, shape, torch.bfloat16, seed=99)
+        path = fa.PATHS[fa.fwd_path(q.dtype, D, fa._aligned(q, k, v))]
         ms = time_ms(torch, lambda: fa.flash_attention_cuda(
             q, k, v, causal=causal, window=window), iters=10)
         plain_ms = time_ms(torch, lambda: ref.attention_ref(
@@ -678,8 +754,8 @@ def main() -> int:
         del q, k, v, qt, kt, vt
         free()
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=library_ms), (
-            f"flash_attention bf16 {shape}: kernel {ms:.4f} ms, plain "
+                    library_ms=library_ms, path=path), (
+            f"flash_attention bf16 {shape} ({path}): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by} ({detail}; f32 CUDA-core bound "
             f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
@@ -700,9 +776,12 @@ def main() -> int:
     dout = randn(torch, torch.Generator(device="cuda").manual_seed(95), q.shape,
                  torch.bfloat16)
     with torch.no_grad():
-        o, lse = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
+        o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
+                                   with_lse=True)
+    path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
+    groups = fa.bwd_groups(B, S, H, K)
     ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
-        q, k, v, o, lse, dout, causal=causal, window=window), iters=10)
+        q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo), iters=10)
 
     def grad_ms(out, iters):
         return time_ms(torch, lambda: torch.autograd.grad(
@@ -720,12 +799,14 @@ def main() -> int:
     b_ms, b_by, detail = bound(flops, PEAK_BF16_FLOPS, 0,
                                nbytes(q, k, v, o, dout, lse, q, k, v))
     times["flash_attention_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                        bound_by=b_by, library_ms=library_ms)
-    lines.append(f"flash_attention backward bf16 {TRAIN_SHAPE}: kernel {ms:.4f} "
+                                        bound_by=b_by, library_ms=library_ms,
+                                        path=path, groups=groups)
+    lines.append(f"flash_attention backward bf16 {TRAIN_SHAPE} ({path}, "
+                 f"{groups} groups): kernel {ms:.4f} "
                  f"ms, plain (autograd) {plain_ms:.4f} ms, sdpa backward "
                  f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({detail}; "
                  f"f32 CUDA-core bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
-    del q, k, v, dout, o, lse, qt, kt, vt, library_out
+    del q, k, v, dout, o, lse, o_lo, qt, kt, vt, library_out
     free()
 
     args = ssm_inputs(torch, SSM_MAIN, torch.bfloat16, seed=98)

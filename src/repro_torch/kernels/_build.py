@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each source compiles on first use into ``<repo>/build/repro_torch/`` as a
-shared library with a plain C interface, named by a hash of the source and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded from the build directory.  There is no fallback: without ``nvcc``
+shared library with a plain C interface, named by a hash of the source, the
+headers beside it (``csrc/*.cuh``) and the compiler flags, so an edited
+source or header is rebuilt and an unchanged one is loaded from the build
+directory.  There is no fallback: without ``nvcc``
 the build raises.
 """
 
@@ -12,8 +13,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -45,6 +49,8 @@ def find_nvcc() -> str:
 def library_path(source: str) -> Path:
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -82,3 +88,44 @@ def load_all(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
     sources = list(sources)
     with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
         return dict(zip(sources, pool.map(load, sources)))
+
+
+def resource_usage(source: str) -> list:
+    """What ptxas reports for each kernel of ``csrc/<source>``: dicts of
+    ``kernel``, ``registers``, ``spill_stores`` and ``spill_loads`` (bytes).
+    Compiles once more with ``-Xptxas -v`` into a temporary file, so the
+    build directory and the loaded library are untouched."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               str(Path(tmp) / "probe.so"), str(CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    kernels, cur = [], None
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            kernels.append(cur)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    demangle = shutil.which("cu++filt") or str(Path(find_nvcc()).parent / "cu++filt")
+    if Path(demangle).is_file():
+        names = subprocess.run([demangle], input="\n".join(k["kernel"] for k in kernels),
+                               capture_output=True, text=True).stdout.splitlines()
+        for k, name in zip(kernels, names):
+            k["kernel"] = name
+    return kernels
+
+
+if __name__ == "__main__":
+    # python -m repro_torch.kernels._build [source.cu ...]: registers and
+    # spill bytes of every kernel, as ptxas reports them (default: all).
+    for src in sys.argv[1:] or sorted(p.name for p in CSRC.glob("*.cu")):
+        for k in resource_usage(src):
+            print(f"{src}: {k['registers']} registers, {k['spill_stores']} B "
+                  f"spill stores, {k['spill_loads']} B spill loads: {k['kernel']}")

@@ -20,34 +20,56 @@
 // -inf, and the kernel keeps p = 0 and the correction at 1 instead of
 // computing exp(-inf - -inf).
 //
-// Two paths, chosen from the inputs:
-// * bf16 with D in {16, 32, 64, 128} (the serving path): the two products
-//   run on the tensor cores as mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//   Each warp owns 16 query rows of a 64-row tile; its Q fragments stay in
-//   registers, the scores of a 64-key tile come back in the accumulator
-//   layout, the softmax runs on them in f32 registers (quad shuffles for the
-//   row max and sum), and they are repacked as bf16 A fragments for P.V
-//   without touching shared memory.  V fragments come from ldmatrix.trans.
-// * everything else (f32, other head dims up to 256): f32 FMAs on the CUDA
-//   cores.  Each query row of a 32-row tile is owned by 4 lanes of one warp
-//   that split its 32 scores and its D outputs, so the row's max, sum and
-//   correction never leave registers.  Q and K rows are padded to D+1 floats
-//   so the dot products read shared memory without bank conflicts.
+// Two paths, chosen from the inputs by repro_flash_attention_fwd_path
+// (exported, so callers can ask which one a call takes):
+// * bf16 with D in {16, 32, 64, 128, 256} and 16-byte aligned pointers
+//   (the serving and training path): the two products run on the tensor
+//   cores as mma.sync m16n8k16 (bf16 in, f32 accumulate; helpers in
+//   mma_bf16.cuh).  Each warp owns 16 query rows of a 64-row tile; the
+//   scores of a KV tile come back in the accumulator layout, the softmax
+//   runs on them in f32 registers (quad shuffles for the row max and sum),
+//   and they are repacked as bf16 A fragments for P.V without touching
+//   shared memory.  Q and K fragments come from ldmatrix, V fragments from
+//   ldmatrix.trans.  The KV tiles hold 32 keys and are double-buffered
+//   with cp.async: the next tile's 16-byte copies are in flight while the
+//   current tile's products run.  Only tiles that the causal diagonal, the
+//   window or S cut are masked element by element.
+//   - The register budget: at D=256 the output accumulator alone is 128
+//     f32 registers a thread, so Q's fragments (64 registers there) are
+//     not held but read from shared memory with ldmatrix for each k-chunk
+//     when it is used, and the 32-key tiles keep the scores at 16
+//     registers.  No head dim spills (ptxas -v).
+//   - Shared memory: Q plus two stages of K and V is 101 KB at D=256 (two
+//     blocks per SM) and 52 KB at D=128.  32-key tiles with Q read from
+//     shared memory measured about 12% faster at D=128 than 64-key tiles
+//     with Q held in registers (PERF.md), so every head dim uses them.
+//   - Training asks for the log-sum-exp and for o_lo, the bf16 residual
+//     of the f32 output (see the entry point), which the backward needs.
+// * everything else (f32, other head dims up to 256, unaligned pointers):
+//   f32 FMAs on the CUDA cores.  Each query row of a 32-row tile is owned
+//   by 4 lanes of one warp that split its 32 scores and its D outputs, so
+//   the row's max, sum and correction never leave registers.  Q and K rows
+//   are padded to D+1 floats so the dot products read shared memory
+//   without bank conflicts.
 //
 // Bound on an H100 SXM at the main-path prefill (B=4, T=S=1024, H=64, K=8,
 // D=128, causal, bf16): 4*D per visible (query, key) pair is 68.8 GFLOP,
 // about 70 us at 989 TFLOP/s bf16 on the tensor cores; reading q, k, v once
-// and writing o once is 151 MB, about 45 us at 3.35 TB/s.  So the work is
-// bound by operations, which is why the bf16 path uses the tensor cores.
-// It is synchronous (no cp.async / TMA pipelining of the KV tiles, no
-// wgmma), so loads and products do not overlap; those are the next steps
-// (see ROADMAP.md).  The FMA path is bound by the CUDA cores' 67 TFLOP/s
-// f32 rate at best.
+// and writing o once is 151 MB, about 45 us at 3.35 TB/s.  At
+// recurrentgemma's local layer (B=4, T=S=3000, H=16, K=1, D=256, window
+// 2048) it is 265 GFLOP, 0.268 ms.  So the work is bound by operations,
+// which is why the bf16 path uses the tensor cores.  mma.sync issues from
+// each warp in turn; wgmma (asynchronous warpgroup products) and TMA
+// copies, which the card's full rate needs, are the next steps (see
+// ROADMAP.md).  The FMA path is bound by the CUDA cores' 67 TFLOP/s f32
+// rate at best.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -65,6 +87,11 @@ __device__ __forceinline__ void store_f32(float* p, long i, float x) { p[i] = x;
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, long i, float x) {
   p[i] = __float2bfloat16(x);
 }
+// x as a tensor of T holds it.
+__device__ __forceinline__ float rounded(const float*, float x) { return x; }
+__device__ __forceinline__ float rounded(const __nv_bfloat16*, float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 // DPT: output columns per lane (>= ceil(D / 4)), a compile-time bound so the
 // accumulator stays in registers.
@@ -72,8 +99,8 @@ template <typename T, int DPT>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int T_, int S, int H, int K, int D,
-              int causal, int window, float scale) {
+              float* __restrict__ lse, T* __restrict__ o_lo, int T_, int S,
+              int H, int K, int D, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int DS = D + 1;                      // padded row stride of Q and K
   float* Qs = smem;                          // BQ x DS
@@ -191,7 +218,11 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int d = sub + LANES_PER_ROW * c;
-      if (d < D) store_f32(o, base + d, acc[c] * inv);
+      if (d < D) {
+        const float x = acc[c] * inv;
+        store_f32(o, base + d, x);
+        if (o_lo != nullptr) store_f32(o_lo, base + d, x - rounded(o, x));
+      }
     }
     if (lse != nullptr && sub == 0)
       lse[(long)bh * T_ + t] = l > 0.f ? m + logf(l) : -INFINITY;
@@ -200,8 +231,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DPT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int T_, int S, int H, int K, int D,
-                   int causal, int window, float scale, cudaStream_t stream) {
+                   float* lse, void* o_lo, int B, int T_, int S, int H, int K,
+                   int D, int causal, int window, float scale,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) +
                        (size_t)BK * D + (size_t)BQ * (BK + 1));
@@ -212,22 +244,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((T_ + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, T_, S, H, K, D,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, static_cast<T*>(o_lo),
+      T_, S, H, K, D, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int T_, int S, int H, int K, int D,
-                       int causal, int window, float scale,
+                       float* lse, void* o_lo, int B, int T_, int S, int H,
+                       int K, int D, int causal, int window, float scale,
                        cudaStream_t stream) {
-  if (D <= 32) return launch<T, 8>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
-  if (D <= 64) return launch<T, 16>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
-  if (D <= 128) return launch<T, 32>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
-  if (D <= 256) return launch<T, 64>(q, k, v, o, lse, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 32) return launch<T, 8>(q, k, v, o, lse, o_lo, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 64) return launch<T, 16>(q, k, v, o, lse, o_lo, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 128) return launch<T, 32>(q, k, v, o, lse, o_lo, B, T_, S, H, K, D, causal, window, scale, stream);
+  if (D <= 256) return launch<T, 64>(q, k, v, o, lse, o_lo, B, T_, S, H, K, D, causal, window, scale, stream);
   return cudaErrorInvalidValue;
 }
+
+}  // namespace
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core path
@@ -235,62 +269,31 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 namespace tc {
 
 constexpr int BQ = 64;          // query rows per block: 4 warps x 16 rows
-constexpr int BK = 64;          // keys per KV tile
 constexpr int THREADS = 128;
-constexpr int PAD = 8;          // bf16 elements of row padding (16 bytes)
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
+constexpr int BK = 32;          // keys per KV tile
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+// Q, then two stages of K and of V.
+template <int D>
+__host__ __device__ constexpr size_t fwd_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * (D + PAD);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// c (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed; lanes 8i..8i+7 give matrix i's rows.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Fragment layouts are those of the PTX ISA for m16n8k16: lane = 4*g + t;
-// A holds rows g and g+8, columns 2t,2t+1 and 2t+8,2t+9; B holds rows (k)
-// 2t,2t+1 and 2t+8,2t+9 of column (n) g; C holds rows g and g+8, columns
-// 2t,2t+1.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  int T_, int S, int H, int K, int causal, int window,
-                  float scale_log2) {
+                  __nv_bfloat16* __restrict__ o_lo, int T_, int S, int H,
+                  int K, int causal, int window, float scale_log2) {
   constexpr int DP = D + PAD;       // row stride of the staged tiles
   constexpr int KC = D / 16;        // k-chunks of QK^T over the head dim
   constexpr int NS = BK / 8;        // score n-tiles per warp
   constexpr int NO = D / 8;         // output n-tiles per warp
-  constexpr int CH = D / 8;         // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * DP;
-  __nv_bfloat16* Vs = Ks + BK * DP;
+  __nv_bfloat16* Kbuf = Qs + BQ * DP;
+  __nv_bfloat16* Vbuf = Kbuf + 2 * BK * DP;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -301,78 +304,82 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int offs = S - T_;
 
-  for (int idx = tid; idx < BQ * CH; idx += THREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const int tq = q0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (tq < T_)
-      val = *reinterpret_cast<const uint4*>(q + ((long)(b * T_ + tq) * H + h) * D + c * 8);
-    *reinterpret_cast<uint4*>(Qs + r * DP + c * 8) = val;
-  }
-  __syncthreads();
-  uint32_t qf[KC][4];
-  const __nv_bfloat16* qw = Qs + warp * 16 * DP;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    qf[kc][0] = ld_u32(qw + g * DP + kc * 16 + 2 * t);
-    qf[kc][1] = ld_u32(qw + (g + 8) * DP + kc * 16 + 2 * t);
-    qf[kc][2] = ld_u32(qw + g * DP + kc * 16 + 8 + 2 * t);
-    qf[kc][3] = ld_u32(qw + (g + 8) * DP + kc * 16 + 8 + 2 * t);
-  }
-
   const int q_last = min(q0 + BQ, T_) - 1;
   const int pos_lo = offs + q0, pos_hi = offs + q_last;
   int kv_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
   const int kv_end = causal ? min(S, pos_hi + 1) : S;
   kv_begin = (kv_begin / BK) * BK;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK : 0;
+
+  // Pipeline: group 0 is the Q tile and the first K/V tile; each
+  // iteration commits the next tile's group (empty past the last) before
+  // it waits for its own, so one tile's copies overlap the current tile's
+  // products.
+  load_rows_async<BQ, D, THREADS>(Qs, q, b, q0, T_, H, h);
+  if (n_tiles > 0) {
+    load_rows_async<BK, D, THREADS>(Kbuf, k, b, kv_begin, S, K, kh);
+    load_rows_async<BK, D, THREADS>(Vbuf, v, b, kv_begin, S, K, kh);
+  }
+  cp_async_commit();
 
   const int qpos[2] = {offs + q0 + warp * 16 + g, offs + q0 + warp * 16 + g + 8};
+  // This warp's rows all see every key of a tile in [full_lo, full_hi).
+  const int wpos_lo = offs + q0 + warp * 16, wpos_hi = wpos_lo + 15;
+  const int full_lo = window > 0 ? wpos_hi - window + 1 : 0;
+  const int full_hi = causal ? min(S, wpos_lo + 1) : S;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
-    __syncthreads();                         // previous tile fully consumed
-    for (int idx = tid; idx < BK * CH; idx += THREADS) {
-      const int r = idx / CH, c = idx % CH;
-      const int s = k0 + r;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (s < S) {
-        const long gi = ((long)(b * S + s) * K + kh) * D + c * 8;
-        kx = *reinterpret_cast<const uint4*>(k + gi);
-        vx = *reinterpret_cast<const uint4*>(v + gi);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * DP + c * 8) = kx;
-      *reinterpret_cast<uint4*>(Vs + r * DP + c * 8) = vx;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kv_begin + it * BK;
+    const __nv_bfloat16* Ks = Kbuf + (it & 1) * BK * DP;
+    const __nv_bfloat16* Vs = Vbuf + (it & 1) * BK * DP;
+    if (it + 1 < n_tiles) {     // that stage was freed by the last barrier
+      load_rows_async<BK, D, THREADS>(Kbuf + ((it + 1) & 1) * BK * DP, k, b,
+                                      k0 + BK, S, K, kh);
+      load_rows_async<BK, D, THREADS>(Vbuf + ((it + 1) & 1) * BK * DP, v, b,
+                                      k0 + BK, S, K, kh);
     }
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys.
+    // S = Q K^T for this warp's 16 rows and the tile's BK keys.
     float sc[NS][4];
 #pragma unroll
     for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, a_frag_addr(Qs, DP, warp * 16, kc * 16));
 #pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        const __nv_bfloat16* kr = Ks + (n * 8 + g) * DP + kc * 16 + 2 * t;
-        mma_bf16(sc[n], qf[kc], ld_u32(kr), ld_u32(kr + 8));
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, bt_frag_addr(Ks, DP, n * 8, kc * 16));
+        mma_bf16(sc[n], qa, kb[0], kb[1]);
+        mma_bf16(sc[n + 1], qa, kb[2], kb[3]);
       }
     }
 
-    // Mask, scale into the log2 domain, running max per row.
+    // Mask (only where the tile is not wholly visible to the warp), scale
+    // into the log2 domain, running max per row.
+    const bool full = k0 >= full_lo && k0 + BK <= full_hi;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1;
-        const int kpos = k0 + n * 8 + 2 * t + (i & 1);
-        bool ok = kpos < S;
-        if (causal) ok = ok && kpos <= qpos[r];
-        if (window > 0) ok = ok && kpos > qpos[r] - window;
+        bool ok = true;
+        if (!full) {
+          const int kpos = k0 + n * 8 + 2 * t + (i & 1);
+          ok = kpos < S;
+          if (causal) ok = ok && kpos <= qpos[r];
+          if (window > 0) ok = ok && kpos > qpos[r] - window;
+        }
         const float x = ok ? sc[n][i] * scale_log2 : -INFINITY;
         sc[n][i] = x;
         mx[r] = fmaxf(mx[r], x);
@@ -416,7 +423,6 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P V: the score accumulators of key n-tiles 2j, 2j+1 are the A
     // fragment of key chunk j.
-    const int mi = lane >> 3, mr = lane & 7;
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
       const uint32_t pa[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
@@ -426,12 +432,12 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(
-            vb, Vs + (j * 16 + (mi & 1) * 8 + mr) * DP + (n + (mi >> 1)) * 8);
+        ldmatrix_x4_trans(vb, b_frag_addr(Vs, DP, j * 16, n * 8));
         mma_bf16(acc[n], pa, vb[0], vb[1]);
         mma_bf16(acc[n + 1], pa, vb[2], vb[3]);
       }
     }
+    __syncthreads();            // this stage is free for the tile after next
   }
 
 #pragma unroll
@@ -439,11 +445,18 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int tq = q0 + warp * 16 + g + 8 * r;
     if (tq < T_) {
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-      __nv_bfloat16* orow = o + ((long)(b * T_ + tq) * H + h) * D;
+      const long row = ((long)(b * T_ + tq) * H + h) * D;
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-            pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      for (int n = 0; n < NO; ++n) {
+        const float x0 = acc[n][2 * r] * inv, x1 = acc[n][2 * r + 1] * inv;
+        uint32_t hi = pack_bf16(x0, x1);
+        *reinterpret_cast<uint32_t*>(o + row + n * 8 + 2 * t) = hi;
+        if (o_lo != nullptr) {
+          const __nv_bfloat162 h2 = *reinterpret_cast<__nv_bfloat162*>(&hi);
+          *reinterpret_cast<uint32_t*>(o_lo + row + n * 8 + 2 * t) =
+              pack_bf16(x0 - __low2float(h2), x1 - __high2float(h2));
+        }
+      }
       // m is in the log2 domain: lse = ln(2^m * l).
       if (lse != nullptr && t == 0)
         lse[(long)bh * T_ + tq] = l[r] > 0.f ? (m[r] + log2f(l[r])) * LN2 : -INFINITY;
@@ -453,9 +466,9 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int T_, int S, int H, int K, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BK) * (D + PAD);
+                   float* lse, void* o_lo, int B, int T_, int S, int H, int K,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem<D>();
   auto kern = fa_fwd_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -464,38 +477,52 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, T_, S, H, K, causal, window, scale * LOG2E);
+      lse, static_cast<__nv_bfloat16*>(o_lo), T_, S, H, K, causal, window,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-}  // namespace
+// Which kernel a forward call takes: 1 = the bf16 tensor-core kernel, 0 =
+// the f32-FMA kernel.  dtype as below; `aligned` is nonzero when q, k, v
+// and o all start on 16 bytes (the tensor-core kernel copies 16-byte
+// chunks).  repro_flash_attention_fwd dispatches by this function.
+extern "C" int repro_flash_attention_fwd_path(int dtype, int D, int aligned) {
+  return dtype == 1 && aligned &&
+         (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All tensors are
 // contiguous: q, o (B,T,H,D); k, v (B,S,K,D); lse (B,H,T) f32 or null.
-// Returns the launch's cudaError_t (0 on success); the kernel runs
-// asynchronously on `stream`.
+// o_lo, (B,T,H,D) in o's dtype or null, receives what rounding the f32
+// result to o lost (f32 - o, rounded), so that the backward's Delta =
+// rowsum(dO * O) can read O to about 16 bits instead of bf16's 8; o itself
+// is the same with or without it.  Returns the launch's cudaError_t (0 on
+// success); the kernel runs asynchronously on `stream`.
 extern "C" int repro_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
-    int B, int T, int S, int H, int K, int D, int causal, int window,
-    float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    void* o_lo, int dtype, int B, int T, int S, int H, int K, int D,
+    int causal, int window, float scale, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || K <= 0 || H % K != 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, ls, B, T, S, H, K, D, causal, window, scale, st);
-  if (dtype == 1) {
-    // The tensor-core path loads 16-byte chunks: it needs aligned pointers.
-    const bool aligned =
-        ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15) == 0;
-    if (aligned && D == 128) return (int)tc::launch<128>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
-    if (aligned && D == 64) return (int)tc::launch<64>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
-    if (aligned && D == 32) return (int)tc::launch<32>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
-    if (aligned && D == 16) return (int)tc::launch<16>(q, k, v, o, ls, B, T, S, H, K, causal, window, scale, st);
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, ls, B, T, S, H, K, D, causal, window, scale, st);
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+  if (repro_flash_attention_fwd_path(dtype, D, aligned)) {
+    switch (D) {
+      case 16: return (int)tc::launch<16>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      case 32: return (int)tc::launch<32>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      case 64: return (int)tc::launch<64>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      case 128: return (int)tc::launch<128>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      case 256: return (int)tc::launch<256>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+    }
   }
+  if (dtype == 0)
+    return (int)dispatch_d<float>(q, k, v, o, ls, o_lo, B, T, S, H, K, D, causal, window, scale, st);
+  if (dtype == 1)
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, ls, o_lo, B, T, S, H, K, D, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

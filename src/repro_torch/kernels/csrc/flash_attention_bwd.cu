@@ -13,39 +13,74 @@
 //   P = exp(S*scale - lse),  S = Q K^T, recomputed tile by tile
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Delta)
 //   dQ = dS K * scale,  dK = dS^T Q * scale
-// Three launches, all deterministic and without atomics:
-// * delta kernel: one warp per (b, t, h) row.
-// * dK/dV kernel: one block per (KV tile of 32 keys, b, kv head).  It loops
-//   over the H/K query heads that share the KV head (GQA sums there) and
-//   over the query tiles that can see the KV tile; dK and dV stay in
-//   registers for the whole loop and are written once.
-// * dQ kernel: one block per (query tile of 32 rows, b, h), looping over
-//   the KV tiles its rows can see, as the forward does.
+// Delta reads O as o + o_lo, the forward's bf16 output plus the residual it
+// lost in rounding: from the rounded o alone, Delta's error, summed over
+// the thousand queries that see an early key, moves that key's dK by more
+// than the bf16 tolerance (PERF.md).
 // A row that sees no key has lse = -inf and gets P = 0, so it adds nothing
 // and its dQ is 0 (never exp(s - -inf)).  Rows past T and keys past S are
-// staged as zeros and masked.
+// staged as zeros and masked.  Every launch is deterministic: no atomics,
+// every sum in a fixed order.
 //
-// Arithmetic is f32 FMAs on the CUDA cores for every dtype and head dim up
-// to 256 (bf16 is upcast when staged); each of the 32 rows of a tile is
-// owned by 8 lanes of one warp that split its 32 scores and its D output
-// columns, so a row's P and dS go through shared memory only within the
-// warp.  Staged rows are padded to D+1 floats so the dot products read
-// shared memory without bank conflicts.
+// Two paths, chosen by repro_flash_attention_bwd_path (exported, so callers
+// can ask which one a call takes):
+//
+// * bf16 with D in {16, 32, 64, 128} and 16-byte aligned pointers (the
+//   training path): tensor cores, mma.sync m16n8k16 with bf16 inputs and
+//   f32 accumulation, ldmatrix / ldmatrix.trans (helpers in mma_bf16.cuh).
+//   Four launches:
+//   - delta kernel: one warp per (b, t, h) row.
+//   - dK/dV kernel, one 128-thread block per (64-key tile, b, kv head,
+//     group of query heads).  FA2's scheme with keys as the rows: each warp
+//     owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, forms P^T
+//     and dS^T = P^T (dP^T - Delta) in f32 registers, and repacks them as
+//     bf16 A fragments for dV += P^T dO and dK += dS^T Q, with no shared
+//     memory round trip (as the forward repacks P for P.V).  The dK and dV
+//     accumulators stay in registers for the whole block: 128 a thread at
+//     D=128, so query tiles are 32 rows there (64 up to D=64).  The Q / dO
+//     tiles and their lse / Delta are double-buffered with cp.async, so the
+//     next tile's copies overlap the current tile's products.
+//   - The H/K query heads of a KV head (GQA sums over them) are split into
+//     G groups, G from the shape (repro_flash_attention_bwd_groups: enough
+//     blocks for 512, at most H/K).  At the starcoder2-3b training shape
+//     that gives G=4 and 16 x 8 x 4 = 512 blocks instead of 128.  Each
+//     block writes its f32 partial dK / dV to scratch that the caller
+//     allocates (2 G B S K D floats: 34 MB there, written and read once,
+//     about 20 us), and a reduce kernel sums the G partials in a fixed order
+//     and rounds once.  The key tile is the slowest block index, so the
+//     heaviest causal tiles (the first keys) are issued first.
+//   - dQ kernel, one block per (64-query tile, b, h), heaviest tiles first,
+//     K / V tiles double-buffered with cp.async.  It recomputes S = Q K^T
+//     and dP = dO V^T (7 products in all instead of 5, about 90 GFLOP at
+//     the training shape) rather than reading dS back: writing dS would be
+//     B H T S bf16, about 100 MB each way at that shape, more than the
+//     whole bound, and accumulating dQ from the dK/dV blocks would need
+//     atomics and give up determinism.
+// * everything else (f32, other head dims up to 256, among them
+//   recurrentgemma's 256, which no main path trains): f32 FMAs on the CUDA
+//   cores, three launches (delta, dK/dV, dQ).  Each of the 32 rows of a
+//   tile is owned by 8 lanes of one warp that split its 32 scores and its D
+//   output columns, so a row's P and dS go through shared memory only
+//   within the warp; one block per (32-key tile, b, kv head) sums the whole
+//   GQA group.  Staged rows are padded to D+1 floats so the dot products
+//   read shared memory without bank conflicts.
 //
 // Bound on an H100 SXM at the starcoder2-3b training shape (B=4,
 // T=S=1024, H=24, K=2, D=128, causal, bf16): the five products of 2*D
-// flops per visible (query, key) pair are 64.5 GFLOP, about 65 us at
-// 989 TFLOP/s on the tensor cores; the bytes (q, k, v, o, dO, lse read
-// once; dq, dk, dv written once) are about 70 MB, 21 us at 3.35 TB/s.  So
-// it is bound by operations.  This kernel recomputes QK^T and dO V^T in
-// both the dK/dV and the dQ pass (7 products instead of 5) and runs them
-// on the CUDA cores, whose f32 rate is 67 TFLOP/s: it is written to be
-// right, not fast.  The tensor-core version is later work (ROADMAP.md).
+// flops per visible (query, key) pair are 64.5 GFLOP, about 65 us
+// (0.0652 ms) at 989 TFLOP/s on the tensor cores; the bytes (q, k, v, o,
+// dO, lse read once; dq, dk, dv written once) are about 70 MB, 21 us at
+// 3.35 TB/s.  So it is bound by operations.  The tensor-core path runs
+// mma.sync from each warp in turn; wgmma and TMA, which the card's full
+// rate needs, are later work (ROADMAP.md).  The FMA path is bound by the
+// CUDA cores' 67 TFLOP/s f32 rate at best.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -85,17 +120,22 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int b, int r0,
   }
 }
 
-// Delta[b,h,t] = sum_d dO[b,t,h,d] * O[b,t,h,d], one warp per row.
+// Delta[b,h,t] = sum_d dO[b,t,h,d] * O[b,t,h,d], one warp per row, with O
+// read as o + o_lo when the forward wrote its rounding residual o_lo.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-             float* __restrict__ delta, int B, int T_, int H, int D) {
+delta_kernel(const T* __restrict__ o, const T* __restrict__ o_lo,
+             const T* __restrict__ dout, float* __restrict__ delta, int B,
+             int T_, int H, int D) {
   const long row = (long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= (long)B * T_ * H) return;             // whole warp leaves
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(load_f32(dout, row * D + d), load_f32(o, row * D + d), acc);
+  for (int d = lane; d < D; d += 32) {
+    float ov = load_f32(o, row * D + d);
+    if (o_lo != nullptr) ov += load_f32(o_lo, row * D + d);
+    acc = fmaf(load_f32(dout, row * D + d), ov, acc);
+  }
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
   if (lane == 0) {
@@ -105,6 +145,20 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     const int t = bt % T_, b = bt / T_;
     delta[((long)b * H + h) * T_ + t] = acc;
   }
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* o, const void* o_lo, const void* dout,
+                         float* delta, int B, int T_, int H, int D,
+                         cudaStream_t stream) {
+  const long rows = (long)B * T_ * H;
+  const int rows_per_block = THREADS / 32;
+  delta_kernel<T><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                    THREADS, 0, stream>>>(static_cast<const T*>(o),
+                                          static_cast<const T*>(o_lo),
+                                          static_cast<const T*>(dout), delta,
+                                          B, T_, H, D);
+  return cudaGetLastError();
 }
 
 // DPT: output columns per lane (>= ceil(D / 8)), so the accumulators stay
@@ -320,7 +374,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DPT>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
+                   const void* o, const void* o_lo, const void* dout,
+                   const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int T_,
                    int S, int H, int K, int D, int causal, int window,
                    float scale, cudaStream_t stream) {
@@ -328,12 +383,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const T* k_ = static_cast<const T*>(k);
   const T* v_ = static_cast<const T*>(v);
   const T* do_ = static_cast<const T*>(dout);
-  const long rows = (long)B * T_ * H;
-  const int rows_per_block = THREADS / 32;
-  delta_kernel<T><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
-                    THREADS, 0, stream>>>(static_cast<const T*>(o), do_,
-                                          delta, B, T_, H, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_delta<T>(o, o_lo, dout, delta, B, T_, H, D, stream);
   if (err != cudaSuccess) return err;
 
   const size_t tile = sizeof(float) * (size_t)BR * (D + 1);
@@ -362,37 +412,502 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const float* lse,
+                       const void* o, const void* o_lo, const void* dout,
+                       const float* lse,
                        float* delta, void* dq, void* dk, void* dv, int B,
                        int T_, int S, int H, int K, int D, int causal,
                        int window, float scale, cudaStream_t st) {
-  if (D <= 32) return launch<T, 4>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
-  if (D <= 64) return launch<T, 8>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
-  if (D <= 128) return launch<T, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
-  if (D <= 256) return launch<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
+  if (D <= 32) return launch<T, 4>(q, k, v, o, o_lo, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
+  if (D <= 64) return launch<T, 8>(q, k, v, o, o_lo, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
+  if (D <= 128) return launch<T, 16>(q, k, v, o, o_lo, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
+  if (D <= 256) return launch<T, 32>(q, k, v, o, o_lo, dout, lse, delta, dq, dk, dv, B, T_, S, H, K, D, causal, window, scale, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core path
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int THREADS = 128;      // 4 warps x 16 rows
+constexpr int BKV = 64;           // keys per dK/dV block and per dQ KV tile
+constexpr int BQ_DQ = 64;         // queries per dQ block
+constexpr int TARGET_BLOCKS = 512;  // dK/dV blocks the group split aims at
+constexpr int REDUCE_THREADS = 256;
+
+// Queries per tile of the dK/dV pass.  A warp owns 16 keys and keeps their
+// dK and dV accumulators (2 * D/2 f32 registers a thread) for the whole
+// block; at D=128 that is 128 registers, so the tiles hold 32 queries
+// (S^T and dP^T 16 registers each) and not 64.
+template <int D>
+__host__ __device__ constexpr int dkdv_bq() { return D <= 64 ? 64 : 32; }
+
+template <int D>
+__host__ __device__ constexpr size_t dkdv_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * BKV + 4 * dkdv_bq<D>()) * (D + PAD) +
+         sizeof(float) * 4 * dkdv_bq<D>();
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dq_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * BQ_DQ + 4 * BKV) * (D + PAD);
+}
+
+// dK/dV partials of one (key tile, b, kv head, group of query heads).
+// Warp w owns keys k0+16w .. k0+16w+15 and computes, per query tile,
+// S^T = K Q^T and dP^T = V dO^T (keys as the accumulator's rows), then
+// P^T = exp(S^T * scale - lse) and dS^T = P^T * (dP^T - Delta) in f32
+// registers, repacked as bf16 A fragments for dV += P^T dO and
+// dK += dS^T Q.  Q / dO tiles (and their lse / Delta) are double-buffered
+// with cp.async across the flattened loop over (head, query tile).  The
+// unscaled f32 sums go to dk_part / dv_part (groups, B, S, K, D).
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dk_part, float* __restrict__ dv_part,
+                    int B, int T_, int S, int H, int K, int groups, int causal,
+                    int window, float scale_log2) {
+  constexpr int BQ = dkdv_bq<D>();
+  constexpr int DP = D + PAD;
+  constexpr int KC = D / 16;        // k-chunks of S^T and dP^T over D
+  constexpr int NQ = BQ / 8;        // query n-tiles of S^T and dP^T
+  constexpr int NO = D / 8;         // n-tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + BKV * DP;
+  __nv_bfloat16* Qbuf = Vs + BKV * DP;          // two stages
+  __nv_bfloat16* dObuf = Qbuf + 2 * BQ * DP;    // two stages
+  float* lse_buf = reinterpret_cast<float*>(dObuf + 2 * BQ * DP);
+  float* dl_buf = lse_buf + 2 * BQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  // The key tile is the slowest index, so the blocks issued first hold the
+  // first key tiles: the heaviest under a causal mask.
+  const int per_tile = B * K * groups;
+  const int kt = blockIdx.x / per_tile;
+  int rest = blockIdx.x % per_tile;
+  const int grp = rest % groups;
+  rest /= groups;
+  const int kh = rest % K, b = rest / K;
+  const int rep = H / K;
+  const int h_begin = kh * rep + grp * rep / groups;
+  const int h_end = kh * rep + (grp + 1) * rep / groups;
+  const int k0 = kt * BKV;
+  const int offs = S - T_;
+
+  // Queries that can see some key of this tile: causal needs
+  // offs + t >= k0, a window needs offs + t < k_last + window.
+  const int k_last = min(k0 + BKV, S) - 1;
+  int t_begin = causal ? max(0, k0 - offs) : 0;
+  const int t_end = window > 0 ? min(T_, k_last - offs + window) : T_;
+  t_begin = (t_begin / BQ) * BQ;
+  const int n_qt = t_end > t_begin ? (t_end - t_begin + BQ - 1) / BQ : 0;
+  const int n_iter = n_qt * (h_end - h_begin);
+
+  auto issue = [&](int it) {
+    const int h = h_begin + it / n_qt, q0 = t_begin + (it % n_qt) * BQ;
+    const int st = it & 1;
+    load_rows_async<BQ, D, THREADS>(Qbuf + st * BQ * DP, q, b, q0, T_, H, h);
+    load_rows_async<BQ, D, THREADS>(dObuf + st * BQ * DP, dout, b, q0, T_, H, h);
+    if (tid < BQ) {
+      const int tq = q0 + tid;
+      const long i = ((long)b * H + h) * T_ + min(tq, T_ - 1);
+      cp_async_4(lse_buf + st * BQ + tid, lse + i, tq < T_);
+      cp_async_4(dl_buf + st * BQ + tid, delta + i, tq < T_);
+    }
+  };
+
+  // Group 0: the block's K and V tiles and the first query tile.
+  load_rows_async<BKV, D, THREADS>(Ks, k, b, k0, S, K, kh);
+  load_rows_async<BKV, D, THREADS>(Vs, v, b, k0, S, K, kh);
+  if (n_iter > 0) issue(0);
+  cp_async_commit();
+
+  const int kr0 = warp * 16;
+  const int kpos[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int q0 = t_begin + (it % n_qt) * BQ;
+    const int st = it & 1;
+    if (it + 1 < n_iter) issue(it + 1);   // that stage was freed by the last barrier
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* Qs = Qbuf + st * BQ * DP;
+    const __nv_bfloat16* dOs = dObuf + st * BQ * DP;
+    const float* lse_s = lse_buf + st * BQ;
+    const float* dl_s = dl_buf + st * BQ;
+
+    float sT[NQ][4], dpT[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sT[n][i] = dpT[n][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, a_frag_addr(Ks, DP, kr0, kc * 16));
+      ldmatrix_x4(va, a_frag_addr(Vs, DP, kr0, kc * 16));
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t qb[4], ob[4];
+        ldmatrix_x4(qb, bt_frag_addr(Qs, DP, n * 8, kc * 16));
+        mma_bf16(sT[n], ka, qb[0], qb[1]);
+        mma_bf16(sT[n + 1], ka, qb[2], qb[3]);
+        ldmatrix_x4(ob, bt_frag_addr(dOs, DP, n * 8, kc * 16));
+        mma_bf16(dpT[n], va, ob[0], ob[1]);
+        mma_bf16(dpT[n + 1], va, ob[2], ob[3]);
+      }
+    }
+
+    // P^T and dS^T in place.  A query past T, a key past S, a masked pair
+    // and a row that sees no key (lse = -inf) all give P = 0.
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const int qi = n * 8 + 2 * t + (i & 1);
+        const int tq = q0 + qi, qpos = offs + tq;
+        const float l = lse_s[qi];
+        bool ok = tq < T_ && kpos[r] < S && l != -INFINITY;
+        if (causal) ok = ok && kpos[r] <= qpos;
+        if (window > 0) ok = ok && kpos[r] > qpos - window;
+        const float p = ok ? exp2f(sT[n][i] * scale_log2 - l * LOG2E) : 0.f;
+        dpT[n][i] = p * (dpT[n][i] - dl_s[qi]);
+        sT[n][i] = p;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: n-tiles 2j, 2j+1 of P^T and dS^T are
+    // the A fragments of query chunk j.
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      const uint32_t pa[4] = {pack_bf16(sT[2 * j][0], sT[2 * j][1]),
+                              pack_bf16(sT[2 * j][2], sT[2 * j][3]),
+                              pack_bf16(sT[2 * j + 1][0], sT[2 * j + 1][1]),
+                              pack_bf16(sT[2 * j + 1][2], sT[2 * j + 1][3])};
+      const uint32_t da[4] = {pack_bf16(dpT[2 * j][0], dpT[2 * j][1]),
+                              pack_bf16(dpT[2 * j][2], dpT[2 * j][3]),
+                              pack_bf16(dpT[2 * j + 1][0], dpT[2 * j + 1][1]),
+                              pack_bf16(dpT[2 * j + 1][2], dpT[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t ob[4], qb[4];
+        ldmatrix_x4_trans(ob, b_frag_addr(dOs, DP, j * 16, n * 8));
+        mma_bf16(dv[n], pa, ob[0], ob[1]);
+        mma_bf16(dv[n + 1], pa, ob[2], ob[3]);
+        ldmatrix_x4_trans(qb, b_frag_addr(Qs, DP, j * 16, n * 8));
+        mma_bf16(dk[n], da, qb[0], qb[1]);
+        mma_bf16(dk[n + 1], da, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();            // this stage is free for the tile after next
+  }
+
+  // Every key of the tile below S gets its partial, zero if no query saw it.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] < S) {
+      const long base = ((((long)grp * B + b) * S + kpos[r]) * K + kh) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        *reinterpret_cast<float2*>(dk_part + base + n * 8 + 2 * t) =
+            make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv_part + base + n * 8 + 2 * t) =
+            make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dQ of one (query tile of 64 rows, b, h), walking the KV tiles its rows
+// can see as the forward does: S = Q K^T and dP = dO V^T, then P and
+// dS = P * (dP - Delta) in registers, repacked as the A fragment of
+// dQ += dS K.  K / V tiles are double-buffered with cp.async.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int T_, int S, int H, int K,
+                  int causal, int window, float scale_log2, float scale) {
+  constexpr int BQ = BQ_DQ;
+  constexpr int DP = D + PAD;
+  constexpr int KC = D / 16;
+  constexpr int NS = BKV / 8;       // key n-tiles of S and dP
+  constexpr int NO = D / 8;         // n-tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dOs = Qs + BQ * DP;
+  __nv_bfloat16* Kbuf = dOs + BQ * DP;          // two stages
+  __nv_bfloat16* Vbuf = Kbuf + 2 * BKV * DP;    // two stages
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  // Heaviest causal tiles (last queries) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int offs = S - T_;
+
+  const int q_last = min(q0 + BQ, T_) - 1;
+  int kv_begin = window > 0 ? max(0, offs + q0 - window + 1) : 0;
+  const int kv_end = causal ? min(S, offs + q_last + 1) : S;
+  kv_begin = (kv_begin / BKV) * BKV;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BKV - 1) / BKV : 0;
+
+  int tq[2], qpos[2];
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tq[r] = q0 + warp * 16 + g + 8 * r;
+    qpos[r] = offs + tq[r];
+    const bool in = tq[r] < T_;
+    l2[r] = in ? lse[(long)bh * T_ + tq[r]] * LOG2E : -INFINITY;
+    dl[r] = in ? delta[(long)bh * T_ + tq[r]] : 0.f;
+  }
+
+  // Group 0: Q, dO and the first K/V tile.
+  load_rows_async<BQ, D, THREADS>(Qs, q, b, q0, T_, H, h);
+  load_rows_async<BQ, D, THREADS>(dOs, dout, b, q0, T_, H, h);
+  if (n_tiles > 0) {
+    load_rows_async<BKV, D, THREADS>(Kbuf, k, b, kv_begin, S, K, kh);
+    load_rows_async<BKV, D, THREADS>(Vbuf, v, b, kv_begin, S, K, kh);
+  }
+  cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kv_begin + it * BKV;
+    const __nv_bfloat16* Ks = Kbuf + (it & 1) * BKV * DP;
+    const __nv_bfloat16* Vs = Vbuf + (it & 1) * BKV * DP;
+    if (it + 1 < n_tiles) {     // that stage was freed by the last barrier
+      load_rows_async<BKV, D, THREADS>(Kbuf + ((it + 1) & 1) * BKV * DP, k, b,
+                                       k0 + BKV, S, K, kh);
+      load_rows_async<BKV, D, THREADS>(Vbuf + ((it + 1) & 1) * BKV * DP, v, b,
+                                       k0 + BKV, S, K, kh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float sc[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qa[4], oa[4];
+      ldmatrix_x4(qa, a_frag_addr(Qs, DP, warp * 16, kc * 16));
+      ldmatrix_x4(oa, a_frag_addr(dOs, DP, warp * 16, kc * 16));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, bt_frag_addr(Ks, DP, n * 8, kc * 16));
+        mma_bf16(sc[n], qa, kb[0], kb[1]);
+        mma_bf16(sc[n + 1], qa, kb[2], kb[3]);
+        ldmatrix_x4(vb, bt_frag_addr(Vs, DP, n * 8, kc * 16));
+        mma_bf16(dp[n], oa, vb[0], vb[1]);
+        mma_bf16(dp[n + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i >> 1;
+        const int kpos = k0 + n * 8 + 2 * t + (i & 1);
+        bool ok = kpos < S && l2[r] != -INFINITY;
+        if (causal) ok = ok && kpos <= qpos[r];
+        if (window > 0) ok = ok && kpos > qpos[r] - window;
+        const float p = ok ? exp2f(sc[n][i] * scale_log2 - l2[r]) : 0.f;
+        dp[n][i] = p * (dp[n][i] - dl[r]);
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < BKV / 16; ++j) {
+      const uint32_t da[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
+                              pack_bf16(dp[2 * j][2], dp[2 * j][3]),
+                              pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
+                              pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, b_frag_addr(Ks, DP, j * 16, n * 8));
+        mma_bf16(acc[n], da, kb[0], kb[1]);
+        mma_bf16(acc[n + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();            // this stage is free for the tile after next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (tq[r] < T_) {
+      __nv_bfloat16* row = dq + ((long)(b * T_ + tq[r]) * H + h) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) =
+            pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    }
+  }
+}
+
+// dk = scale * sum_g dk_part[g], dv = sum_g dv_part[g], summed in f32 in
+// the fixed order g = 0, 1, ..., then rounded to bf16 once; four values a
+// thread per step.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+bwd_reduce_kernel(const float4* __restrict__ dk_part,
+                  const float4* __restrict__ dv_part, uint2* __restrict__ dk,
+                  uint2* __restrict__ dv, long n4, int groups, float scale) {
+  for (long i = (long)blockIdx.x * REDUCE_THREADS + threadIdx.x; i < n4;
+       i += (long)gridDim.x * REDUCE_THREADS) {
+    float4 a = dk_part[i], c = dv_part[i];
+    for (int gi = 1; gi < groups; ++gi) {
+      const float4 x = dk_part[gi * n4 + i], y = dv_part[gi * n4 + i];
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+      c.x += y.x; c.y += y.y; c.z += y.z; c.w += y.w;
+    }
+    dk[i] = make_uint2(pack_bf16(a.x * scale, a.y * scale),
+                       pack_bf16(a.z * scale, a.w * scale));
+    dv[i] = make_uint2(pack_bf16(c.x, c.y), pack_bf16(c.z, c.w));
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* o_lo, const void* dout,
+                   const float* lse, float* delta, float* partial, void* dq, void* dk, void* dv,
+                   int B, int T_, int S, int H, int K, int groups, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  const bf16* do_ = static_cast<const bf16*>(dout);
+  cudaError_t err = launch_delta<bf16>(o, o_lo, dout, delta, B, T_, H, D, stream);
+  if (err != cudaSuccess) return err;
+
+  const long n = (long)B * S * K * D;           // elements of dk (and dv)
+  float* dk_part = partial;
+  float* dv_part = partial + (long)groups * n;
+  auto kv_kern = bwd_dkdv_mma_kernel<D>;
+  err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dkdv_smem<D>());
+  if (err != cudaSuccess) return err;
+  const long kv_blocks = (long)((S + BKV - 1) / BKV) * B * K * groups;
+  kv_kern<<<(unsigned)kv_blocks, THREADS, dkdv_smem<D>(), stream>>>(
+      q_, k_, v_, do_, lse, delta, dk_part, dv_part, B, T_, S, H, K, groups,
+      causal, window, scale * LOG2E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto q_kern = bwd_dq_mma_kernel<D>;
+  err = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  q_kern<<<dim3((T_ + BQ_DQ - 1) / BQ_DQ, B * H), THREADS, dq_smem<D>(), stream>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dq), T_, S, H, K, causal,
+      window, scale * LOG2E, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const long n4 = n / 4;                        // D is a multiple of 16
+  const long want = (n4 + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  const long blocks = want < 132L * 16 ? want : 132L * 16;
+  bwd_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(
+      reinterpret_cast<const float4*>(dk_part),
+      reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),
+      static_cast<uint2*>(dv), n4, groups, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// Which kernels a backward call takes: 1 = the bf16 tensor-core kernels, 0 =
+// the f32-FMA kernels.  dtype as below; `aligned` is nonzero when q, k, v,
+// dout, dq, dk and dv all start on 16 bytes.  repro_flash_attention_bwd
+// dispatches by this function.
+extern "C" int repro_flash_attention_bwd_path(int dtype, int D, int aligned) {
+  return dtype == 1 && aligned && (D == 16 || D == 32 || D == 64 || D == 128);
+}
+
+// The number of groups G the H/K query heads of a KV head are split into
+// on the tensor-core path: enough (key tile, b, kv head, group) blocks for
+// TARGET_BLOCKS, at most one group per query head.  The caller allocates
+// the f32 partials, 2 * G * B * S * K * D values, and passes G back.
+extern "C" int repro_flash_attention_bwd_groups(int B, int S, int H, int K) {
+  if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return 1;
+  const long base = (long)((S + tc::BKV - 1) / tc::BKV) * B * K;
+  const long want = (tc::TARGET_BLOCKS + base - 1) / base;
+  const long g = want < H / K ? want : H / K;
+  return (int)(g > 1 ? g : 1);
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv share it).
 // All tensors are contiguous: q, o, dout, dq (B,T,H,D); k, v, dk, dv
-// (B,S,K,D); lse (B,H,T) f32 from the forward; delta (B,H,T) f32 scratch
-// that this call fills.  Returns the first failing launch's cudaError_t (0
-// on success); the kernels run asynchronously on `stream`.
+// (B,S,K,D); lse (B,H,T) f32 from the forward; o_lo (B,T,H,D), the
+// forward's rounding residual of o, or null; delta (B,H,T) f32 scratch
+// that this call fills.  On the tensor-core path `partial` is f32 scratch
+// of 2 * groups * B * S * K * D values, with 1 <= groups <= H/K (see
+// repro_flash_attention_bwd_groups); the FMA path reads neither.  Returns
+// the first failing launch's cudaError_t (0 on success); the kernels run
+// asynchronously on `stream`.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int dtype, int B, int T, int S, int H, int K, int D, int causal,
-    int window, float scale, void* stream) {
+    const void* o_lo, const void* dout, const void* lse, void* delta,
+    void* partial, void* dq,
+    void* dk, void* dv, int dtype, int B, int T, int S, int H, int K, int D,
+    int groups, int causal, int window, float scale, void* stream) {
   if (B <= 0 || T <= 0 || S <= 0 || K <= 0 || H % K != 0 || D <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+        reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+        reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
+  if (repro_flash_attention_bwd_path(dtype, D, aligned)) {
+    if (groups < 1 || groups > H / K || partial == nullptr)
+      return (int)cudaErrorInvalidValue;
+    float* part = static_cast<float*>(partial);
+    switch (D) {
+      case 16: return (int)tc::launch<16>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+      case 32: return (int)tc::launch<32>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+      case 64: return (int)tc::launch<64>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+      case 128: return (int)tc::launch<128>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+    }
+  }
   if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, dout, ls, dl, dq, dk, dv, B, T, S, H, K, D, causal, window, scale, st);
+    return (int)dispatch_d<float>(q, k, v, o, o_lo, dout, ls, dl, dq, dk, dv, B, T, S, H, K, D, causal, window, scale, st);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, dout, ls, dl, dq, dk, dv, B, T, S, H, K, D, causal, window, scale, st);
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, o_lo, dout, ls, dl, dq, dk, dv, B, T, S, H, K, D, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

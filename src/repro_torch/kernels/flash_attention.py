@@ -34,14 +34,21 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 
-# C signature of ``repro_flash_attention_fwd``: q, k, v, o, lse; dtype, B, T,
-# S, H, K, D, causal, window; scale; stream.
-ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+# C signature of ``repro_flash_attention_fwd``: q, k, v, o, lse, o_lo; dtype,
+# B, T, S, H, K, D, causal, window; scale; stream.
+ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_void_p])
-# C signature of ``repro_flash_attention_bwd``: q, k, v, o, dout, lse, delta,
-# dq, dk, dv; dtype, B, T, S, H, K, D, causal, window; scale; stream.
-BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+# C signature of ``repro_flash_attention_bwd``: q, k, v, o, o_lo, dout, lse,
+# delta, partial, dq, dk, dv; dtype, B, T, S, H, K, D, groups, causal,
+# window; scale; stream.
+BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_void_p])
+# ``repro_flash_attention_fwd_path`` / ``_bwd_path``: dtype, D, aligned.
+PATH_ARGTYPES = [ctypes.c_int] * 3
+# ``repro_flash_attention_bwd_groups``: B, S, H, K.
+GROUPS_ARGTYPES = [ctypes.c_int] * 4
+# What the path queries return.
+PATHS = {0: "fma", 1: "tensor cores"}
 
 
 @functools.cache
@@ -58,6 +65,38 @@ def _bwd_fn():
     fn.argtypes = BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _query(source: str, symbol: str, argtypes: tuple):
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fwd_path(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> int:
+    """The forward kernel a call takes (a key of ``PATHS``), as the CUDA
+    dispatch decides it.  Builds the kernel on first use."""
+    return _query(SOURCE, "repro_flash_attention_fwd_path",
+                  tuple(PATH_ARGTYPES))(_DTYPES[dtype], head_dim, int(aligned))
+
+
+def bwd_path(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> int:
+    """The backward kernels a call takes (a key of ``PATHS``)."""
+    return _query(BWD_SOURCE, "repro_flash_attention_bwd_path",
+                  tuple(PATH_ARGTYPES))(_DTYPES[dtype], head_dim, int(aligned))
+
+
+def bwd_groups(B: int, S: int, H: int, K: int) -> int:
+    """How many groups the tensor-core backward splits each KV head's H/K
+    query heads into at this shape."""
+    return _query(BWD_SOURCE, "repro_flash_attention_bwd_groups",
+                  tuple(GROUPS_ARGTYPES))(B, S, H, K)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -108,21 +147,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
              window: int, scale: float, with_lse: bool
-             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The forward kernel on checked inputs: (o, lse (B,H,T) f32 or None)."""
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                        Optional[torch.Tensor]]:
+    """The forward kernel on checked inputs: (o, lse, o_lo).  With
+    ``with_lse``, lse is (B,H,T) f32 and, for bf16, o_lo is what rounding
+    the f32 output to o lost, for the backward's Delta; else both None."""
     global LAUNCHES
     B, T, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    o_lo = torch.empty_like(q) if with_lse and q.dtype != torch.float32 else None
     if out.numel() == 0 or S == 0:
-        return out.zero_(), None if lse is None else lse.fill_(float("-inf"))
+        return (out.zero_(), None if lse is None else lse.fill_(float("-inf")),
+                None if o_lo is None else o_lo.zero_())
     fn = _fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
+                 None if o_lo is None else o_lo.data_ptr(),
                  _DTYPES[q.dtype], B, T, S, H, K, D, int(causal), int(window),
                  float(scale), stream)
     if err != 0:
@@ -130,17 +175,20 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                            f"cudaError_t {err} (B={B} T={T} S={S} H={H} "
                            f"K={K} D={D})")
     LAUNCHES += 1
-    return out, lse
+    return out, lse, o_lo
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
-                             scale: Optional[float] = None
+                             scale: Optional[float] = None,
+                             o_lo: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of the forward's output ``o`` given ``dout``
-    (B,T,H,D) and the forward's log-sum-exp ``lse`` (B,H,T) f32.  Inputs as
+    (B,T,H,D) and the forward's log-sum-exp ``lse`` (B,H,T) f32; ``o_lo``
+    is the forward's rounding residual of ``o`` (``_forward``), without
+    which Delta = rowsum(dO * O) sees O only to bf16.  Inputs as
     :func:`flash_attention_cuda`; the gradients have their inputs' dtypes.
     Raises on a CPU tensor, a mismatched shape or dtype, or a refused
     launch."""
@@ -148,7 +196,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v)
     B, T, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    for name, x in (("o", o), ("dout", dout)):
+    given = [("o", o), ("dout", dout)] + ([] if o_lo is None else [("o_lo", o_lo)])
+    for name, x in given:
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"flash_attention_bwd_cuda: {name} is "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}, "
@@ -158,18 +207,28 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{lse.dtype}, expected ({B}, {H}, {T}) float32")
     scale = scale if scale is not None else D ** -0.5
     o, dout, lse = o.contiguous(), dout.contiguous(), lse.contiguous()
+    o_lo = None if o_lo is None else o_lo.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or S == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    # The tensor-core path sums each group of query heads' f32 partial dK /
+    # dV in this scratch; the FMA path needs none.
+    groups, partial = 0, None
+    if bwd_path(q.dtype, D, _aligned(q, k, v, dout, dq, dk, dv)):
+        groups = bwd_groups(B, S, H, K)
+        partial = torch.empty(2 * groups * B * S * K * D, dtype=torch.float32,
+                              device=q.device)
     fn = _bwd_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if o_lo is None else o_lo.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPES[q.dtype], B, T, S, H, K, D, int(causal), int(window),
-                 float(scale), stream)
+                 _DTYPES[q.dtype], B, T, S, H, K, D, groups, int(causal),
+                 int(window), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed with "
                            f"cudaError_t {err} (B={B} T={T} S={S} H={H} "
@@ -179,21 +238,21 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, saving (q, k, v, o, lse); its backward is the
-    backward kernel."""
+    """The forward kernel, saving (q, k, v, o, lse, o_lo); its backward is
+    the backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o, lse = _forward(q, k, v, causal, window, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse, o_lo = _forward(q, k, v, causal, window, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, o_lo)
         ctx.args = (causal, window, scale)
         return o
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, o_lo = ctx.saved_tensors
         causal, window, scale = ctx.args
         dq, dk, dv = flash_attention_bwd_cuda(
             q, k, v, o, lse, dout.to(q.dtype), causal=causal, window=window,
-            scale=scale)
+            scale=scale, o_lo=o_lo)
         return dq, dk, dv, None, None, None

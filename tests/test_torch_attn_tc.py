@@ -1,0 +1,199 @@
+"""The rounding of the tensor-core flash-attention kernels, emulated on the CPU.
+
+The bf16 tensor-core paths of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu`` round where the plain attention does not.
+The forward rounds P to bf16 before P·V, tile by tile (32 keys) of its
+online softmax.  The backward rounds P and dS to bf16 before dV = Pᵀ·dO,
+dK = dSᵀ·Q and dQ = dS·K, accumulates in f32, sums each group of query
+heads' dK / dV partials in f32 and rounds once; its Δ = rowsum(dO·O)
+reads O as the forward's bf16 output plus the residual the forward lost
+in rounding it.  The emulations below do that arithmetic in plain torch, on
+bf16 inputs, and are held against the JAX reference in f32 (the forward
+against ``repro.kernels.ref.attention_ref``, the gradients against
+``jax.grad`` of the reference's chunked attention) at the bf16 tolerance,
+atol and rtol 2e-2, that ``chip_smoke.py`` and ``tests/test_torch_cuda.py``
+hold the kernels to on the card.  So the kernels' rounding is shown to fit
+that tolerance before any card runs them.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+
+TOL = 2e-2
+LOG2E = 1.4426950408889634
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _mask(T, S, causal, window):
+    qpos = torch.arange(T)[:, None] + (S - T)
+    kpos = torch.arange(S)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _scores(q, k):
+    """(B,H,T,S) f32 products of bf16-valued q (B,T,H,D) and k (B,S,K,D)."""
+    H, K = q.shape[2], k.shape[2]
+    return torch.einsum("bthd,bshd->bhts", q, k.repeat_interleave(H // K, 2))
+
+
+def tc_forward(q, k, v, causal, window):
+    """The forward kernel's arithmetic: online softmax in the log2 domain
+    over 32-key KV tiles, P rounded to bf16 before P·V, f32 m, l and
+    accumulator; output rounded to bf16.  Returns (o, lse, o_lo), o_lo the
+    bf16 residual that training asks for: o + o_lo is the f32 output."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    bk = 32
+    vf = v.repeat_interleave(H // K, 2)
+    x = (_scores(q, k) * (D ** -0.5 * LOG2E)).masked_fill(
+        ~_mask(T, S, causal, window), float("-inf"))
+    m = torch.full((B, H, T), float("-inf"))
+    l = torch.zeros((B, H, T))
+    acc = torch.zeros((B, H, T, D))
+    for k0 in range(0, S, bk):
+        xt = x[..., k0:k0 + bk]
+        m_new = torch.maximum(m, xt.amax(-1))
+        seen = m_new != float("-inf")
+        corr = torch.where(seen, torch.exp2(m - m_new), torch.ones(()))
+        p = torch.where(seen[..., None], torch.exp2(xt - m_new[..., None]),
+                        torch.zeros(()))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhts,bshd->bhtd", _bf16(p), vf[:, k0:k0 + bk])
+        m = m_new
+    o = torch.where(l[..., None] > 0, acc / l[..., None], torch.zeros(()))
+    lse = torch.where(l > 0, (m + torch.log2(l)) / LOG2E,
+                      torch.full((), float("-inf")))
+    o = o.permute(0, 2, 1, 3)
+    return _bf16(o), lse, _bf16(o - _bf16(o))
+
+
+def tc_backward(q, k, v, o, o_lo, lse, dout, causal, window, groups):
+    """The backward kernels' arithmetic: Δ = rowsum(dO·(o + o_lo)),
+    P = exp(S·scale − lse) and dS = P·(dP − Δ) in f32, rounded to bf16
+    before their products, f32 accumulation, each of ``groups`` groups of
+    a KV head's query heads summed into an f32 partial, the partials
+    summed in order and rounded to bf16 once.  Returns (dq, dk, dv)."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    rep, scale = H // K, D ** -0.5
+    delta = (dout * (o + o_lo)).sum(-1).permute(0, 2, 1)        # (B,H,T)
+    visible = _mask(T, S, causal, window) & torch.isfinite(lse)[..., None]
+    p = torch.where(visible, torch.exp2(_scores(q, k) * (scale * LOG2E)
+                                        - lse[..., None] * LOG2E),
+                    torch.zeros(()))
+    dp = _scores(dout, v)
+    ds = p * (dp - delta[..., None])
+    pb, dsb = _bf16(p), _bf16(ds)
+    dq = scale * torch.einsum("bhts,bshd->bthd", dsb, k.repeat_interleave(rep, 2))
+    dv_h = torch.einsum("bhts,bthd->bshd", pb, dout)            # per query head
+    dk_h = torch.einsum("bhts,bthd->bshd", dsb, q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for kh in range(K):
+        for grp in range(groups):
+            heads = range(kh * rep + grp * rep // groups,
+                          kh * rep + (grp + 1) * rep // groups)
+            dk[:, :, kh] += sum(dk_h[:, :, h] for h in heads)
+            dv[:, :, kh] += sum(dv_h[:, :, h] for h in heads)
+    return _bf16(dq), _bf16(dk * scale), _bf16(dv)
+
+
+def _inputs(seed, B, T, S, H, K, D):
+    """bf16-valued f32 arrays q, k, v, dout."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, T, H, D), (B, S, K, D), (B, S, K, D), (B, T, H, D))
+    return [_bf16(torch.from_numpy(rng.standard_normal(s, dtype=np.float32))).numpy()
+            for s in shapes]
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+# B, T, S, H, K, D, causal, window: head dim 256 at recurrentgemma's GQA
+# (16:1) with a window that empties tiles, rows that see no key (T > S),
+# non-causal with T != S, and ragged tiles.
+FWD_CASES = [
+    (1, 256, 256, 16, 1, 256, True, 0),
+    (1, 256, 256, 16, 1, 256, True, 48),
+    (1, 100, 60, 4, 2, 256, True, 0),
+    (2, 70, 130, 4, 1, 256, False, 0),
+]
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=str)
+def test_tc_forward_rounding_within_bf16_tolerance_of_reference(case):
+    B, T, S, H, K, D, causal, window = case
+    q, k, v, _ = _inputs(20, B, T, S, H, K, D)
+    want = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, window=window)
+    got, lse, _ = tc_forward(*(torch.from_numpy(a) for a in (q, k, v)), causal, window)
+    _close(got, want)
+    # Rows that see no key return 0 and write lse = -inf.
+    blind = ~_mask(T, S, causal, window).any(-1)
+    assert bool((got[:, blind] == 0).all())
+    assert bool(torch.isinf(lse[..., blind]).all())
+    if T > S:
+        assert bool(blind.any())
+
+
+# D in {64, 128} at T = S = 256 and GQA 12:1, causal and windowed; the
+# group counts are the split of the starcoder2-3b training shape (4) and
+# one group per head (12).
+BWD_CASES = [(1, 256, 256, 12, 1, D, True, window, groups)
+             for D in (64, 128) for window in (0, 48) for groups in (4, 12)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_tc_backward_rounding_within_bf16_tolerance_of_reference(case):
+    B, T, S, H, K, D, causal, window, groups = case
+    q, k, v, dout = _inputs(21, B, T, S, H, K, D)
+
+    def jloss(q, k, v):
+        o = jops.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_chunk=64, kv_chunk=64)
+        return jnp.sum(o * dout)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, dout))
+    o, lse, o_lo = tc_forward(tq, tk, tv, causal, window)
+    got = tc_backward(tq, tk, tv, o, o_lo, lse, tdo, causal, window, groups)
+    for g, w in zip(got, want):
+        assert bool(g.abs().sum() > 0)
+        _close(g, w)
+
+
+def test_tc_backward_group_count_changes_only_the_f32_sum_order():
+    """The G partials are summed in f32 and rounded once, so the group
+    count moves dK / dV by f32 rounding, far below one bf16 step."""
+    B, T, S, H, K, D = 1, 64, 64, 12, 1, 64
+    q, k, v, dout = (torch.from_numpy(a) for a in _inputs(22, B, T, S, H, K, D))
+    o, lse, o_lo = tc_forward(q, k, v, True, 0)
+    by_g = [tc_backward(q, k, v, o, o_lo, lse, dout, True, 0, g)
+            for g in (1, 4, 5, 12)]
+    for other in by_g[1:]:
+        for a, b in zip(by_g[0][1:], other[1:]):
+            # One bf16 ulp at most: a value near a rounding boundary may
+            # round either way after an f32 reorder.
+            ulp = torch.exp2(torch.floor(torch.log2(a.abs().clamp(min=1e-30)))) * 2 ** -7
+            assert bool(((a - b).abs() <= ulp).all())
+            assert math.isclose(float(a.abs().sum()), float(b.abs().sum()),
+                                rel_tol=1e-3)

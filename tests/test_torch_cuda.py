@@ -8,8 +8,10 @@ it runs on a machine with a card and PyTorch alone:
 Tolerances are those ``chip_smoke.py`` holds the kernels to: f32 1e-4 (sums
 in another order than the plain version), bf16 outputs 2e-2, and the scans'
 f32 final states 1e-4 whatever the input dtype.  The flash backward is held
-against autograd of the plain attention at the same tolerances, and the
-quantize kernel's int8 codes must equal the plain version's exactly.
+against autograd of the plain attention at the same tolerances, must give
+the same bits on two calls, and takes the tensor cores at the bf16 shapes
+of the main paths; the quantize kernel's int8 codes must equal the plain
+version's exactly.
 """
 
 import numpy as np
@@ -23,8 +25,8 @@ from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import ssm_scan as ss
 
 # B, T, S, H, K, D, causal, window -- tests/test_kernels.py ATTN_CASES, then
-# cases on the tensor-core path (bf16, D in {16, 32, 64, 128}) with ragged
-# tiles, suffix queries, a window and rows that see no key (T > S).
+# cases on the tensor-core path (bf16, D in {16, 32, 64, 128, 256}) with
+# ragged tiles, suffix queries, a window and rows that see no key (T > S).
 CASES = [
     (2, 16, 16, 4, 4, 8, True, 0),
     (1, 16, 16, 6, 2, 16, True, 0),
@@ -36,11 +38,22 @@ CASES = [
     (2, 65, 130, 8, 2, 64, True, 0),
     (2, 24, 8, 4, 2, 32, True, 0),
 ]
+# Head dim 256 (recurrentgemma's local layers), on the tensor-core path in
+# bf16: T ragged against the 64-row query tile and the 32-key KV tile,
+# rows that see no key (T > S), non-causal with T != S, a window that
+# empties whole KV tiles, suffix queries, and H/K in {1, 2, 16}.
+D256_CASES = [
+    (1, 100, 100, 2, 2, 256, True, 0),
+    (2, 40, 24, 4, 2, 256, True, 0),
+    (1, 33, 90, 16, 1, 256, False, 0),
+    (1, 300, 300, 16, 1, 256, True, 64),
+    (1, 130, 200, 4, 2, 256, True, 48),
+]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + D256_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_cuda_vs_plain(case, dtype):
     if not torch.cuda.is_available():
@@ -164,6 +177,117 @@ def test_flash_attention_bwd_cuda_vs_autograd_of_plain(case, dtype):
         _close(g, w, TOL[dtype])
 
 
+# (case, groups): bf16 cases of the tensor-core backward, with the number of
+# groups G the dK/dV pass splits each KV head's H/K query heads into at
+# that shape.  GQA group sizes 1, 3 and 12; G = 2 at a group of 3, which it
+# does not divide; ragged T and S, T > S, suffix queries, a window, a
+# non-causal T != S, and the starcoder2-3b training shape (B=4, G=4).
+BWD_TC_CASES = [
+    ((1, 100, 100, 4, 4, 64, True, 0), 1),
+    ((2, 70, 90, 6, 2, 32, True, 0), 3),
+    ((1, 40, 24, 12, 4, 64, True, 0), 3),
+    ((1, 130, 130, 12, 1, 128, True, 48), 12),
+    ((1, 200, 150, 12, 1, 32, False, 0), 12),
+    ((4, 1024, 1024, 12, 4, 64, True, 0), 2),
+    ((4, 1024, 1024, 24, 2, 128, True, 0), 4),
+]
+
+
+def _bwd_vs_plain(case, dtype, seed):
+    """(dq, dk, dv) through the kernels and through f32 autograd of plain."""
+    B, T, S, H, K, D, causal, window = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (_cuda(rng, shape, dtype).requires_grad_()
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    dout = _cuda(rng, (B, T, H, D), dtype)
+    got = torch.autograd.grad(
+        ops.flash_attention(q, k, v, causal=causal, window=window), (q, k, v), dout)
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(
+        ref.attention_ref(qf, kf, vf, causal=causal, window=window),
+        (qf, kf, vf), dout.float())
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,groups", BWD_TC_CASES, ids=str)
+def test_flash_attention_bwd_tensor_cores_vs_autograd_of_plain(case, groups):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, S, H, K, D, causal, window = case
+    assert fa.bwd_path(torch.bfloat16, D) == 1
+    assert fa.bwd_groups(B, S, H, K) == groups
+    before = fa.BWD_LAUNCHES
+    got, want = _bwd_vs_plain(case, torch.bfloat16, 12)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        _close(g, w, TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [BWD_TC_CASES[-1][0], BWD_TC_CASES[-2][0]], ids=str)
+def test_flash_attention_bwd_is_deterministic(case):
+    """No atomics: two backward calls on the same inputs agree bit for bit
+    (G = 4 at the training shape; G = 2 over a group of 3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, S, H, K, D, causal, window = case
+    rng = np.random.default_rng(13)
+    q, k, v = (_cuda(rng, shape, torch.bfloat16)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    dout = _cuda(rng, (B, T, H, D), torch.bfloat16)
+    o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
+    first, second = (fa.flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal=causal,
+                                                 window=window, o_lo=o_lo)
+                     for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_flash_attention_paths():
+    """The bf16 main shapes (head dims 128 and 256 forward, 128 backward)
+    take the tensor cores; f32, head dims the tensor-core kernels do not
+    instantiate, and unaligned pointers take the FMA kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1] * 5
+    assert [fa.bwd_path(bf16, D) for D in (16, 32, 64, 128)] == [1] * 4
+    assert fa.bwd_path(bf16, 256) == 0
+    assert fa.fwd_path(bf16, 96) == fa.bwd_path(bf16, 96) == 0
+    assert fa.fwd_path(f32, 128) == fa.bwd_path(f32, 128) == 0
+    assert fa.fwd_path(f32, 256) == 0
+    assert fa.fwd_path(bf16, 128, aligned=False) == 0
+    assert fa.bwd_path(bf16, 128, aligned=False) == 0
+
+
+@pytest.mark.gpu
+def test_flash_attention_unaligned_bf16_takes_fma_path_and_agrees():
+    """q 2 bytes past a 16-byte boundary: the forward and backward fall to
+    the FMA kernels, which still match plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    case = (1, 50, 50, 4, 2, 128, True, 0)
+    B, T, S, H, K, D, causal, window = case
+    rng = np.random.default_rng(14)
+    flat = _cuda(rng, (B * T * H * D + 1,), torch.bfloat16)
+    q = flat[1:].view(B, T, H, D).requires_grad_()
+    assert q.data_ptr() % 16 != 0
+    k, v = (_cuda(rng, (B, S, K, D), torch.bfloat16).requires_grad_() for _ in range(2))
+    dout = _cuda(rng, (B, T, H, D), torch.bfloat16)
+    got = torch.autograd.grad(
+        fa.flash_attention_cuda(q, k, v, causal=causal), (q, k, v), dout)
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    want_o = ref.attention_ref(qf, kf, vf, causal=causal)
+    want = torch.autograd.grad(want_o, (qf, kf, vf), dout.float())
+    with torch.no_grad():
+        _close(fa.flash_attention_cuda(q, k, v, causal=causal), want_o, 2e-2)
+    for g, w in zip(got, want):
+        _close(g, w, 2e-2)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_bwd_rows_that_see_no_key_get_zero_grads(dtype):
@@ -180,7 +304,7 @@ def test_flash_attention_bwd_rows_that_see_no_key_get_zero_grads(dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + D256_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_serving_unchanged_by_lse(case, dtype):
     """The forward that writes the log-sum-exp gives the same bits as the
@@ -193,8 +317,12 @@ def test_flash_attention_serving_unchanged_by_lse(case, dtype):
                for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
     scale = D ** -0.5
     plain_out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    out, lse = fa._forward(q, k, v, causal, window, scale, with_lse=True)
+    out, lse, o_lo = fa._forward(q, k, v, causal, window, scale, with_lse=True)
     assert torch.equal(out, plain_out)
+    # o + o_lo is the f32 result: o_lo is what rounding it to o lost.
+    if dtype == torch.bfloat16:
+        assert bool((o_lo.float().abs() <= out.float().abs() * 2 ** -8).all())
+        assert bool(o_lo.abs().sum() > 0)
     kf, qf = k.float().repeat_interleave(H // K, 2), q.float()
     s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
     qpos = torch.arange(T, device="cuda")[:, None] + (S - T)

@@ -128,6 +128,10 @@ def test_flash_attention_cuda_rejects_cpu_tensors():
 @pytest.mark.parametrize("module,source,symbol,argtypes", [
     ("flash_attention", "SOURCE", "repro_flash_attention_fwd", "ARGTYPES"),
     ("flash_attention", "BWD_SOURCE", "repro_flash_attention_bwd", "BWD_ARGTYPES"),
+    ("flash_attention", "SOURCE", "repro_flash_attention_fwd_path", "PATH_ARGTYPES"),
+    ("flash_attention", "BWD_SOURCE", "repro_flash_attention_bwd_path", "PATH_ARGTYPES"),
+    ("flash_attention", "BWD_SOURCE", "repro_flash_attention_bwd_groups",
+     "GROUPS_ARGTYPES"),
     ("ssm_scan", "SOURCE", "repro_ssm_scan_fwd", "ARGTYPES"),
     ("rglru_scan", "SOURCE", "repro_rglru_scan_fwd", "ARGTYPES"),
     ("quantize", "SOURCE", "repro_quantize_fwd", "ARGTYPES"),
