@@ -17,13 +17,17 @@ without the final result line:
    beyond them (an initial state, T not a multiple of the time tile,
    channels not a multiple of the block, rows that see no key, rounding
    ties, a row of zeros; head dim 256 and the backward's GQA group splits
-   on the tensor cores) and the main-path shapes, in f32 and bf16.
+   on the tensor cores; the chunked scans' edges: T of one step, a segment
+   less one, a chunk, a chunk plus 3 and two chunks plus 17, ragged channel
+   blocks on the cp.async and the plain-load routes, N in {1, 5, 12, 16})
+   and the main-path shapes, in f32 and bf16.
    Tolerances: f32 atol/rtol 1e-4, bf16 outputs 2e-2, the scans' f32 final
    states 1e-4; the flash forward's log-sum-exp (written for the backward)
    against a plain logsumexp at 1e-4, with its output bit-identical to the
    forward without it; the flash backward's dQ, dK, dV against autograd of
    the plain attention at the same f32 / bf16 tolerances, and bit for bit
-   equal on a second call; quantization's int8 codes exactly equal and its
+   equal on a second call, as are both scans at their main shapes;
+   quantization's int8 codes exactly equal and its
    scales within 1e-6.  The flash kernels' path queries must put the bf16
    main shapes (qwen3, recurrentgemma-local and starcoder2 forward,
    starcoder2 backward) on the tensor cores and f32 on the FMA kernels,
@@ -59,8 +63,10 @@ without the final result line:
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
    the same function (the port never calls it); each flash line names the
-   path it took.
-7. The ``kernels`` JSON line, then the result line
+   path it took, and each scan line the time of the scan kernel it
+   replaced (one thread per channel walking all T).
+7. The ``kernels`` JSON line (the scans' entries with their tile sizes),
+   then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -143,18 +149,33 @@ BWD_TC_GROUPS[TRAIN_SHAPE] = 4
 QUANT_CASES = [(8, 16), (7, 33), (128, 256), (1, 5), "zero-row", "ties"]
 QUANT_MAIN = (36864, 1024)
 # Bt, T, I, N, with h0 -- tests/test_kernels.py SSM_CASES, then an initial
-# state, T past the 16-step tile (20, 1000), I not a multiple of the
-# 128-channel block, and the falcon-mamba-7b prefill shape.
+# state, T past one tile (20, 1000), I not a multiple of a channel block;
+# then the chunked kernel's edges (64-step chunks of 16-step segments,
+# 64-channel blocks): T in {1, 15, 64, 67, 145, 200}, I a ragged block on the
+# plain-load route (71, 33) and on the cp.async route (72, 80), N in {1, 5,
+# 12, 16}; and the falcon-mamba-7b prefill shape.
 SSM_CASES = [(1, 8, 4, 2, False), (2, 16, 8, 4, False), (1, 24, 6, 3, False),
              (2, 16, 8, 4, True), (2, 20, 200, 16, True),
-             (1, 1000, 130, 16, False)]
+             (1, 1000, 130, 16, False),
+             (2, 145, 71, 16, True), (1, 1, 5, 1, False), (2, 15, 16, 5, True),
+             (1, 64, 33, 16, False), (3, 67, 72, 5, True),
+             (1, 200, 80, 12, True)]
 SSM_MAIN = (4, 1024, 8192, 16, False)
 # B, T, L, with h0 -- tests/test_kernels.py RGLRU_CASES, then T=20 (where the
 # Pallas wrapper's unmasked padding breaks h_T), T=1000 with L not a multiple
-# of the 64-channel block, and the recurrentgemma-9b prefill shape.
+# of the 64-channel block; then the chunked kernel's edges (64-step chunks of
+# 16-step segments): T in {1, 15, 64, 67, 145, 200}, L a ragged block on the
+# plain-load route (71, 3) and on the cp.async route (72, 136); and the
+# recurrentgemma-9b prefill shape.
 RGLRU_CASES = [(1, 8, 4, False), (2, 16, 8, False), (1, 13, 6, False),
-               (1, 20, 6, False), (2, 20, 6, True), (2, 1000, 100, True)]
+               (1, 20, 6, False), (2, 20, 6, True), (2, 1000, 100, True),
+               (2, 145, 71, True), (1, 1, 3, False), (2, 15, 64, True),
+               (1, 64, 100, False), (3, 67, 72, True), (1, 200, 136, False)]
 RGLRU_MAIN = (4, 3000, 4096, False)
+# The scans' times at their main shapes before the chunked kernels (one
+# thread per channel walking all T): this script's phase 6 on an H100 80GB
+# HBM3 at 700 W.  Printed as a reference point; that kernel is not rebuilt.
+PREVIOUS_MS = {"ssm_scan": 0.7920, "rglru_scan": 0.7553}
 
 
 def serve_args(arch: str, prompt: int) -> list:
@@ -498,6 +519,19 @@ def main() -> int:
         n_cases += 1
         del q, k, v, dout, o, lse, o_lo, first, second
         free()
+    # The scans' order is fixed: a second call at the main shapes gives the
+    # same bits.
+    with torch.inference_mode():
+        for name, run, inputs, case in (
+                ("ssm_scan", ss.ssm_scan_cuda, ssm_inputs, SSM_MAIN),
+                ("rglru_scan", rs.rglru_scan_cuda, rglru_inputs, RGLRU_MAIN)):
+            args = inputs(torch, case, torch.bfloat16, seed=800)
+            first, second = run(*args), run(*args)
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"{name} {case} bf16: two calls differ")
+            n_cases += 1
+            del args, first, second
+            free()
     path_line = ", ".join(
         f"{name} {fa.PATHS[p]}" for name, p in (
             ("qwen3 forward", paths[("flash_attention", MAIN_SHAPE)]),
@@ -506,7 +540,8 @@ def main() -> int:
             ("starcoder2 backward", paths["flash_attention_bwd"])))
     phase(3, "kernels against plain",
           f"{n_cases} cases; paths (bf16): {path_line}; f32 on the FMA "
-          "kernels; backward deterministic (2 cases bitwise equal); "
+          "kernels; flash backward and both scans deterministic (4 cases "
+          "bitwise equal); "
           "main-path max abs err: flash qwen3 bf16 "
           f"{main_err[('flash_attention', MAIN_SHAPE)]:.3e}, flash local bf16 "
           f"{main_err[('flash_attention', LOCAL_SHAPE)]:.3e}, flash starcoder2 "
@@ -820,9 +855,11 @@ def main() -> int:
                                Bt * T * I * N, nbytes(*args, y, hT))
     times["ssm_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=None)
-    lines.append(f"ssm_scan x bf16 {SSM_MAIN[:4]}: kernel {ms:.4f} ms, plain "
-                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({detail}); "
-                 "no library call computes a selective scan")
+    lines.append(f"ssm_scan x bf16 {SSM_MAIN[:4]}: kernel {ms:.4f} ms "
+                 f"({ms / b_ms:.2f}x bound; the previous kernel "
+                 f"{PREVIOUS_MS['ssm_scan']:.4f}), plain {plain_ms:.4f} ms, "
+                 f"bound {b_ms:.4f} ms by {b_by} ({detail}); no library call "
+                 "computes a selective scan")
     del args, y, hT
     free()
 
@@ -837,9 +874,11 @@ def main() -> int:
                                nbytes(*args, hs, hT))
     times["rglru_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=None)
-    lines.append(f"rglru_scan bf16 {RGLRU_MAIN[:3]}: kernel {ms:.4f} ms, plain "
-                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({detail}); "
-                 "no library call computes an RG-LRU")
+    lines.append(f"rglru_scan bf16 {RGLRU_MAIN[:3]}: kernel {ms:.4f} ms "
+                 f"({ms / b_ms:.2f}x bound; the previous kernel "
+                 f"{PREVIOUS_MS['rglru_scan']:.4f}), plain {plain_ms:.4f} ms, "
+                 f"bound {b_ms:.4f} ms by {b_by} ({detail}); no library call "
+                 "computes an RG-LRU")
     del args, hs, hT
     free()
 
@@ -882,6 +921,9 @@ def main() -> int:
                 shape=list(TRAIN_SHAPE),
                 max_abs_err=main_err[("flash_attention", TRAIN_SHAPE)],
                 lse_max_abs_err=main_err["flash_lse"], **times["flash_train"])
+        if name in PREVIOUS_MS:
+            entry["tiles"] = {k: getattr(m, k) for k in
+                              ("CHUNK", "SEGMENT", "LANES", "CHANNELS", "STAGES")}
         if name == "flash_attention_bwd":
             entry["note"] = ("the backward of the function flash_attention_pallas "
                              "computes; the Pallas kernel has none, and the "

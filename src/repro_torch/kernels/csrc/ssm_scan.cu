@@ -1,4 +1,4 @@
-// Mamba1 selective scan for Hopper (sm_90a).
+// Mamba1 selective scan for Hopper (sm_90a), parallel over time.
 //
 // Replaces the Pallas TPU kernel `_ssm_kernel` / `ssm_scan_pallas`
 // (src/repro/kernels/ssm_scan.py).  It computes what the plain version
@@ -12,104 +12,228 @@
 // is f32.  Unlike the Pallas kernel, it takes h0, and it adds D*x in f32
 // before y is rounded to the dtype of x, as the plain version does.
 //
-// Design.  One thread per (batch, channel) pair holds that channel's N <= 16
-// states in registers and walks all T steps; blocks of 128 threads cover 128
-// neighbouring channels of one batch row.  The alternative, one thread per
-// (batch, channel, state) with a 16-lane shuffle reduction for y, has 16x the
-// threads but needs 4 shuffles per state and step for the reduction; here y
-// is a chain of 16 FMAs in one thread, and the 16 independent exponentials
-// of a step give each thread its own instruction-level parallelism.  The
-// walk goes in tiles of TT steps: each thread first loads its TT values of x
-// and dt (coalesced across the block's channels, all in flight together),
-// and the block stages B_t and C_t of the tile in shared memory, since every
-// channel of a batch row reads the same ones.  A state slot n >= N is padded
-// with A = B = C = 0: it stays 0 and adds nothing, so no loop is guarded.
+// What bounds it.  At the falcon-mamba-7b prefill shape (Bt=4, T=1024,
+// I=8192, N=16, x and y bf16, dt f32) the Bt*T*I*N = 537M exponentials on
+// the special-function units (16 per clock per SM) take about 0.13 ms on an
+// H100 SXM, against about 0.08 ms to move the 271 MB of inputs and outputs
+// at 3.35 TB/s: the exponentials bind.  exp(dt*A) is ex2(dt * A*log2(e)),
+// one multiply and one MUFU.EX2, and each (t, n) gets exactly one; the
+// parallel scan below composes products and adds none.
 //
-// Bound on an H100 SXM at the falcon-mamba-7b prefill shape (Bt=4, T=1024,
-// I=8192, N=16, x and y bf16, dt f32): Bt*T*I*N = 537M exponentials on the
-// special-function units (16 per clock per SM) take about 0.13 ms, against
-// about 0.08 ms to move the 271 MB of inputs and outputs at 3.35 TB/s, so the
-// exponentials bind.  exp(dt*A) is computed as exp2f(dt * A*log2(e)), one
-// multiply and one ex2 each.  The walk over T is sequential, so the card is
-// filled only by Bt*I/128 = 256 blocks; a split-T parallel scan is the next
-// step (ROADMAP.md).
+// Design.  A block of 8 warps owns CH = 64 channels of one batch row and
+// walks T in chunks of TC = 64 steps.  Each chunk's x and dt tiles (TC x CH)
+// and its B and C rows (TC x N) reach shared memory through a ring of
+// STAGES = 2 buffers filled by cp.async, so the next chunk loads while this
+// one is computed.  cp.async and not TMA: the tiles are rows of 128-256
+// bytes strided by I, a 16-byte copy per thread needs no tensor map
+// (cuTensorMapEncode), and the same code copies any 16-byte-aligned row;
+// unaligned rows (small or odd I, N not a multiple of 4) take plain loads
+// into the same tiles, still on the card.  Inside a chunk, LANES = 4 lanes
+// share one channel, each over a segment of SEG = 16 consecutive steps, and
+// a warp holds CPW = 8 channels (lane = segment * CPW + channel): one
+// shared-memory read of B_t,n or C_t,n serves the 8 channels.  For each
+// state n a lane
+//   1. forms its 16 steps' dA and dt*B*x, keeps them in registers, and
+//      composes them into one (prod dA, h) pair;
+//   2. takes an inclusive shuffle scan of the pairs across its 4 lanes,
+//      (a1,b1) o (a2,b2) = (a1*a2, a2*b1 + b2), with the channel's carry
+//      from the previous chunk folded into the first lane;
+//   3. re-walks its segment from the state before it and accumulates
+//      y_t += C_t,n * h_t,n.
+// The last lane's state is the next chunk's carry (kept in shared memory by
+// the first lane), and after the last chunk it is h_T.  Steps past T are
+// identity (dA = 1, dt*B*x = 0), never zero inputs; full chunks skip the
+// mask.  y goes back through the x tile in shared memory and leaves as
+// 16-byte coalesced stores.  Tiles put 32 bytes after every SEG rows
+// (scan_tiles.cuh), so the 4 segments of a warp read distinct banks.
+//
+// Why these tiles.  4 lanes of 16 steps keep a segment's dA and dt*B*x in
+// registers and the shuffle scan at two levels; 8 warps of 121 registers
+// (no spills, python -m repro_torch.kernels._build) and 74,752 B of shared
+// memory leave two blocks (16 warps) per SM.  On an H100 80GB HBM3 at
+// 700 W the main shape takes about 0.31 ms (chip_smoke.py phase 6), 2.4x
+// its bound.  What holds it there is the work around each exponential: per
+// (t, n) the loops in scan_chunk issue, beside the one MUFU.EX2, four f32
+// multiplies or FMAs to compose the segment, two FMAs to re-walk it and two
+// shared-memory reads (B and C): nine instructions, where the SFUs' 16
+// results per clock leave 8 of an SM's 128 lane issue slots per
+// exponential.  Issue and the shared-memory pipe bind before the SFUs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "scan_tiles.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;    // channels per block
-constexpr int TT = 16;          // time steps per tile
+using namespace scan_tiles;
+
+// Tile constants, mirrored in ssm_scan.py (SEGMENT, LANES, CHANNELS, CHUNK,
+// STAGES) for the CPU tests.
+constexpr int SEG = 16;                 // steps a lane composes
+constexpr int LANES = 4;                // lanes that scan one channel
+constexpr int CPW = 32 / LANES;         // channels per warp
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int CH = WARPS * CPW;         // channels per block
+constexpr int TC = LANES * SEG;         // steps per chunk
+constexpr int STAGES = 2;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 template <typename T, int NMAX>
-__global__ void __launch_bounds__(THREADS) ssm_scan_kernel(
+struct Layout {
+  static constexpr int X = tile_bytes<T, CH, TC, SEG>();
+  static constexpr int F = tile_bytes<float, CH, TC, SEG>();
+  static constexpr int S = tile_bytes<float, NMAX, TC, SEG>();
+  static constexpr int STAGE = X + F + 2 * S;   // x, dt, B, C
+  static constexpr int STATE = CH * NMAX * 4;   // A*log2(e), or the carries
+  static constexpr int SMEM = STAGES * STAGE + 2 * STATE;
+};
+
+// One chunk of one lane: segment g of channel c, `live` valid steps (all
+// SEG unless MASKED).  a2 (CH x NMAX) holds A*log2(e); carry (CH x NMAX)
+// the channel's state, read and written by the lane with g == 0 only.
+// Writes y into x's place in the tile.
+template <typename T, int NMAX, bool MASKED>
+__device__ __forceinline__ void scan_chunk(char* st, const float* a2,
+                                           float* carry, int N, int g, int c,
+                                           int src, int live, float d) {
+  using L = Layout<T, NMAX>;
+  char* xs = st;
+  char* dts = st + L::X;
+  char* Bs = st + L::X + L::F;
+  char* Cs = Bs + L::S;
+  float dtv[SEG], dtx[SEG], yv[SEG];
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) {
+    dtv[s] = *at_seg<float, CH, SEG>(dts, g, s, c);
+    dtx[s] = dtv[s] * to_f32(*at_seg<T, CH, SEG>(xs, g, s, c));
+    yv[s] = 0.f;
+  }
+#pragma unroll 1
+  for (int n = 0; n < N; ++n) {
+    const float an = a2[c * NMAX + n];
+    float dA[SEG], u[SEG];
+    float P = 1.f, h = 0.f;
+    // 1. compose the segment
+#pragma unroll
+    for (int s = 0; s < SEG; ++s) {
+      const float bn = *at_seg<float, NMAX, SEG>(Bs, g, s, n);
+      const bool v = !MASKED || s < live;
+      dA[s] = v ? ex2_approx(dtv[s] * an) : 1.f;
+      u[s] = v ? dtx[s] * bn : 0.f;
+      h = fmaf(dA[s], h, u[s]);
+      P *= dA[s];
+    }
+    // 2. scan the LANES segments, the carry folded into the first
+    const float old = g == 0 ? carry[c * NMAX + n] : 0.f;
+    if (g == 0) h = fmaf(P, old, h);
+#pragma unroll
+    for (int off = 1; off < LANES; off *= 2) {
+      const float hp = __shfl_up_sync(FULL, h, off * CPW);
+      if (2 * off < LANES) {                        // the last level needs no P
+        const float Pp = __shfl_up_sync(FULL, P, off * CPW);
+        if (g >= off) {
+          h = fmaf(P, hp, h);
+          P *= Pp;
+        }
+      } else if (g >= off) {
+        h = fmaf(P, hp, h);
+      }
+    }
+    // The first lane keeps the last lane's state as the next carry and
+    // starts from the old one; lane g starts from lane g-1's.
+    const float nxt = __shfl_sync(FULL, h, src);
+    h = g == 0 ? old : nxt;
+    if (g == 0) carry[c * NMAX + n] = nxt;
+    // 3. re-walk the segment with dA and dt*B*x still in registers
+#pragma unroll
+    for (int s = 0; s < SEG; ++s) {
+      h = fmaf(dA[s], h, u[s]);
+      yv[s] = fmaf(h, *at_seg<float, NMAX, SEG>(Cs, g, s, n), yv[s]);
+    }
+  }
+  // y = C.h + D*x, rounded once, into x's place in the tile.
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) {
+    if (!MASKED || s < live) {
+      T* p = at_seg<T, CH, SEG>(xs, g, s, c);
+      from_f32(p, yv[s] + d * to_f32(*p));
+    }
+  }
+}
+
+// flags: bit 0 x and y rows 16-byte aligned, bit 1 dt's, bit 2 B's and C's.
+template <typename T, int NMAX>
+__global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ Dv,
     const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hT,
-    int Tn, int I, int N) {
-  __shared__ float Bs[TT][NMAX];
-  __shared__ float Cs[TT][NMAX];
+    int Tn, int I, int N, int flags) {
+  using L = Layout<T, NMAX>;
+  extern __shared__ __align__(16) char smem[];
+  float* a2 = reinterpret_cast<float*>(smem + STAGES * L::STAGE);
+  float* carry = a2 + CH * NMAX;
   const int b = blockIdx.y;
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  const bool active = i < I;
+  const int c0 = blockIdx.x * CH;
+  const int ncols = min(CH, I - c0);
+  const int lane = threadIdx.x % 32;
+  const int g = lane / CPW;                         // segment
+  const int c = (threadIdx.x / 32) * CPW + lane % CPW;   // channel in block
+  const int src = ((g + LANES - 1) % LANES) * CPW + lane % CPW;
+  const float d = c0 + c < I ? Dv[c0 + c] : 0.f;
 
-  float a2[NMAX], h[NMAX];
-#pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    const bool live = active && n < N;
-    a2[n] = live ? A[(long)i * N + n] * LOG2E : 0.f;
-    h[n] = (live && h0 != nullptr) ? h0[((long)b * I + i) * N + n] : 0.f;
+  zero_smem<THREADS>(smem, STAGES * L::STAGE);
+  for (int k = threadIdx.x; k < CH * NMAX; k += THREADS) {
+    const int ch = c0 + k / NMAX, n = k % NMAX;
+    const bool live = ch < I && n < N;
+    a2[k] = live ? A[(long)ch * N + n] * LOG2E : 0.f;
+    carry[k] = live && h0 != nullptr ? h0[((long)b * I + ch) * N + n] : 0.f;
   }
-  const float d = active ? Dv[i] : 0.f;
-  const long row0 = (long)b * Tn;     // first (b, t) row of this batch
+  __syncthreads();
 
-  for (int t0 = 0; t0 < Tn; t0 += TT) {
-    const int nt = min(TT, Tn - t0);
-    __syncthreads();                  // the previous tile's B, C are read
-    for (int k = threadIdx.x; k < TT * NMAX; k += THREADS) {
-      const int s = k / NMAX, n = k % NMAX;
-      const bool live = s < nt && n < N;
-      const long off = (row0 + t0 + s) * N + n;
-      Bs[s][n] = live ? Bm[off] : 0.f;
-      Cs[s][n] = live ? Cm[off] : 0.f;
+  const bool vx = flags & 1, vdt = flags & 2, vbc = flags & 4;
+  const int nchunks = (Tn + TC - 1) / TC;
+  auto prefetch = [&](int k) {
+    if (k < nchunks) {
+      char* st = smem + (k % STAGES) * L::STAGE;
+      const int nt = min(TC, Tn - k * TC);
+      const long row0 = (long)b * Tn + (long)k * TC;
+      load_tile<T, CH, SEG, THREADS>(st, x + row0 * I + c0, I, nt, ncols, vx);
+      load_tile<float, CH, SEG, THREADS>(st + L::X, dt + row0 * I + c0, I, nt,
+                                         ncols, vdt);
+      load_tile<float, NMAX, SEG, THREADS>(st + L::X + L::F, Bm + row0 * N, N,
+                                           nt, N, vbc);
+      load_tile<float, NMAX, SEG, THREADS>(st + L::X + L::F + L::S,
+                                           Cm + row0 * N, N, nt, N, vbc);
     }
-    float xv[TT], dv[TT];
+    cp_async_commit();                              // empty groups keep count
+  };
+
 #pragma unroll
-    for (int s = 0; s < TT; ++s) {
-      const bool live = active && s < nt;
-      const long off = (row0 + t0 + s) * I + i;
-      xv[s] = live ? to_f32(x[off]) : 0.f;
-      dv[s] = live ? dt[off] : 0.f;
-    }
+  for (int k = 0; k < STAGES - 1; ++k) prefetch(k);
+  for (int k = 0; k < nchunks; ++k) {
+    prefetch(k + STAGES - 1);
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();                                // chunk k has landed
+    char* st = smem + (k % STAGES) * L::STAGE;
+    const int nt = min(TC, Tn - k * TC);
+    if (nt == TC)
+      scan_chunk<T, NMAX, false>(st, a2, carry, N, g, c, src, SEG, d);
+    else
+      scan_chunk<T, NMAX, true>(st, a2, carry, N, g, c, src, nt - g * SEG, d);
     __syncthreads();
-#pragma unroll
-    for (int s = 0; s < TT; ++s) {
-      if (s < nt) {                   // uniform across the block
-        const float dtx = dv[s] * xv[s];
-        float acc = 0.f;
-#pragma unroll
-        for (int n = 0; n < NMAX; ++n) {
-          const float dA = exp2f(dv[s] * a2[n]);
-          h[n] = fmaf(dA, h[n], dtx * Bs[s][n]);
-          acc = fmaf(h[n], Cs[s][n], acc);
-        }
-        if (active) from_f32(&y[(row0 + t0 + s) * I + i], acc + d * xv[s]);
-      }
-    }
+    store_tile<T, CH, SEG, THREADS>(y + ((long)b * Tn + (long)k * TC) * I + c0,
+                                    st, I, nt, ncols, vx);
+    __syncthreads();                                // the buffer is free
   }
-  if (active) {
-#pragma unroll
-    for (int n = 0; n < NMAX; ++n)
-      if (n < N) hT[((long)b * I + i) * N + n] = h[n];
+  // Each carry was last written by its own channel's first lane.
+  for (int k = threadIdx.x; k < CH * NMAX; k += THREADS) {
+    const int ch = c0 + k / NMAX, n = k % NMAX;
+    if (ch < I && n < N) hT[((long)b * I + ch) * N + n] = carry[k];
   }
 }
 
@@ -118,10 +242,19 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
                    const float* Bm, const float* Cm, const float* Dv,
                    const float* h0, void* y, float* hT, int Bt, int Tn, int I,
                    int N, cudaStream_t stream) {
-  dim3 grid((I + THREADS - 1) / THREADS, Bt);
-  ssm_scan_kernel<T, NMAX><<<grid, THREADS, 0, stream>>>(
+  constexpr int smem = Layout<T, NMAX>::SMEM;
+  auto kernel = ssm_scan_kernel<T, NMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long xrow = (long)I * sizeof(T);
+  const int flags = (aligned16(x, xrow) && aligned16(y, xrow) ? 1 : 0)
+                  | (aligned16(dt, (long)I * 4) ? 2 : 0)
+                  | (aligned16(Bm, (long)N * 4) && aligned16(Cm, 0) ? 4 : 0);
+  dim3 grid((I + CH - 1) / CH, Bt);
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, A, Bm, Cm, Dv, h0, static_cast<T*>(y), hT,
-      Tn, I, N);
+      Tn, I, N, flags);
   return cudaGetLastError();
 }
 

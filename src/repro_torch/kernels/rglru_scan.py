@@ -2,8 +2,11 @@
 
 Replaces ``repro.kernels.rglru_scan.rglru_pallas`` (the Pallas TPU kernel
 ``_rglru_kernel``) with ``csrc/rglru_scan.cu``, built with ``nvcc`` for
-``sm_90a`` at first use and bound through ctypes.  The plain version of the
-same function is :func:`repro_torch.kernels.ref.rglru_ref`.  Unlike the
+``sm_90a`` at first use and bound through ctypes.  The kernel scans time in
+parallel inside a block: chunks of ``CHUNK`` steps, lanes over segments of
+``SEGMENT`` steps, a shuffle scan across them and a carry between chunks.
+The plain version of the same function is
+:func:`repro_torch.kernels.ref.rglru_ref`.  Unlike the
 Pallas wrapper, which pads T without masking, the kernel walks exactly T
 steps, so ``h_T`` is right for every T.
 """
@@ -20,6 +23,15 @@ from repro_torch.kernels import _build
 
 SOURCE = "rglru_scan.cu"
 REPLACES = "src/repro/kernels/rglru_scan.py:73"     # its pl.pallas_call
+# The kernel's tiles (csrc/rglru_scan.cu states them; tests hold the two
+# equal): LANES lanes scan one channel, each over SEGMENT consecutive steps,
+# so a chunk is CHUNK = LANES * SEGMENT steps; a block owns CHANNELS
+# channels of one batch row, and STAGES chunks are in shared memory at once.
+SEGMENT = 16
+LANES = 4
+CHANNELS = 64
+CHUNK = LANES * SEGMENT
+STAGES = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches in this process; read and reset by callers that must show

@@ -2,8 +2,11 @@
 
 Replaces ``repro.kernels.ssm_scan.ssm_scan_pallas`` (the Pallas TPU kernel
 ``_ssm_kernel``) with ``csrc/ssm_scan.cu``, built with ``nvcc`` for
-``sm_90a`` at first use and bound through ctypes.  The plain version of the
-same function is :func:`repro_torch.kernels.ref.ssm_scan_ref`.
+``sm_90a`` at first use and bound through ctypes.  The kernel scans time in
+parallel inside a block: chunks of ``CHUNK`` steps, lanes over segments of
+``SEGMENT`` steps, a shuffle scan across them and a carry between chunks.
+The plain version of the same function is
+:func:`repro_torch.kernels.ref.ssm_scan_ref`.
 """
 
 from __future__ import annotations
@@ -19,6 +22,15 @@ from repro_torch.kernels import _build
 SOURCE = "ssm_scan.cu"
 REPLACES = "src/repro/kernels/ssm_scan.py:79"       # its pl.pallas_call
 MAX_STATE = 16
+# The kernel's tiles (csrc/ssm_scan.cu states them; tests hold the two
+# equal): LANES lanes scan one channel, each over SEGMENT consecutive steps,
+# so a chunk is CHUNK = LANES * SEGMENT steps; a block owns CHANNELS
+# channels of one batch row, and STAGES chunks are in shared memory at once.
+SEGMENT = 16
+LANES = 4
+CHANNELS = 64
+CHUNK = LANES * SEGMENT
+STAGES = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches in this process; read and reset by callers that must show

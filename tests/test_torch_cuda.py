@@ -74,13 +74,24 @@ def test_flash_attention_cuda_vs_plain(case, dtype):
 
 
 # B, T, I, N -- tests/test_kernels.py SSM_CASES, then T past one tile, I not
-# a multiple of the 128-channel block, and the full state size.
+# a multiple of a channel block, and the full state size; then the
+# chunked kernel's edges (ss.CHUNK = 64 steps, ss.SEGMENT = 16, ss.CHANNELS
+# = 64): T in {1, SEGMENT - 1, CHUNK, CHUNK + 3, 2 CHUNK + 17, 200}, I a
+# ragged block on the plain-load route (71, 33) and on the cp.async route
+# (72, 80), N in {1, 5, 12, 16}.
 SSM_CASES = [(1, 8, 4, 2), (2, 16, 8, 4), (1, 24, 6, 3), (2, 20, 200, 16),
-             (1, 1000, 130, 16), (3, 17, 64, 8)]
+             (1, 1000, 130, 16), (3, 17, 64, 8),
+             (2, 145, 71, 16), (1, 1, 5, 1), (2, 15, 16, 5), (1, 64, 33, 16),
+             (3, 67, 72, 5), (1, 200, 80, 12)]
 # B, T, L -- tests/test_kernels.py RGLRU_CASES, then T not a multiple of 16
-# and L not a multiple of the 64-channel block.
+# and L not a multiple of the 64-channel block; then the chunked kernel's
+# edges (rs.CHUNK = 64, rs.SEGMENT = 16, rs.CHANNELS = 64): T in {1,
+# SEGMENT - 1, CHUNK, CHUNK + 3, 2 CHUNK + 17, 200}, L a ragged block on the
+# plain-load route (71, 3) and on the cp.async route (72, 136; 100 in f32).
 RGLRU_CASES = [(1, 8, 4), (2, 16, 8), (1, 13, 6), (1, 20, 6), (2, 1000, 100),
-               (3, 33, 64)]
+               (3, 33, 64),
+               (2, 145, 71), (1, 1, 3), (2, 15, 64), (1, 64, 100), (3, 67, 72),
+               (1, 200, 136)]
 
 
 def _cuda(rng, shape, dtype=torch.float32):
@@ -137,6 +148,32 @@ def test_rglru_scan_cuda_vs_plain(case, dtype, with_h0):
     hs_ref, hT_ref = ref.rglru_ref(x, a, i, lam, h0)
     _close(hs, hs_ref, TOL[dtype])
     _close(hT, hT_ref, 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["ssm_scan", "rglru_scan"])
+def test_scan_kernels_are_deterministic_at_the_main_shapes(kernel):
+    """The scan order is fixed, so two calls at the main-path shapes
+    (falcon-mamba-7b and recurrentgemma-9b prefill, B=4, bf16) give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(8)
+    if kernel == "ssm_scan":
+        Bt, T, I, N = 4, 1024, 8192, 16
+        args = (_cuda(rng, (Bt, T, I), torch.bfloat16),
+                torch.nn.functional.softplus(_cuda(rng, (Bt, T, I))),
+                -torch.exp(_cuda(rng, (I, N))),
+                _cuda(rng, (Bt, T, N), torch.bfloat16),
+                _cuda(rng, (Bt, T, N), torch.bfloat16), _cuda(rng, (I,)))
+        run = ss.ssm_scan_cuda
+    else:
+        B, T, L = 4, 3000, 4096
+        args = tuple(_cuda(rng, (B, T, L), torch.bfloat16) for _ in range(3)) + (
+            _cuda(rng, (L,)),)
+        run = rs.rglru_scan_cuda
+    first, second = run(*args), run(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # The forward's cases plus every head dim the backward templates on (16, 32,
