@@ -59,6 +59,22 @@ without the final result line:
    ``decompress + new_err`` must give back ``g + err`` (relative 1e-6), and
    ``|new_err| <= scale/2`` on every row (up to the f32 rounding of
    x/scale and q*scale, 2**-15 of the scale).
+   Then checkpoint/restart through BaseFS: ``launch.train`` at the same
+   shape with ``--steps 4 --ckpt-every 2 --fail-at 3 --consistency session
+   --ckpt-hosts 4`` saves after steps 2 and 4 and, after step 3, restores
+   step 2's checkpoint on 3 hosts with host 1's rows from its partner copy
+   and runs step 3 again: 5 steps executed, flash forward 80 and backward
+   40 launches, every loss finite and step 3's loss after the restart equal
+   to its loss before.  Step 4's checkpoint, restored the same way, must
+   equal the final state bit for bit on the card.  That state is then saved
+   under commit and under session (4 hosts, partner copies) and restored on
+   3 with host 1 failed, bit for bit; commit's restore must make more than
+   4x session's query RPCs (the paper's Fig. 5 gap).  Printed: each save's
+   and restore's host wall time, the bytes BaseFS moved, the process's
+   host RSS now and at its peak after each step, and the save and
+   restore times that
+   ``CostModel().replay`` models on its own hardware constants (modelled,
+   not measured on the card).
 6. Times at the main-path shapes: kernel, plain version, the least time
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
@@ -76,6 +92,7 @@ import dataclasses
 import gc
 import json
 import math
+import resource
 import subprocess
 import sys
 import time
@@ -189,6 +206,13 @@ MAIN_PATHS = [("qwen3-32b", serve_args("qwen3-32b", 1024)),
 TRAIN_ARGS = ["--arch", "starcoder2-3b", "--layers", "8", "--batch", "4",
               "--seq", "1024", "--steps", "3", "--device", "cuda", "--seed", "0"]
 MEMORIZE_STEPS = 3
+# Checkpoint/restart: saves after steps 2 and 4, a host failure after step 3,
+# an elastic restart from the step-2 checkpoint on 3 hosts, step 3 again.
+CKPT_ARGS = ["--arch", "starcoder2-3b", "--layers", "8", "--batch", "4",
+             "--seq", "1024", "--steps", "4", "--ckpt-every", "2", "--fail-at",
+             "3", "--consistency", "session", "--ckpt-hosts", "4", "--device",
+             "cuda", "--seed", "0"]
+CKPT_EXECUTED = 5
 
 
 def phase(n: int, name: str, detail: str = "") -> None:
@@ -324,6 +348,35 @@ def lse_plain(torch, q, k, causal: bool, window: int):
     return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
 
 
+def state_leaves(state) -> dict:
+    """Every tensor of a port train state, by a name of its own."""
+    out = {f"params.{n}": p for n, p in state["params"].named_parameters()}
+    for k in ("m", "v"):
+        out.update({f"opt.{k}.{n}": t for n, t in state["opt"][k].items()})
+    out["opt.step"], out["step"] = state["opt"]["step"], state["step"]
+    return out
+
+
+def check_bit_equal(torch, got, want, what) -> None:
+    """Every leaf of train state ``got`` equals ``want``'s bit for bit, on
+    the same device and in the same dtype."""
+    g, w = state_leaves(got), state_leaves(want)
+    check(g.keys() == w.keys(), f"{what}: leaves differ")
+    for n, t in w.items():
+        check(g[n].device == t.device and g[n].dtype == t.dtype
+              and torch.equal(g[n], t), f"{what}: {n} differs from the saved state")
+
+
+def host_rss() -> str:
+    """This process's resident set now (VmRSS of /proc/self/status) and at
+    its peak so far (ru_maxrss, KiB on Linux)."""
+    with open("/proc/self/status") as f:
+        now = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return f"{now * 1024 / 1e9:.3f} GB now, {peak * 1024 / 1e9:.3f} GB peak"
+
+
 def main() -> int:
     import torch
 
@@ -339,6 +392,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import CostModel, EventKind
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
@@ -762,6 +817,96 @@ def main() -> int:
           f"vs g + err max rel err {worst_sum:.3e}; max |new_err| / scale "
           f"{worst_err:.7f}; launches {counts}")
     del tr, model, params, grads, errs
+    free()
+
+    # Checkpoint/restart through BaseFS: launch.train's own function with a
+    # host failure after step 3 and an elastic restart from step 2's
+    # checkpoint on 3 hosts, host 1's rows from its partner copy.
+    rss = {"before the checkpoint steps": host_rss()}
+    reset_counts()
+    ck = train_launch.run(CKPT_ARGS)
+    counts = read_counts()
+    launches["starcoder2-3b checkpoint/restart"] = counts
+    rss["after the launcher's run"] = host_rss()
+    cfg = ck.cfg
+    check(ck.ckpt_steps == [2, 4] and ck.replayed == [3]
+          and len(ck.losses) == CKPT_EXECUTED,
+          f"starcoder2-3b checkpoint/restart: saves at {ck.ckpt_steps}, steps "
+          f"replayed {ck.replayed}, {len(ck.losses)} steps executed; expected "
+          f"saves at [2, 4], step 3 replayed, {CKPT_EXECUTED} steps")
+    want = {"flash_attention": 2 * cfg.n_layers * CKPT_EXECUTED,
+            "flash_attention_bwd": cfg.n_layers * CKPT_EXECUTED,
+            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    check(counts == want, f"starcoder2-3b checkpoint/restart: kernel launches "
+          f"{counts}, expected {want}")
+    check(all(math.isfinite(x) for x in ck.losses),
+          f"starcoder2-3b checkpoint/restart: losses {ck.losses} not finite")
+    check(ck.losses[3] == ck.losses[2],
+          f"starcoder2-3b checkpoint/restart: step 3's loss after the restart "
+          f"{ck.losses[3]!r} differs from before the failure {ck.losses[2]!r}")
+    # The final state is step 4's checkpoint: restore it elastically and hold
+    # it against the live state on the card, bit for bit.
+    t0 = time.perf_counter()
+    again = ck.ckpt.restore(4, ck.state, num_hosts_new=3, failed_hosts=[1])
+    torch.cuda.synchronize()
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    check_bit_equal(torch, again, ck.state, "starcoder2-3b checkpoint 4")
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in state_leaves(ck.state).values()) / 1e9
+    phase(5, "main path starcoder2-3b checkpoint/restart",
+          f"{cfg.n_layers} layers B=4 T=1024, --ckpt-every 2 --fail-at 3 "
+          f"--consistency session --ckpt-hosts 4: losses "
+          f"{', '.join(f'{x:.4f}' for x in ck.losses)} (step 3 before and "
+          f"after the restart equal); saves at steps {ck.ckpt_steps} "
+          f"{', '.join(f'{x:.1f}' for x in ck.save_ms)} ms, restore "
+          f"{ck.restore_ms[0]:.1f} ms, {state_gb:.3f} GB of state; step 4's "
+          f"checkpoint restored on 3 hosts bit-equal on the card in "
+          f"{verify_ms:.1f} ms; launches {counts}")
+
+    # The trained state under commit and under session: save on 4 hosts with
+    # partner copies, restore on 3 with host 1 failed, bit for bit; the
+    # restore's query RPCs are the paper's Fig. 5 gap on real state.
+    state = ck.state
+    del ck, again
+    free()
+    rss["with the launcher's checkpoints dropped"] = host_rss()
+    ckpt_lines, queries = [], {}
+    for model_name in ("commit", "session"):
+        mgr = CheckpointManager(model=model_name, num_hosts=4, partner=True)
+        t0 = time.perf_counter()
+        mgr.save(0, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        q0 = mgr.fs.ledger.count(EventKind.RPC, "query")
+        t0 = time.perf_counter()
+        out = mgr.restore(0, state, num_hosts_new=3, failed_hosts=[1])
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        queries[model_name] = mgr.fs.ledger.count(EventKind.RPC, "query") - q0
+        check_bit_equal(torch, out, state, f"starcoder2-3b {model_name} restore")
+        del out
+        des = {p.name: p for p in CostModel().replay(mgr.fs.ledger)}
+        save_p, restore_p = des["ckpt_save_0"], des["ckpt_restore_0"]
+        ckpt_lines.append(
+            f"{model_name}: save {save_ms:.1f} ms, restore {restore_ms:.1f} ms "
+            f"(host wall time); BaseFS moved "
+            f"{sum(save_p.bytes_by_kind.values()) / 1e9:.3f} GB in the save "
+            f"and {sum(restore_p.bytes_by_kind.values()) / 1e9:.3f} GB in "
+            f"the restore; restore query RPCs {queries[model_name]}; modelled "
+            f"by the DES on its own hardware constants, not measured on the "
+            f"card: save {save_p.duration:.4f} s, restore "
+            f"{restore_p.duration:.4f} s")
+        del mgr, des, save_p, restore_p
+        free()
+        rss[f"after {model_name}"] = host_rss()
+    check(queries["commit"] > 4 * queries["session"],
+          f"restore query RPCs: commit {queries['commit']} not above 4x "
+          f"session {queries['session']}")
+    phase(5, "main path starcoder2-3b checkpoint under commit and session",
+          f"{state_gb:.3f} GB of state, 4 hosts with partner copies, restored "
+          f"on 3 with host 1 failed, bit-equal: {'; '.join(ckpt_lines)}; host "
+          "RSS of this process: "
+          + "; ".join(f"{k} {v}" for k, v in rss.items()))
+    del state
     free()
 
     # -- 6. times at the main-path shapes ---------------------------------------

@@ -6,5 +6,8 @@ built from ``attn``, ``local``, ``rglru`` and ``mamba`` blocks (qwen3-32b,
 falcon-mamba-7b, recurrentgemma-9b): ``launch.serve`` -> ``serve.decode`` ->
 ``models.transformer`` -> ``kernels.ops``.  On a CUDA tensor, prefill runs
 the hand-written CUDA kernels in ``kernels/csrc/``: flash attention, the
-mamba1 selective scan and the RG-LRU recurrence.
+mamba1 selective scan and the RG-LRU recurrence.  Training
+(``launch.train``) checkpoints through the paper's file-system stack:
+``core`` is a copy of ``repro.core``'s BaseFS, consistency layers and
+cost model, and ``checkpoint`` ports the reference's ``CheckpointManager``.
 """

@@ -10,11 +10,14 @@ with ``P = len(cfg.pattern)``, port layer ``s*P + i`` takes index ``s`` of
 (an ``ml_dtypes`` dtype) are reinterpreted bit for bit, so this package
 never imports ``ml_dtypes``.  :func:`reference_path` gives that map for
 one port parameter name, so gradients and updates compare leaf by leaf.
+:func:`params_to_reference` goes the other way, and :func:`reference_layout`
+gives the reference's tree with the port tensors each of its leaves holds,
+which the checkpoint's serialization walks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,8 +27,9 @@ from repro_torch.models.transformer import Transformer
 
 
 def to_tensor(a: Any) -> torch.Tensor:
-    """A numpy array (f32, int, or ml_dtypes bfloat16) as a CPU tensor."""
-    a = np.ascontiguousarray(a)
+    """A numpy array (f32, int, or ml_dtypes bfloat16) as a CPU tensor of
+    the same shape (``np.ascontiguousarray`` would make a 0-d array 1-d)."""
+    a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
@@ -76,3 +80,50 @@ def reference_leaf(tree: Mapping[str, Any], name: str,
         a = a[key]
     a = np.asarray(a)
     return a if index is None else a[index]
+
+
+def reference_layout(params: Mapping[str, torch.Tensor], cfg: ModelConfig
+                     ) -> Dict[str, Any]:
+    """The reference's nested tree for the port parameters ``params`` (a
+    ``named_parameters`` mapping, or the moments keyed the same way): a
+    stacked leaf holds the list of its ``n_super`` port tensors in order,
+    an unstacked leaf its one tensor."""
+    tree: Dict[str, Any] = {}
+    for name, t in params.items():
+        path, index = reference_path(name, cfg)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if index is None:
+            node[path[-1]] = t
+        else:
+            node.setdefault(path[-1], [None] * cfg.n_super)[index] = t
+    return tree
+
+
+def to_numpy(leaf: Union[torch.Tensor, List[torch.Tensor]]) -> np.ndarray:
+    """A host copy of a tensor, or of a list of tensors stacked along a new
+    leading axis, that owns its memory; bf16 as its raw ``uint16`` bits."""
+    if isinstance(leaf, list):
+        t = torch.stack([x.detach() for x in leaf])
+    else:
+        t = leaf.detach()
+        if t.device.type == "cpu":
+            t = t.clone()               # .cpu() below would alias the tensor
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def params_to_reference(params: Mapping[str, torch.Tensor],
+                        cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_reference`: port parameters (or
+    moments) -> the reference's nested tree of numpy arrays, bf16 leaves as
+    raw ``uint16`` bits."""
+    return _to_numpy_tree(reference_layout(params, cfg))
+
+
+def _to_numpy_tree(node):
+    if isinstance(node, dict):
+        return {k: _to_numpy_tree(v) for k, v in node.items()}
+    return to_numpy(node)

@@ -6,7 +6,7 @@ Ported from ``repro.data.pipeline``: :func:`synthetic_batch` gives random
 key; here they come from an int seed or a ``torch.Generator``, so the
 numbers differ and tests feed both packages one numpy batch.  Audio and
 vision inputs wait for the encoder-decoder and vision slice;
-``TokenPipeline`` comes with the checkpoint / BaseFS slice.
+``TokenPipeline`` comes with the data-ingest slice.
 """
 
 from __future__ import annotations

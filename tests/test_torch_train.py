@@ -290,8 +290,74 @@ def test_launch_train_tiny_on_cpu(capsys):
 @pytest.mark.parametrize("flag", [["--ckpt-every", "2"], ["--fail-at", "1"],
                                   ["--mesh", "single"]])
 def test_launch_train_refuses_unported_options(flag):
-    with pytest.raises(NotImplementedError, match="slice"):
-        tlaunch.run(["--arch", ARCH, "--tiny", "--device", "cpu", *flag])
+    # --mesh waits for the distribution slice; --ckpt-every and --fail-at
+    # run since the checkpoint slice.
+    argv = ["--arch", ARCH, "--tiny", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq", "8", *flag]
+    if flag[0] == "--mesh":
+        with pytest.raises(NotImplementedError, match="slice"):
+            tlaunch.run(argv)
+        return
+    res = tlaunch.run(argv)
+    if flag[0] == "--ckpt-every":
+        assert res.ckpt_steps == [2] and sorted(res.ckpt.manifests) == [2]
+        assert res.replayed == [] and len(res.losses) == 2
+    else:       # a failure with no checkpoint restarts from step 0
+        assert res.ckpt is None and res.replayed == [1]
+        assert len(res.losses) == 3 and res.losses[0] == res.losses[1]
+
+
+_TINY_RUN = ["--arch", ARCH, "--tiny", "--device", "cpu", "--batch", "4",
+             "--seq", "16"]
+
+
+@pytest.fixture(scope="module")
+def uninterrupted():
+    return tlaunch.run(_TINY_RUN + ["--steps", "5", "--ckpt-every", "2"])
+
+
+@pytest.mark.parametrize("consistency", ["commit", "session", "posix", "mpiio"])
+def test_launch_train_fail_at_resumes_to_the_uninterrupted_losses(
+        uninterrupted, consistency, capsys):
+    res = tlaunch.run(_TINY_RUN + ["--steps", "5", "--ckpt-every", "2",
+                                   "--fail-at", "3", "--consistency",
+                                   consistency])
+    # Steps 1, 2, 3, then 3 again from the step-2 checkpoint, 4 and 5.
+    assert res.ckpt_steps == [2, 4] and res.replayed == [3]
+    assert len(res.losses) == len(res.step_ms) == 6
+    assert len(res.save_ms) == 2 and len(res.restore_ms) == 1
+    assert res.losses[:3] + res.losses[4:] == uninterrupted.losses
+    assert res.losses[3] == res.losses[2]
+    assert int(res.state["step"]) == 5
+    want = dict(uninterrupted.state["params"].named_parameters())
+    for n, p in res.state["params"].named_parameters():
+        assert torch.equal(p, want[n]), n
+    out = capsys.readouterr().out
+    assert f"checkpoint saved ({consistency}" in out
+    assert "elastic restart from checkpoint 2 on 3 hosts" in out
+
+
+def test_launch_train_failure_before_first_checkpoint_restarts_from_zero(
+        uninterrupted, capsys):
+    res = tlaunch.run(_TINY_RUN + ["--steps", "5", "--ckpt-every", "4",
+                                   "--fail-at", "2"])
+    assert res.replayed == [1, 2] and res.ckpt_steps == [4]
+    assert res.losses[2:] == uninterrupted.losses
+    assert res.losses[:2] == uninterrupted.losses[:2]
+    assert "before the first checkpoint; restart from step 0" in \
+        capsys.readouterr().out
+
+
+def test_launch_train_batches_depend_on_seed_and_step_alone():
+    assert tlaunch.batch_seed(0, 3) == tlaunch.batch_seed(0, 3)
+    seeds = {tlaunch.batch_seed(s, i) for s in range(3) for i in range(50)}
+    assert len(seeds) == 150
+
+
+@pytest.mark.parametrize("flag", [["--ckpt-hosts", "0"], ["--fail-at", "-1"]])
+def test_launch_train_rejects_bad_checkpoint_options(flag):
+    with pytest.raises(ValueError):
+        tlaunch.run(_TINY_RUN + ["--steps", "2", *flag])
 
 
 def test_launch_train_same_batch_memorizes():
