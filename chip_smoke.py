@@ -75,6 +75,20 @@ without the final result line:
    restore times that
    ``CostModel().replay`` models on its own hardware constants (modelled,
    not measured on the card).
+   Then ingest: 64 samples of 1025 tokens from ``make_token_samples``,
+   preloaded by a ``PreloadedStore`` on 4 hosts, feed starcoder2-3b at the
+   same shape through ``TokenPipeline``: 6 steps from epoch 0 and 2 from
+   epoch 1, from one seeded state, once under commit and once under
+   session.  Every batch must be the samples in ``epoch_assignment``'s
+   order bit for bit (labels their roll), epoch 1's order must differ from
+   epoch 0's, the two runs must see bit-equal batches and give equal
+   losses, and each run launches flash forward 128 and backward 64.
+   Printed: losses, step ms, TokenPipeline host ms per batch, query RPCs,
+   BaseFS bytes and the DES's modelled time of the reads.  Last, the
+   ``repro_torch.examples.train_checkpoint`` twin at ``--steps 40
+   --ckpt-every 10``: 40 steps with a host failure after step 20 and an
+   elastic restart from its checkpoint, flash 960 / 480, finite and falling
+   losses, and step 40's checkpoint restored bit-equal.
 6. Times at the main-path shapes: kernel, plain version, the least time
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
@@ -97,6 +111,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -213,6 +229,14 @@ CKPT_ARGS = ["--arch", "starcoder2-3b", "--layers", "8", "--batch", "4",
              "3", "--consistency", "session", "--ckpt-hosts", "4", "--device",
              "cuda", "--seed", "0"]
 CKPT_EXECUTED = 5
+# Ingest: 64 samples of T+1 = 1025 int32 tokens (4100 bytes each) preloaded
+# on 4 hosts, 16 each; B=4 batches, 6 steps from epoch 0 and 2 from epoch 1.
+INGEST_SAMPLES, INGEST_HOSTS, INGEST_BATCH, INGEST_SEQ = 64, 4, 4, 1024
+INGEST_STEPS = ((0, 6), (1, 2))
+# The reference's train_checkpoint example at its default widths (~100M
+# params, f32, B=8, T=128): host 1 fails after step 20, the restart resumes
+# from step 20's checkpoint on 3 hosts, 40 steps executed.
+EXAMPLE_ARGS = ["--steps", "40", "--ckpt-every", "10", "--device", "cuda"]
 
 
 def phase(n: int, name: str, detail: str = "") -> None:
@@ -375,6 +399,66 @@ def host_rss() -> str:
                    if line.startswith("VmRSS:"))
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     return f"{now * 1024 / 1e9:.3f} GB now, {peak * 1024 / 1e9:.3f} GB peak"
+
+
+def ingest_run(torch, cfg, opt, model_name: str, samples, device,
+               reset_counts, read_counts) -> dict:
+    """Train ``cfg`` from a fresh seeded state on TokenPipeline batches that
+    came through BaseFS and the ``model_name`` layer, INGEST_STEPS of them,
+    with the kernels' launch counts reset just before the run and read just
+    after.  Checks every batch against the samples in ``epoch_assignment``
+    order, bit for bit, and its labels against the tokens' roll; the state
+    is freed before it returns."""
+    from repro_torch.core import CostModel, EventKind
+    from repro_torch.data import PreloadedStore, TokenPipeline
+    from repro_torch.launch.serve import sync
+    from repro_torch.train.train_step import make_train_step, train_state_init
+
+    B, T = INGEST_BATCH, INGEST_SEQ
+    device = torch.device(device)
+    store = PreloadedStore(model_name, num_hosts=INGEST_HOSTS,
+                           samples_per_host=len(samples) // INGEST_HOSTS,
+                           procs_per_host=1, samples=samples)
+    store.preload()
+    pipe = TokenPipeline(store, cfg, B, T, device=device)
+    state = train_state_init(torch.Generator(device=device).manual_seed(0),
+                             cfg, opt, device)
+    step = make_train_step(cfg, opt, num_microbatches=cfg.microbatches)
+    store.fs.ledger.mark_phase("ingest")
+    q0 = store.fs.ledger.count(EventKind.RPC, "query")
+    out = {"losses": [], "pipe_ms": [], "step_ms": [], "tokens": []}
+    reset_counts()
+    for epoch, n in INGEST_STEPS:
+        flat = [i for sub in store.epoch_assignment(epoch) for i in sub]
+        batches = pipe.batches(epoch)
+        for k in range(n):
+            sync(device)
+            t0 = time.perf_counter()
+            batch = next(batches)
+            sync(device)
+            out["pipe_ms"].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            out["losses"].append(float(metrics["loss"]))
+            sync(device)
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            want = np.stack([samples[i][:T] for i in flat[k * B:(k + 1) * B]])
+            got = batch["tokens"].cpu()
+            check(batch["tokens"].dtype == torch.int64
+                  and batch["labels"].dtype == torch.int64
+                  and np.array_equal(got.numpy(), want)
+                  and torch.equal(batch["labels"].cpu(),
+                                  torch.roll(got, -1, dims=1)),
+                  f"ingest {model_name}: epoch {epoch} batch {k} is not the "
+                  "samples of epoch_assignment's order, or its labels not "
+                  "their roll")
+            out["tokens"].append(got)
+    out["counts"] = read_counts()
+    del state, metrics, batch, step
+    out["queries"] = store.fs.ledger.count(EventKind.RPC, "query") - q0
+    out["des"] = {p.name: p for p in CostModel().replay(store.fs.ledger)}["ingest"]
+    out["orders"] = [store.epoch_assignment(e) for e, _ in INGEST_STEPS]
+    return out
 
 
 def main() -> int:
@@ -907,6 +991,94 @@ def main() -> int:
           "RSS of this process: "
           + "; ".join(f"{k} {v}" for k, v in rss.items()))
     del state
+    free()
+
+    # Ingest: starcoder2-3b at the training shape from TokenPipeline batches
+    # that came through BaseFS and a consistency layer, once under commit and
+    # once under session, each from the same seeded state.
+    from repro_torch.data.pipeline import make_token_samples
+    from repro_torch.examples import train_checkpoint as example
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), n_layers=8)
+    opt = AdamWConfig(lr=1e-3, state_dtype=cfg.opt_state_dtype)
+    samples = make_token_samples(0, INGEST_SAMPLES, INGEST_SEQ + 1, cfg.vocab)
+    n_steps = sum(n for _, n in INGEST_STEPS)
+    want = {"flash_attention": 2 * cfg.n_layers * n_steps,
+            "flash_attention_bwd": cfg.n_layers * n_steps,
+            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    runs = {}
+    for model_name in ("commit", "session"):
+        r = ingest_run(torch, cfg, opt, model_name, samples, "cuda",
+                       reset_counts, read_counts)
+        free()
+        runs[model_name] = r
+        launches[f"starcoder2-3b ingest {model_name}"] = r["counts"]
+        check(r["counts"] == want, f"ingest {model_name}: kernel launches "
+              f"{r['counts']}, expected {want}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"ingest {model_name}: losses {r['losses']} not finite")
+        order0, order1 = r["orders"]
+        check(order0 != order1, f"ingest {model_name}: epoch 1 deals the "
+              "samples in epoch 0's order")
+        des = r["des"]
+        phase(5, f"main path starcoder2-3b ingest {model_name}",
+              f"{cfg.n_layers} layers B={INGEST_BATCH} T={INGEST_SEQ}, "
+              f"{INGEST_SAMPLES} samples of {INGEST_SEQ + 1} tokens on "
+              f"{INGEST_HOSTS} hosts, steps {INGEST_STEPS} (epoch, steps), "
+              f"every batch the samples of epoch_assignment's order: losses "
+              f"{', '.join(f'{x:.4f}' for x in r['losses'])}; step ms "
+              f"{', '.join(f'{x:.3f}' for x in r['step_ms'])}; TokenPipeline "
+              f"host ms per batch {', '.join(f'{x:.3f}' for x in r['pipe_ms'])}"
+              f"; query RPCs {r['queries']}; BaseFS bytes "
+              f"{sum(des.bytes_by_kind.values())} in {des.rpc_count} RPCs; "
+              f"modelled by the DES on its own hardware constants, not "
+              f"measured on the card: {des.duration * 1e3:.4f} ms; launches "
+              f"{r['counts']}")
+    check(all(torch.equal(a, b) for a, b in
+              zip(runs["commit"]["tokens"], runs["session"]["tokens"])),
+          "ingest: commit and session saw different batches")
+    check(runs["commit"]["losses"] == runs["session"]["losses"],
+          f"ingest: losses differ between commit {runs['commit']['losses']} "
+          f"and session {runs['session']['losses']}")
+    phase(5, "main path starcoder2-3b ingest commit against session",
+          f"batches bit-equal and losses equal; query RPCs commit "
+          f"{runs['commit']['queries']}, session {runs['session']['queries']}")
+    del runs, samples
+
+    # The train_checkpoint example on the card: ingest -> train -> checkpoint
+    # through one BaseFS, host 1's failure after step 20 and an elastic
+    # restart from step 20's checkpoint on 3 hosts.
+    reset_counts()
+    t0 = time.perf_counter()
+    ex = example.main(EXAMPLE_ARGS)
+    ex_s = time.perf_counter() - t0
+    counts = read_counts()
+    launches["train_checkpoint example"] = counts
+    cfg, executed = ex.cfg, len(ex.losses)
+    want = {"flash_attention": 2 * cfg.n_layers * executed,
+            "flash_attention_bwd": cfg.n_layers * executed,
+            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    check(executed == 40 and ex.fail_step == 20 and ex.restored_step == 20
+          and ex.ckpt_steps == [10, 20, 40],
+          f"train_checkpoint example: {executed} steps executed, failure at "
+          f"{ex.fail_step}, restored {ex.restored_step}, saves {ex.ckpt_steps}"
+          "; expected 40, 20, 20, [10, 20, 40]")
+    check(counts == want, f"train_checkpoint example: kernel launches "
+          f"{counts}, expected {want}")
+    check(all(math.isfinite(x) for x in ex.losses)
+          and ex.losses[-1] < ex.losses[0],
+          f"train_checkpoint example: losses {ex.losses} not finite and falling")
+    again = ex.mgr.restore(40, ex.state, num_hosts_new=3, failed_hosts=[1])
+    check_bit_equal(torch, again, ex.state, "train_checkpoint example step 40")
+    phase(5, "main path train_checkpoint example",
+          f"{' '.join(EXAMPLE_ARGS)}: {cfg.params_total() / 1e6:.1f}M params "
+          f"f32, {executed} steps in {ex_s:.3f} s with 3 saves and the "
+          f"restore; losses every 10th "
+          f"{', '.join(f'{x:.4f}' for x in ex.losses[9::10])}; checkpoint 40 "
+          f"restored on 3 hosts bit-equal; modelled checkpoint bandwidth "
+          f"{ex.ckpt_bandwidth / 1e9:.4f} GB/s (the DES, not the card); "
+          f"launches {counts}")
+    del ex, again
     free()
 
     # -- 6. times at the main-path shapes ---------------------------------------

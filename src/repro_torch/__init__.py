@@ -8,6 +8,12 @@ falcon-mamba-7b, recurrentgemma-9b): ``launch.serve`` -> ``serve.decode`` ->
 the hand-written CUDA kernels in ``kernels/csrc/``: flash attention, the
 mamba1 selective scan and the RG-LRU recurrence.  Training
 (``launch.train``) checkpoints through the paper's file-system stack:
-``core`` is a copy of ``repro.core``'s BaseFS, consistency layers and
-cost model, and ``checkpoint`` ports the reference's ``CheckpointManager``.
+``core`` is a copy of ``repro.core`` (BaseFS, the consistency layers, the
+cost model, the fault plane, the formal model and its checker), and
+``checkpoint`` ports the reference's ``CheckpointManager``.  The rest of the
+paper's system is copied too: ``io`` (the synthetic workloads and SCR),
+``data.dlio`` (the preloaded DL-ingest store, which ``data.pipeline``'s
+``TokenPipeline`` feeds to the train step) and ``analysis`` (race checks,
+litmus fuzzing, the DES-invariant lint).  ``examples`` holds runnable twins
+of the reference's ingest, train-and-checkpoint and quickstart examples.
 """

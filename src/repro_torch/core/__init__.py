@@ -3,7 +3,9 @@
 These modules are framework-free Python and numpy.  They are copies of the
 reference's modules of the same name; only their imports differ, so the
 port imports nothing of ``repro``.  They carry the checkpoint path
-(:mod:`repro_torch.checkpoint`).
+(:mod:`repro_torch.checkpoint`), data ingest (:mod:`repro_torch.data`), the
+paper's workloads (:mod:`repro_torch.io`) and the analysis plane
+(:mod:`repro_torch.analysis`).
 
 * :mod:`repro_torch.core.routing`     — metadata-shard routing
 * :mod:`repro_torch.core.intervals`   — interval maps (paper §5.1.2 trees)
@@ -13,10 +15,9 @@ port imports nothing of ``repro``.  They carry the checkpoint path
 * :mod:`repro_torch.core.consistency` — PosixFS / CommitFS / SessionFS / MPIIOFS (Table 6)
 * :mod:`repro_torch.core.costmodel`   — discrete-event replay on Catalyst constants (§6)
 * :mod:`repro_torch.core.vecreplay`   — the replay's struct-of-arrays engine
-
-``repro.core.model`` (the formal SCNF framework), ``checker`` and
-``faults`` are not yet copied (ROADMAP.md queue 1 item 4), so their names
-are not exported here.
+* :mod:`repro_torch.core.faults`      — seeded fault injection (FaultSchedule)
+* :mod:`repro_torch.core.model`       — formal SCNF framework (§4, Table 4)
+* :mod:`repro_torch.core.checker`     — storage-race detection + SC oracle on real runs
 """
 
 from repro_torch.core.basefs import BaseFS, EventKind, EventLedger
@@ -39,6 +40,15 @@ from repro_torch.core.consistency import (
     make_fs,
 )
 from repro_torch.core.costmodel import CostModel, HardwareConstants
+from repro_torch.core.model import (
+    COMMIT_MODEL,
+    COMMIT_RELAXED_MODEL,
+    Execution,
+    MODELS,
+    MPIIO_MODEL,
+    POSIX_MODEL,
+    SESSION_MODEL,
+)
 
 __all__ = [
     "BaseFS",
@@ -60,4 +70,11 @@ __all__ = [
     "make_fs",
     "CostModel",
     "HardwareConstants",
+    "Execution",
+    "MODELS",
+    "POSIX_MODEL",
+    "COMMIT_MODEL",
+    "COMMIT_RELAXED_MODEL",
+    "SESSION_MODEL",
+    "MPIIO_MODEL",
 ]

@@ -107,7 +107,7 @@ class Event:
     # fired before later members were issued — batch *membership* is
     # time-driven, not ledger-order-driven.  Empty for unqueued traffic.
     members: Tuple[Tuple[int, int], ...] = ()
-    # Fault-plane stamps (:mod:`repro.core.faults`): how many times this
+    # Fault-plane stamps (:mod:`repro_torch.core.faults`): how many times this
     # wire message was dropped before succeeding (the DES prices each
     # attempt as timeout + exponential backoff and counts it in
     # ``rpc_msgs`` — retries are never free), and whether this message
@@ -210,7 +210,7 @@ class EventLedger:
         self._count_by_type: Dict[Tuple[EventKind, str], int] = {}
         self._count_by_kind: Dict[EventKind, int] = {}
         self._bytes_by_kind: Dict[EventKind, int] = {}
-        # Fault plane (:mod:`repro.core.faults`): the run's FaultState,
+        # Fault plane (:mod:`repro_torch.core.faults`): the run's FaultState,
         # attached by ``BaseFS(faults=...)``.  record() stamps every RPC
         # wire message through it; None (the default) is the fault-free
         # model and changes nothing.
@@ -487,7 +487,7 @@ RPC_FENCE_MARKER = "fence"
 #: are range upserts — at its next synchronization point, once the
 #: standby master has taken over.  Recorded unqueued (blocking), so the
 #: DES prices a full round trip at the recovered master and drains the
-#: client's ack window there.  See :mod:`repro.core.faults`.
+#: client's ack window there.  See :mod:`repro_torch.core.faults`.
 RPC_REPLAY = "replay"
 
 #: Default coalescing window when batching is enabled (seconds).
@@ -1160,7 +1160,7 @@ class BaseFS:
         self.ledger = EventLedger()
         ack = TOPOLOGY["ack_window"] if ack_window is None else ack_window
         self.ledger.ack_window = max(0, int(ack))
-        # Fault plane (:mod:`repro.core.faults`): ``faults`` is a seeded
+        # Fault plane (:mod:`repro_torch.core.faults`): ``faults`` is a seeded
         # FaultSchedule (or an already-started FaultState to share across
         # deployments); ``None`` falls back to the process topology, and
         # an absent/None schedule is the fault-free model — record() and

@@ -83,7 +83,7 @@ class _LayeredFS:
     consumer_edges: Tuple[str, ...] = ("stat_size",)
     #: Formal fence class of every layer sync method: layer API call →
     #: Table-4 sync-op kind.  This is what the race analyzer records
-    #: when it lifts a run into an :class:`~repro.core.model.Execution`
+    #: when it lifts a run into an :class:`~repro_torch.core.model.Execution`
     #: (see :mod:`repro.analysis.trace`), and the DES-invariant lint
     #: (:mod:`repro.analysis.lint`) requires every registered layer to
     #: declare it explicitly — an empty dict is PosixFS asserting

@@ -104,7 +104,7 @@ model bitwise.
 
 Fault pricing (``faults``)
 --------------------------
-A ledger recorded under a seeded :class:`~repro.core.faults.
+A ledger recorded under a seeded :class:`~repro_torch.core.faults.
 FaultSchedule` carries per-event stamps (``Event.retries`` /
 ``Event.failover``) decided at execution time; the replay prices them
 (``faults=None`` resolves the schedule from ``ledger.faults``; pass an

@@ -56,7 +56,7 @@ whose event seqs are not contiguous (hand-built ledgers that bypass
 :meth:`EventLedger.record`) raise :class:`UnsupportedLedger`;
 ``CostModel.replay(engine="vector")`` falls back to the scalar engine
 for them (documented in ``docs/REPLAY.md``).  Fault-stamped ledgers
-(``ledger.faults`` set, :mod:`repro.core.faults`) likewise raise
+(``ledger.faults`` set, :mod:`repro_torch.core.faults`) likewise raise
 :class:`UnsupportedLedger` and take the scalar fallback — vectorizing
 retry/failover pricing is follow-up work; the contract section "faults
 and the replay contract" in ``docs/REPLAY.md`` pins this.

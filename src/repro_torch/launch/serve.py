@@ -48,6 +48,15 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def resolve_device(name: str) -> torch.device:
+    """``--device name`` as a device; ``cuda`` without a card raises."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but CUDA is not available; "
+                           "pass --device cpu to run on the CPU")
+    return device
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -66,10 +75,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def setup(args: argparse.Namespace):
     """(model, prompt) for parsed arguments; weights and prompt are drawn
     from ``args.seed`` on ``args.device``."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but CUDA is not available; "
-                           "pass --device cpu to run on the CPU")
+    device = resolve_device(args.device)
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     if args.tiny:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)

@@ -49,7 +49,7 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import ARCHS, get_config, tiny_config
 from repro_torch.data.pipeline import synthetic_batch
-from repro_torch.launch.serve import sync
+from repro_torch.launch.serve import resolve_device, sync
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import make_train_step, train_state_init
@@ -107,10 +107,7 @@ def run(argv=None) -> TrainRun:
         raise NotImplementedError(
             f"--mesh {args.mesh}: sharded training comes with the distribution "
             "slice (ROADMAP.md §1); run with --mesh none")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but CUDA is not available; "
-                           "pass --device cpu to run on the CPU")
+    device = resolve_device(args.device)
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     if args.tiny:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)

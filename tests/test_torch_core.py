@@ -30,10 +30,15 @@ TESTS = Path(__file__).resolve().parent
 MODELS = ("posix", "commit", "session", "mpiio")
 
 
-def _against_port(filename: str):
-    """The test module ``filename`` with its ``repro.core`` imports read as
-    ``repro_torch.core``."""
-    src = (TESTS / filename).read_text().replace("repro.core", "repro_torch.core")
+def _against_port(filename: str, renames=(("repro.core", "repro_torch.core"),)):
+    """The test module ``filename`` with each ``(old, new)`` of ``renames``
+    replaced in its source, in order: module prefixes (by default its
+    ``repro.core`` imports read as ``repro_torch.core``) and, where a test
+    names the reference's files, their paths.  No ``repro.`` import may be
+    left."""
+    src = (TESTS / filename).read_text()
+    for old, new in renames:
+        src = src.replace(old, new)
     assert "from repro." not in src and "import repro." not in src
     spec = importlib.util.spec_from_loader(f"port_{Path(filename).stem}",
                                            loader=None)
