@@ -8,8 +8,8 @@ without the final result line:
 
 1. Device: the card's name and power limit, from nvidia-smi.
 2. Build: every CUDA kernel of the serving and training paths (flash
-   attention forward and backward, the selective scan, the RG-LRU, int8
-   quantization), compiled from the sources under
+   attention forward and backward, the selective scan and the RG-LRU with
+   their backwards, int8 quantization), compiled from the sources under
    src/repro_torch/kernels/csrc with one nvcc per source, all started
    together.
 3. Kernel against plain: each kernel's wrapper against its plain PyTorch
@@ -29,24 +29,44 @@ without the final result line:
    equal on a second call, as are both scans at their main shapes;
    quantization's int8 codes exactly equal and its
    scales within 1e-6.  The flash kernels' path queries must put the bf16
-   main shapes (qwen3, recurrentgemma-local and starcoder2 forward,
-   starcoder2 backward) on the tensor cores and f32 on the FMA kernels,
-   and the backward's group split must be the one each case expects.
+   main shapes (qwen3, llama3 (H/K 16, forward only), recurrentgemma-local
+   and starcoder2 forward, starcoder2 backward) on the tensor cores and
+   f32 on the FMA kernels, and the backward's group split must be the one
+   each case expects.  The scans' backward kernels, through autograd,
+   against f32 autograd of the plain scans over the same cases and the
+   training shapes (falcon-mamba-7b (4, 1024, 8192, 16), recurrentgemma-9b
+   (2, 3000, 4096)): per-element gradients (dx, ddt, da_gate, di_gate,
+   dh0) at f32 1e-4 / bf16 2e-2, gradients summed over batch and time or
+   channels (dA, dD, dB, dC, dlog_lam) by relative norm at 1e-4 / 2e-2;
+   both bitwise equal on a second call at the training shapes.
 4. Whole models at full width, f32, kernels against plain (atol 1e-3 on
    the last-position logits): qwen3-32b 2 layers, B=1, T=256;
    falcon-mamba-7b 2 layers, B=1, T=256; recurrentgemma-9b 3 layers (one
-   rglru, rglru, local super-block), B=1, T=2100, past its 2048 window.
+   rglru, rglru, local super-block), B=1, T=2100, past its 2048 window;
+   qwen2-72b and llama3-405b 1 layer, B=1, T=256.
    Then one starcoder2-3b train step (2 layers, B=2, T=256, AdamW lr 3e-4)
    with the flash kernels against the same step on plain attention: loss,
    grad norm and every updated parameter within 1e-3, and each leaf's
    gradient, read from its first moment ((1-b1) * clip * g after one step
    from zero), within 1e-3 of that leaf's norm; and the step with 2
-   microbatches against 1 on the card, held to the same checks.
+   microbatches against 1 on the card, held to the same checks.  The same
+   step and checks for falcon-mamba-7b (2 layers) and recurrentgemma-9b (3
+   layers, so that a local layer runs), B=2, T=256: the scans' forward and
+   backward kernels against the plain scans under autograd.
 5. Main paths, with every kernel's launch count set to 0 just before each
    run and read just after.  ``repro_torch.launch.serve`` at full width,
    bf16, batch 4, 32 greedy decode steps: qwen3-32b 8 layers, prompt 1024
    (flash 8); falcon-mamba-7b 8 layers, prompt 1024 (ssm 8);
-   recurrentgemma-9b 8 layers, prompt 3000 (rglru 6, flash 2).
+   recurrentgemma-9b 8 layers, prompt 3000 (rglru 6, flash 2); qwen2-72b
+   8 layers and llama3-405b 4 layers, prompt 1024 (flash 8 and 4).
+   ``repro_torch.launch.train`` for falcon-mamba-7b (8 layers, B=4,
+   T=1024) and recurrentgemma-9b (8 layers, B=2, T=3000, past its window;
+   the last 64-step chunk holds 56), bf16, one microbatch, 3 steps on
+   fresh batches, then 3 more on one batch where the loss must fall; each
+   checkpointed layer (``remat``, ``remat_policy="full"``) runs its
+   forward kernel twice a step, each other layer once, and every scan or
+   attention layer its backward kernel once: falcon-mamba ssm 16 / 8 a
+   step, recurrentgemma rglru 10 / 6 and flash 4 / 2.
    ``repro_torch.launch.train`` for starcoder2-3b at full width, 8 layers,
    bf16, B=4, T=1024, 3 steps on fresh batches: with remat, 16 flash
    forward and 8 flash backward launches per step; the loss is finite.
@@ -94,7 +114,9 @@ without the final result line:
    done) and one PyTorch library call as a yardstick where one computes
    the same function (the port never calls it); each flash line names the
    path it took, and each scan line the time of the scan kernel it
-   replaced (one thread per channel walking all T).
+   replaced (one thread per channel walking all T).  The scans' backward
+   kernels and the flash backward at the recurrentgemma local training
+   shape (head dim 256, the f32-FMA kernels) against autograd of plain.
 7. The ``kernels`` JSON line (the scans' entries with their tile sizes),
    then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -173,8 +195,11 @@ BWD_TC_GROUPS = {
 MAIN_SHAPE = (4, 1024, 1024, 64, 8, 128, True, 0)      # qwen3-32b prefill, B=4
 LOCAL_SHAPE = (4, 3000, 3000, 16, 1, 256, True, 2048)  # recurrentgemma local
 TRAIN_SHAPE = (4, 1024, 1024, 24, 2, 128, True, 0)     # starcoder2-3b train, B=4
+LLAMA3_SHAPE = (4, 1024, 1024, 128, 8, 128, True, 0)   # llama3-405b prefill
+LOCAL_TRAIN_SHAPE = (2, 3000, 3000, 16, 1, 256, True, 2048)  # its training
 ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
             + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE])
+FWD_ONLY = [LLAMA3_SHAPE]
 BWD_TC_GROUPS[TRAIN_SHAPE] = 4
 # Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
 # ties, and the largest gradient leaf of the starcoder2-3b main path (the
@@ -205,20 +230,40 @@ RGLRU_CASES = [(1, 8, 4, False), (2, 16, 8, False), (1, 13, 6, False),
                (2, 145, 71, True), (1, 1, 3, False), (2, 15, 64, True),
                (1, 64, 100, False), (3, 67, 72, True), (1, 200, 136, False)]
 RGLRU_MAIN = (4, 3000, 4096, False)
+# The scans' training shapes: falcon-mamba-7b's is its prefill shape, and
+# recurrentgemma-9b trains at B=2 (its logits and f32 moments fill the card).
+SSM_TRAIN = SSM_MAIN
+RGLRU_TRAIN = (2, 3000, 4096, False)
 # The scans' times at their main shapes before the chunked kernels (one
 # thread per channel walking all T): this script's phase 6 on an H100 80GB
 # HBM3 at 700 W.  Printed as a reference point; that kernel is not rebuilt.
 PREVIOUS_MS = {"ssm_scan": 0.7920, "rglru_scan": 0.7553}
 
 
-def serve_args(arch: str, prompt: int) -> list:
-    return ["--arch", arch, "--layers", "8", "--batch", "4", "--prompt-len",
-            str(prompt), "--steps", "32", "--device", "cuda", "--seed", "0"]
+def serve_args(arch: str, prompt: int, layers: int = 8) -> list:
+    return ["--arch", arch, "--layers", str(layers), "--batch", "4",
+            "--prompt-len", str(prompt), "--steps", "32", "--device", "cuda",
+            "--seed", "0"]
 
 
 MAIN_PATHS = [("qwen3-32b", serve_args("qwen3-32b", 1024)),
               ("falcon-mamba-7b", serve_args("falcon-mamba-7b", 1024)),
-              ("recurrentgemma-9b", serve_args("recurrentgemma-9b", 3000))]
+              ("recurrentgemma-9b", serve_args("recurrentgemma-9b", 3000)),
+              ("qwen2-72b", serve_args("qwen2-72b", 1024)),
+              # 4 layers: about 34 GB of bf16 weights at llama3's widths.
+              ("llama3-405b", serve_args("llama3-405b", 1024, layers=4))]
+
+
+def train_args(arch: str, batch: int, seq: int) -> list:
+    return ["--arch", arch, "--layers", "8", "--batch", str(batch), "--seq",
+            str(seq), "--steps", "3", "--microbatches", "1", "--device",
+            "cuda", "--seed", "0"]
+
+
+# The recurrent archs train at 8 layers, one microbatch (their configs'
+# microbatches size the reference's multi-chip step).
+RECURRENT_TRAIN = [("falcon-mamba-7b", train_args("falcon-mamba-7b", 4, 1024)),
+                   ("recurrentgemma-9b", train_args("recurrentgemma-9b", 2, 3000))]
 TRAIN_ARGS = ["--arch", "starcoder2-3b", "--layers", "8", "--batch", "4",
               "--seq", "1024", "--steps", "3", "--device", "cuda", "--seed", "0"]
 MEMORIZE_STEPS = 3
@@ -237,6 +282,41 @@ INGEST_STEPS = ((0, 6), (1, 2))
 # params, f32, B=8, T=128): host 1 fails after step 20, the restart resumes
 # from step 20's checkpoint on 3 hosts, 40 steps executed.
 EXAMPLE_ARGS = ["--steps", "40", "--ckpt-every", "10", "--device", "cuda"]
+
+
+# Every kernel's launch counter, in the order of the kernels line.
+KERNELS = ("flash_attention", "flash_attention_bwd", "ssm_scan", "ssm_scan_bwd",
+           "rglru_scan", "rglru_scan_bwd", "quantize")
+
+
+def expect(**counts) -> dict:
+    """Launch counts of a run: the given ones, 0 for every other kernel."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Launches of ``steps`` train steps of ``cfg`` with one microbatch.
+    Under ``remat`` (``remat_policy="full"``) each super-block is
+    checkpointed, so its layers run their forward kernels twice a step (the
+    forward and its recomputation in the backward), the remainder layers
+    once; every layer runs its backward kernel once."""
+    check(not cfg.remat or cfg.remat_policy == "full",
+          f"{cfg.name}: remat_policy {cfg.remat_policy!r}, not 'full'")
+    P = len(cfg.pattern)
+    ckpt = cfg.n_super * P if cfg.remat else 0
+    types = [cfg.pattern[i % P] for i in range(cfg.n_layers)]
+
+    def fwd(kinds):
+        return steps * sum(2 if i < ckpt else 1
+                           for i, t in enumerate(types) if t in kinds)
+
+    def bwd(kinds):
+        return steps * sum(t in kinds for t in types)
+
+    attn = ("attn", "local")
+    return expect(flash_attention=fwd(attn), flash_attention_bwd=bwd(attn),
+                  ssm_scan=fwd(("mamba",)), ssm_scan_bwd=bwd(("mamba",)),
+                  rglru_scan=fwd(("rglru",)), rglru_scan_bwd=bwd(("rglru",)))
 
 
 def phase(n: int, name: str, detail: str = "") -> None:
@@ -353,6 +433,35 @@ def compare(torch, got, want, tol, what):
     check(not bool(bad.any()) and bool(torch.isfinite(got).all()),
           f"{what}: max abs err {err.max().item():.3e} beyond {tol}")
     return err.max().item()
+
+
+def grads_vs_plain(torch, run, plain, ins, cots, dtype, names, summed, what):
+    """Gradients of sum(out * cot) over a scan's two outputs through ``run``
+    (the kernels) against f32 autograd of ``plain`` on the same values:
+    the ``summed`` ones by the relative norm of their error (1e-4 in f32,
+    2e-2 in bf16), every other one elementwise at the same tolerance.
+    Returns the largest elementwise abs error."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    ins = [None if t is None else t.clone().requires_grad_() for t in ins]
+    outs = run(*ins)
+    loss = sum((o.float() * c.float()).sum() for o, c in zip(outs, cots)
+               if c is not None)
+    got = torch.autograd.grad(loss, [t for t in ins if t is not None])
+    insf = [None if t is None else t.detach().float().requires_grad_()
+            for t in ins]
+    outs = plain(*insf)
+    loss = sum((o * c.float()).sum() for o, c in zip(outs, cots) if c is not None)
+    want = torch.autograd.grad(loss, [t for t in insf if t is not None])
+    worst = 0.0
+    for name, g, w in zip([n for n, t in zip(names, ins) if t is not None],
+                          got, want):
+        if name in summed:
+            rel = ((g.float() - w).norm() / w.norm().clamp(min=1e-30)).item()
+            check(rel <= tol and bool(torch.isfinite(g).all()),
+                  f"{what}: d{name} misses by {rel:.3e} of its norm, beyond {tol}")
+        else:
+            worst = max(worst, compare(torch, g, w, tol, f"{what}: d{name}"))
+    return worst
 
 
 def lse_plain(torch, q, k, causal: bool, window: int):
@@ -497,8 +606,11 @@ def main() -> int:
     kernels = {"flash_attention": (fa, "SOURCE", "LAUNCHES"),
                "flash_attention_bwd": (fa, "BWD_SOURCE", "BWD_LAUNCHES"),
                "ssm_scan": (ss, "SOURCE", "LAUNCHES"),
+               "ssm_scan_bwd": (ss, "BWD_SOURCE", "BWD_LAUNCHES"),
                "rglru_scan": (rs, "SOURCE", "LAUNCHES"),
+               "rglru_scan_bwd": (rs, "BWD_SOURCE", "BWD_LAUNCHES"),
                "quantize": (qz, "SOURCE", "LAUNCHES")}
+    check(tuple(kernels) == KERNELS, "kernel table out of step with KERNELS")
     sources = [getattr(m, src) for m, src, _ in kernels.values()]
 
     def reset_counts():
@@ -532,22 +644,21 @@ def main() -> int:
     n_cases = 0
     with torch.inference_mode():
         for dtype, tol in tols.items():
-            for i, case in enumerate(ALL_ATTN):
+            for i, case in enumerate(ALL_ATTN + FWD_ONLY):
                 causal, window = case[6], case[7]
                 q, k, v = attn_inputs(torch, case, dtype, seed=i)
                 got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
                 path = fa.fwd_path(dtype, case[5], fa._aligned(q, k, v, got))
                 check(dtype == torch.bfloat16 or path == 0,
                       f"flash_attention_cuda {case} f32: path {path}, not the FMA kernel")
-                if dtype == torch.bfloat16 and case in (MAIN_SHAPE, LOCAL_SHAPE,
-                                                        TRAIN_SHAPE):
+                main = case in (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE)
+                if dtype == torch.bfloat16 and main:
                     check(path == 1, f"flash_attention_cuda {case} bf16: path "
                           f"{fa.PATHS[path]}, not the tensor cores")
                     paths[("flash_attention", case)] = path
                 want = ref.attention_ref(q, k, v, causal=causal, window=window)
                 err = compare(torch, got, want, tol, f"flash_attention_cuda {case} {dtype}")
-                if dtype == torch.bfloat16 and case in (MAIN_SHAPE, LOCAL_SHAPE,
-                                                        TRAIN_SHAPE):
+                if dtype == torch.bfloat16 and main:
                     main_err[("flash_attention", case)] = err
                 # The forward as training calls it, writing the log-sum-exp.
                 o, lse, _ = fa._forward(q, k, v, causal, window, case[5] ** -0.5,
@@ -671,22 +782,86 @@ def main() -> int:
             n_cases += 1
             del args, first, second
             free()
+    # The scans' backward kernels, through autograd, against f32 autograd of
+    # the plain scans: the forward's cases, with a cotangent on h_T in every
+    # other case, and the training shapes.
+    for dtype in tols:
+        for i, case in enumerate(SSM_CASES + [SSM_TRAIN]):
+            Bt, T, I, N, _ = case
+            ins = ssm_inputs(torch, case, dtype, seed=900 + i)
+            g = torch.Generator(device="cuda").manual_seed(950 + i)
+            cots = (randn(torch, g, (Bt, T, I), dtype),
+                    randn(torch, g, (Bt, I, N)) if i % 2 else None)
+            err = grads_vs_plain(torch, ss.ssm_scan_cuda, ref.ssm_scan_ref, ins,
+                                 cots, dtype, ("x", "dt", "A", "B", "C", "D", "h0"),
+                                 ("A", "B", "C", "D"),
+                                 f"ssm_scan backward {case} {dtype}")
+            if dtype == torch.bfloat16 and case == SSM_TRAIN:
+                main_err["ssm_scan_bwd"] = err
+            n_cases += 1
+            del ins, cots
+            free()
+        for i, case in enumerate(RGLRU_CASES + [RGLRU_TRAIN]):
+            B, T, L, _ = case
+            ins = rglru_inputs(torch, case, dtype, seed=1000 + i)
+            g = torch.Generator(device="cuda").manual_seed(1050 + i)
+            cots = (randn(torch, g, (B, T, L), dtype),
+                    randn(torch, g, (B, L)) if i % 2 else None)
+            err = grads_vs_plain(torch, rs.rglru_scan_cuda, ref.rglru_ref, ins,
+                                 cots, dtype, ("x", "a_gate", "i_gate", "log_lam",
+                                               "h0"), ("log_lam",),
+                                 f"rglru_scan backward {case} {dtype}")
+            if dtype == torch.bfloat16 and case == RGLRU_TRAIN:
+                main_err["rglru_scan_bwd"] = err
+            n_cases += 1
+            del ins, cots
+            free()
+    # No atomics: a second backward call at the training shapes gives the
+    # same bits.
+    with torch.no_grad():
+        args = ss._prepare(*ssm_inputs(torch, SSM_TRAIN, torch.bfloat16, seed=1100))
+        _, _, carries = ss._forward(*args, save=True)
+        dy = randn(torch, torch.Generator(device="cuda").manual_seed(1101),
+                   args[0].shape, torch.bfloat16)
+        first, second = (ss.ssm_scan_bwd_cuda(dy, None, *args[:6], carries)
+                         for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"ssm_scan backward {SSM_TRAIN} bf16: two calls differ")
+        del args, carries, dy, first, second
+        free()
+        args = rs._prepare(*rglru_inputs(torch, RGLRU_TRAIN, torch.bfloat16,
+                                         seed=1102))
+        _, _, carries = rs._forward(*args, 8.0, save=True)
+        dh = randn(torch, torch.Generator(device="cuda").manual_seed(1103),
+                   args[0].shape, torch.bfloat16)
+        first, second = (rs.rglru_scan_bwd_cuda(dh, None, *args[:4], carries)
+                         for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"rglru_scan backward {RGLRU_TRAIN} bf16: two calls differ")
+        n_cases += 2
+        del args, carries, dh, first, second
+        free()
     path_line = ", ".join(
         f"{name} {fa.PATHS[p]}" for name, p in (
             ("qwen3 forward", paths[("flash_attention", MAIN_SHAPE)]),
+            ("llama3 forward", paths[("flash_attention", LLAMA3_SHAPE)]),
             ("recurrentgemma-local forward", paths[("flash_attention", LOCAL_SHAPE)]),
             ("starcoder2 forward", paths[("flash_attention", TRAIN_SHAPE)]),
             ("starcoder2 backward", paths["flash_attention_bwd"])))
     phase(3, "kernels against plain",
           f"{n_cases} cases; paths (bf16): {path_line}; f32 on the FMA "
-          "kernels; flash backward and both scans deterministic (4 cases "
-          "bitwise equal); "
+          "kernels; flash backward, both scans and both scan backwards "
+          "deterministic (6 cases bitwise equal); "
           "main-path max abs err: flash qwen3 bf16 "
           f"{main_err[('flash_attention', MAIN_SHAPE)]:.3e}, flash local bf16 "
           f"{main_err[('flash_attention', LOCAL_SHAPE)]:.3e}, flash starcoder2 "
           f"bf16 {main_err[('flash_attention', TRAIN_SHAPE)]:.3e} (its lse "
           f"{main_err['flash_lse']:.3e}), ssm bf16 "
           f"{main_err['ssm_scan']:.3e}, rglru bf16 {main_err['rglru_scan']:.3e}, "
+          f"flash llama3 bf16 {main_err[('flash_attention', LLAMA3_SHAPE)]:.3e}, "
+          f"ssm backward bf16 {main_err['ssm_scan_bwd']:.3e} and rglru backward "
+          f"bf16 {main_err['rglru_scan_bwd']:.3e} (elementwise gradients, "
+          "against f32 autograd of plain), "
           f"flash backward starcoder2 bf16 {main_err['flash_attention_bwd']:.3e} "
           "(against f32 autograd of plain), "
           f"quantize scales f32 {main_err['quantize']:.3e} (codes equal)")
@@ -708,7 +883,8 @@ def main() -> int:
 
     details = []
     for arch, layers, T in (("qwen3-32b", 2, 256), ("falcon-mamba-7b", 2, 256),
-                            ("recurrentgemma-9b", 3, 2100)):
+                            ("recurrentgemma-9b", 3, 2100), ("qwen2-72b", 1, 256),
+                            ("llama3-405b", 1, 256)):
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   dtype=torch.float32)
         model = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
@@ -778,6 +954,50 @@ def main() -> int:
         f"params {train_errs['M=2'][1]:.3e} gradients {train_errs['M=2'][2]:.3e}")
     del sk, mk, pk, runs, batch
     free()
+
+    # The same step for the recurrent archs: the scans' forward and backward
+    # kernels against the plain scans under autograd.  The kernels' updated
+    # parameters and first moments wait on the host while the plain step
+    # runs (recurrentgemma's 256000-row tables make two f32 states too many
+    # for the card).
+    for arch, layers in (("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype=torch.float32)
+        batch = synthetic_batch(4, cfg, 2, 256, "cuda")
+        step1 = make_train_step(cfg, opt, num_microbatches=1)
+
+        def fresh(cfg=cfg):
+            return train_state_init(torch.Generator(device="cuda").manual_seed(3),
+                                    cfg, opt, "cuda")
+
+        sk, mk = step1(fresh(), batch)
+        kmet = {key: float(mk[key]) for key in ("loss", "grad_norm")}
+        kp = {n: p.detach().cpu() for n, p in sk["params"].named_parameters()}
+        km = {n: m.cpu() for n, m in sk["opt"]["m"].items()}
+        del sk, mk
+        free()
+        so, mo = on_plain(lambda: step1(fresh(), batch))
+        for key in ("loss", "grad_norm"):
+            check(abs(kmet[key] - float(mo[key])) <= 1e-3,
+                  f"{arch} train step, kernels vs plain: {key} "
+                  f"{float(mo[key])} vs {kmet[key]}")
+        perr = max((p.detach() - kp[n].cuda()).abs().max().item()
+                   for n, p in so["params"].named_parameters())
+        check(perr <= 1e-3, f"{arch} train step, kernels vs plain: updated "
+              f"parameters differ by {perr:.3e} > 1e-3")
+        gerr = 0.0
+        for n, m in so["opt"]["m"].items():
+            rel = ((m - km[n].cuda()).norm() / m.norm().clamp(min=1e-30)).item()
+            check(rel <= 1e-3, f"{arch} train step, kernels vs plain: "
+                  f"gradient of {n} misses by {rel:.3e} of its norm")
+            gerr = max(gerr, rel)
+        details.append(
+            f"{arch} {layers}L train step B=2 T=256: loss {kmet['loss']:.5f}, "
+            f"kernels vs plain loss {abs(kmet['loss'] - float(mo['loss'])):.3e} "
+            f"grad norm {abs(kmet['grad_norm'] - float(mo['grad_norm'])):.3e} "
+            f"params {perr:.3e} gradients (relative, per leaf) {gerr:.3e}")
+        del so, mo, kp, km, batch
+        free()
     phase(4, "whole models kernels against plain", "f32, max abs err: "
           + "; ".join(details))
 
@@ -790,10 +1010,9 @@ def main() -> int:
         launches[arch] = counts
         cfg = res.cfg
         types = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
-        want = {"flash_attention": sum(t in ("attn", "local") for t in types),
-                "flash_attention_bwd": 0,
-                "ssm_scan": types.count("mamba"),
-                "rglru_scan": types.count("rglru"), "quantize": 0}
+        want = expect(flash_attention=sum(t in ("attn", "local") for t in types),
+                      ssm_scan=types.count("mamba"),
+                      rglru_scan=types.count("rglru"))
         check(counts == want, f"{arch}: kernel launches {counts} in the main "
               f"path, expected one per layer of its type in prefill {want}")
         B, steps = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--steps") + 1])
@@ -812,6 +1031,50 @@ def main() -> int:
         del res
         free()
 
+    # The recurrent archs train through launch.train's own function: their
+    # scans' forward kernels (twice in a checkpointed layer) and backward
+    # kernels, recurrentgemma's local layers through the flash kernels at
+    # head dim 256; then 3 more steps on one batch, where the loss falls.
+    for arch, argv in RECURRENT_TRAIN:
+        reset_counts()
+        tr = train_launch.run(argv)
+        counts = read_counts()
+        launches[f"{arch} train"] = counts
+        cfg, n_steps = tr.cfg, len(tr.losses)
+        B, T = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--seq") + 1])
+        want = train_launches(cfg, n_steps)
+        check(counts == want, f"{arch} train: kernel launches {counts}, "
+              f"expected {want}")
+        check(all(math.isfinite(x) for x in tr.losses),
+              f"{arch} train: losses {tr.losses} not finite")
+        reset_counts()
+        step = make_train_step(cfg, tr.opt, num_microbatches=1)
+        one = synthetic_batch(12, cfg, B, T, "cuda")
+        state, mem_losses = tr.state, []
+        for _ in range(MEMORIZE_STEPS):
+            state, metrics = step(state, one)
+            mem_losses.append(float(metrics["loss"]))
+        counts = read_counts()
+        launches[f"{arch} memorize"] = counts
+        want = train_launches(cfg, MEMORIZE_STEPS)
+        check(counts == want, f"{arch} memorize: kernel launches {counts}, "
+              f"expected {want}")
+        check(all(math.isfinite(x) for x in mem_losses)
+              and mem_losses[-1] < mem_losses[0],
+              f"{arch} memorize: losses {mem_losses} not finite and falling")
+        phase(5, f"main path {arch} train",
+              f"{cfg.n_layers} layers {str(cfg.dtype).removeprefix('torch.')} "
+              f"B={B} T={T}, one microbatch, {n_steps} steps on fresh batches: "
+              f"losses {', '.join(f'{x:.4f}' for x in tr.losses)}; step ms "
+              f"{', '.join(f'{x:.3f}' for x in tr.step_ms)}; "
+              f"{tr.tokens_per_s:.1f} tokens/s over steps 2..{n_steps}; peak "
+              f"{tr.peak_bytes / 1e9:.3f} GB; launches "
+              f"{launches[f'{arch} train']}; then {MEMORIZE_STEPS} steps on "
+              f"one batch: losses {', '.join(f'{x:.4f}' for x in mem_losses)}; "
+              f"launches {counts}")
+        del tr, step, one, state, metrics
+        free()
+
     # Training: launch.train's own function, then one error-feedback int8
     # round over the gradients of one more loss on the trained state.
     reset_counts()
@@ -819,9 +1082,7 @@ def main() -> int:
     counts = read_counts()
     launches["starcoder2-3b train"] = counts
     cfg, n_steps = tr.cfg, len(tr.losses)
-    want = {"flash_attention": 2 * cfg.n_layers * n_steps,
-            "flash_attention_bwd": cfg.n_layers * n_steps,
-            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    want = train_launches(cfg, n_steps)
     check(counts == want, f"starcoder2-3b train: kernel launches {counts}, "
           f"expected {want} (with remat, two forwards and one backward per "
           "layer and step)")
@@ -845,9 +1106,7 @@ def main() -> int:
         mem_losses.append(float(metrics["loss"]))
     counts = read_counts()
     launches["starcoder2-3b memorize"] = counts
-    want = {"flash_attention": 2 * cfg.n_layers * MEMORIZE_STEPS,
-            "flash_attention_bwd": cfg.n_layers * MEMORIZE_STEPS,
-            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    want = train_launches(cfg, MEMORIZE_STEPS)
     check(counts == want, f"starcoder2-3b memorize: kernel launches {counts}, "
           f"expected {want}")
     check(all(math.isfinite(x) for x in mem_losses)
@@ -890,9 +1149,7 @@ def main() -> int:
         del q, s, ghat, new_err, target, back, q_ref, s_ref
     counts = read_counts()
     launches["starcoder2-3b ef_round"] = counts
-    want = {"flash_attention": 2 * cfg.n_layers,
-            "flash_attention_bwd": cfg.n_layers,
-            "ssm_scan": 0, "rglru_scan": 0, "quantize": len(grads)}
+    want = dict(train_launches(cfg, 1), quantize=len(grads))
     check(counts == want, f"starcoder2-3b loss backward + ef_round: launches "
           f"{counts}, expected {want}")
     phase(5, "main path starcoder2-3b gradient compression",
@@ -918,9 +1175,7 @@ def main() -> int:
           f"starcoder2-3b checkpoint/restart: saves at {ck.ckpt_steps}, steps "
           f"replayed {ck.replayed}, {len(ck.losses)} steps executed; expected "
           f"saves at [2, 4], step 3 replayed, {CKPT_EXECUTED} steps")
-    want = {"flash_attention": 2 * cfg.n_layers * CKPT_EXECUTED,
-            "flash_attention_bwd": cfg.n_layers * CKPT_EXECUTED,
-            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    want = train_launches(cfg, CKPT_EXECUTED)
     check(counts == want, f"starcoder2-3b checkpoint/restart: kernel launches "
           f"{counts}, expected {want}")
     check(all(math.isfinite(x) for x in ck.losses),
@@ -1003,9 +1258,7 @@ def main() -> int:
     opt = AdamWConfig(lr=1e-3, state_dtype=cfg.opt_state_dtype)
     samples = make_token_samples(0, INGEST_SAMPLES, INGEST_SEQ + 1, cfg.vocab)
     n_steps = sum(n for _, n in INGEST_STEPS)
-    want = {"flash_attention": 2 * cfg.n_layers * n_steps,
-            "flash_attention_bwd": cfg.n_layers * n_steps,
-            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    want = train_launches(cfg, n_steps)
     runs = {}
     for model_name in ("commit", "session"):
         r = ingest_run(torch, cfg, opt, model_name, samples, "cuda",
@@ -1055,9 +1308,7 @@ def main() -> int:
     counts = read_counts()
     launches["train_checkpoint example"] = counts
     cfg, executed = ex.cfg, len(ex.losses)
-    want = {"flash_attention": 2 * cfg.n_layers * executed,
-            "flash_attention_bwd": cfg.n_layers * executed,
-            "ssm_scan": 0, "rglru_scan": 0, "quantize": 0}
+    want = train_launches(cfg, executed)
     check(executed == 40 and ex.fail_step == 20 and ex.restored_step == 20
           and ex.ckpt_steps == [10, 20, 40],
           f"train_checkpoint example: {executed} steps executed, failure at "
@@ -1199,6 +1450,109 @@ def main() -> int:
     del args, hs, hT
     free()
 
+    # The scans' backward kernels at the training shapes, each call from one
+    # forward's saved carries; plain is autograd's backward through the
+    # plain scan (its graph built once).  The bound counts each input of the
+    # backward read once (the forward's inputs, its carries, dy) and each
+    # gradient written once.
+    Bt, T, I, N, _ = SSM_TRAIN
+    ins = ssm_inputs(torch, SSM_TRAIN, torch.bfloat16, seed=93)
+    args = ss._prepare(*ins)
+    with torch.no_grad():
+        _, _, carries = ss._forward(*args, save=True)
+    dy = randn(torch, torch.Generator(device="cuda").manual_seed(92),
+               (Bt, T, I), torch.bfloat16)
+    ms = time_ms(torch, lambda: ss.ssm_scan_bwd_cuda(dy, None, *args[:6], carries),
+                 iters=10)
+    grads = ss.ssm_scan_bwd_cuda(dy, None, *args[:6], carries)
+    leaves = [t.clone().requires_grad_() for t in ins[:6]]
+    y, _ = ref.ssm_scan_ref(*leaves)
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+        y, leaves, dy, retain_graph=True), iters=1, warmup=1)
+    del y, leaves
+    # per (b,t,i,n): the rebuilt state (dt*A, the h FMA, dt*B*x), g and q
+    # (2 FMAs, 1 multiply), and the terms of dC, dB, ddt, dA, dx (about 13):
+    # 20 flops and one exp.
+    b_ms, b_by, detail = bound(Bt * T * I * N * 20, PEAK_F32_FLOPS,
+                               Bt * T * I * N, nbytes(*args[:6], carries, dy, *grads))
+    times["ssm_scan_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None)
+    lines.append(f"ssm_scan backward x bf16 {SSM_TRAIN[:4]}: kernel {ms:.4f} ms "
+                 f"({ms / b_ms:.2f}x bound), plain (autograd) {plain_ms:.4f} ms, "
+                 f"bound {b_ms:.4f} ms by {b_by} ({detail}); no library call "
+                 "computes a selective scan's gradient")
+    del ins, args, carries, dy, grads
+    free()
+
+    B, T, L, _ = RGLRU_TRAIN
+    ins = rglru_inputs(torch, RGLRU_TRAIN, torch.bfloat16, seed=91)
+    args = rs._prepare(*ins)
+    with torch.no_grad():
+        _, _, carries = rs._forward(*args, 8.0, save=True)
+    dh = randn(torch, torch.Generator(device="cuda").manual_seed(90),
+               (B, T, L), torch.bfloat16)
+    ms = time_ms(torch, lambda: rs.rglru_scan_bwd_cuda(dh, None, *args[:4], carries),
+                 iters=20)
+    grads = rs.rglru_scan_bwd_cuda(dh, None, *args[:4], carries)
+    leaves = [t.clone().requires_grad_() for t in ins[:4]]
+    hs, _ = ref.rglru_ref(*leaves)
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+        hs, leaves, dh, retain_graph=True), iters=1, warmup=1)
+    del hs, leaves
+    # per element: the 7 special functions of the gates (as the forward) and
+    # one division in m'; about 30 flops around them.
+    b_ms, b_by, detail = bound(B * T * L * 30, PEAK_F32_FLOPS, B * T * L * 8,
+                               nbytes(*args[:4], carries, dh, *grads))
+    times["rglru_scan_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None)
+    lines.append(f"rglru_scan backward bf16 {RGLRU_TRAIN[:3]}: kernel {ms:.4f} ms "
+                 f"({ms / b_ms:.2f}x bound), plain (autograd) {plain_ms:.4f} ms, "
+                 f"bound {b_ms:.4f} ms by {b_by} ({detail}); no library call "
+                 "computes an RG-LRU's gradient")
+    del ins, args, carries, dh, grads
+    free()
+
+    # The flash backward at recurrentgemma's local training shape: head dim
+    # 256 takes the f32-FMA kernels.
+    B, T, S, H, K, D, causal, window = LOCAL_TRAIN_SHAPE
+    q, k, v = (x.requires_grad_() for x in
+               attn_inputs(torch, LOCAL_TRAIN_SHAPE, torch.bfloat16, seed=89))
+    dout = randn(torch, torch.Generator(device="cuda").manual_seed(88), q.shape,
+                 torch.bfloat16)
+    with torch.no_grad():
+        o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
+                                   with_lse=True)
+    path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
+    check(path == "fma", f"flash backward {LOCAL_TRAIN_SHAPE}: path {path}")
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+        q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo), iters=3,
+        warmup=1)
+    plain_out = ref.attention_ref(q, k, v, causal=causal, window=window)
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+        plain_out, (q, k, v), dout, retain_graph=True), iters=1, warmup=1)
+    del plain_out
+    free()
+    qpos = torch.arange(T, device="cuda")[:, None] + (S - T)
+    kpos = torch.arange(S, device="cuda")[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        library_out, (q, k, v), dout, retain_graph=True), iters=3, warmup=1)
+    flops = 10 * D * visible_pairs(T, S, causal, window) * B * H
+    b_ms, b_by, detail = bound(flops, PEAK_BF16_FLOPS, 0,
+                               nbytes(q, k, v, o, dout, lse, q, k, v))
+    times["flash_local_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=library_ms, path=path)
+    lines.append(f"flash_attention backward bf16 {LOCAL_TRAIN_SHAPE} ({path}): "
+                 f"kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, sdpa "
+                 f"backward {library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                 f"({detail}; f32 CUDA-core bound "
+                 f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
+    del q, k, v, dout, o, lse, o_lo, qt, kt, vt, mask, library_out
+    free()
+
     x = quant_input(torch, QUANT_MAIN, torch.float32, seed=94)
     ms = time_ms(torch, lambda: qz.quantize_cuda(x), iters=20)
     plain_ms = time_ms(torch, lambda: ref.quantize_ref(x), iters=20)
@@ -1247,6 +1601,18 @@ def main() -> int:
                              "reference differentiates its chunked jnp attention "
                              "(src/repro/kernels/ops.py:47)")
             entry["shape"] = list(TRAIN_SHAPE)
+            entry["at_recurrentgemma_local_train"] = dict(
+                shape=list(LOCAL_TRAIN_SHAPE), **times["flash_local_bwd"])
+        if name in ("ssm_scan_bwd", "rglru_scan_bwd"):
+            fwd = name.removesuffix("_bwd")
+            entry["note"] = (f"the backward of the function {fwd}'s Pallas kernel "
+                             "computes; the Pallas kernel has none, and the "
+                             "reference differentiates its chunked jnp scan "
+                             f"(src/repro/kernels/ops.py:"
+                             f"{152 if fwd == 'ssm_scan' else 215})")
+            entry["shape"] = list((SSM_TRAIN if fwd == "ssm_scan" else RGLRU_TRAIN)[:-1])
+            entry["tiles"] = {k: getattr(m, k) for k in
+                              ("CHUNK", "SEGMENT", "LANES", "CHANNELS", "STAGES")}
         line.append(entry)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

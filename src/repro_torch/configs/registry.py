@@ -4,8 +4,8 @@ The names of the reference's other architectures are known, so asking for
 one of them says it is not yet ported rather than that it does not exist.
 """
 
-from repro_torch.configs import (falcon_mamba_7b, qwen3_32b, recurrentgemma_9b,
-                                 starcoder2_3b)
+from repro_torch.configs import (falcon_mamba_7b, llama3_405b, qwen2_72b,
+                                 qwen3_32b, recurrentgemma_9b, starcoder2_3b)
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
@@ -13,11 +13,13 @@ _MODULES = {
     "falcon-mamba-7b": falcon_mamba_7b,
     "recurrentgemma-9b": recurrentgemma_9b,
     "starcoder2-3b": starcoder2_3b,
+    "qwen2-72b": qwen2_72b,
+    "llama3-405b": llama3_405b,
 }
 
 NOT_YET_PORTED = (
     "whisper-small", "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
-    "llama3-405b", "qwen2-72b", "paligemma-3b",
+    "paligemma-3b",
 )
 
 ARCHS = {name: mod.CONFIG for name, mod in _MODULES.items()}

@@ -48,6 +48,11 @@
 // the main shape takes about 0.143 ms (chip_smoke.py phase 6), 1.2x its
 // byte bound, with 95 registers and no spills
 // (python -m repro_torch.kernels._build).
+//
+// Training asks for one more output, `carries` (B, ceil(T/TC), L) f32: the
+// state entering each chunk, which rglru_scan_bwd.cu rebuilds the chunk's
+// states from.  The kernel is templated on whether it writes them, so a
+// call without them (serving) runs the code it ran before.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -135,12 +140,13 @@ __device__ __forceinline__ float scan_chunk(char* st, float neg_c_lam,
 }
 
 // flags: bit 0 rows of x, a_gate, i_gate and y 16-byte aligned.
-template <typename T>
+// SAVE: write the state entering each chunk to `carries`.
+template <typename T, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 2) rglru_scan_kernel(
     const T* __restrict__ x, const T* __restrict__ ag,
     const T* __restrict__ ig, const float* __restrict__ log_lam,
     const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hT,
-    int Tn, int L, float cc, int flags) {
+    float* __restrict__ carries, int Tn, int L, float cc, int flags) {
   using Ly = Layout<T>;
   extern __shared__ __align__(16) char smem[];
   const int b = blockIdx.y;
@@ -183,6 +189,8 @@ __global__ void __launch_bounds__(THREADS, 2) rglru_scan_kernel(
     prefetch(k + STAGES - 1);
     cp_async_wait<STAGES - 1>();
     __syncthreads();                                // chunk k has landed
+    if (SAVE && active && g == 0)        // the state entering chunk k
+      carries[((long)b * nchunks + k) * L + l] = carry;
     char* st = smem + (k % STAGES) * Ly::STAGE;
     const int nt = min(TC, Tn - k * TC);
     const float nxt =
@@ -200,9 +208,11 @@ __global__ void __launch_bounds__(THREADS, 2) rglru_scan_kernel(
 template <typename T>
 cudaError_t launch(const void* x, const void* ag, const void* ig,
                    const float* log_lam, const float* h0, void* y, float* hT,
-                   int B, int Tn, int L, float c, cudaStream_t stream) {
+                   float* carries, int B, int Tn, int L, float c,
+                   cudaStream_t stream) {
   constexpr int smem = Layout<T>::SMEM;
-  auto kernel = rglru_scan_kernel<T>;
+  auto kernel = carries != nullptr ? rglru_scan_kernel<T, true>
+                                   : rglru_scan_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -212,30 +222,32 @@ cudaError_t launch(const void* x, const void* ag, const void* ig,
   dim3 grid((L + CH - 1) / CH, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(ag),
-      static_cast<const T*>(ig), log_lam, h0, static_cast<T*>(y), hT, Tn, L, c,
-      flags);
+      static_cast<const T*>(ig), log_lam, h0, static_cast<T*>(y), hT, carries,
+      Tn, L, c, flags);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, a_gate, i_gate and y share it;
-// log_lam, h0 and hT are float32).  All tensors are contiguous: x, a_gate,
-// i_gate, y (B,T,L); log_lam (L,); h0 and hT (B,L).  h0 may be null (zero
-// state).  Returns the launch's cudaError_t (0 on success); the kernel runs
-// asynchronously on `stream`.
+// log_lam, h0, hT and carries are float32).  All tensors are contiguous: x,
+// a_gate, i_gate, y (B,T,L); log_lam (L,); h0 and hT (B,L); carries
+// (B,ceil(T/64),L).  h0 may be null (zero state); carries may be null (not
+// written).  Returns the launch's cudaError_t (0 on success); the kernel
+// runs asynchronously on `stream`.
 extern "C" int repro_rglru_scan_fwd(
     const void* x, const void* a_gate, const void* i_gate, const void* log_lam,
-    const void* h0, void* y, void* hT, int dtype, int B, int T, int L,
-    float c, void* stream) {
+    const void* h0, void* y, void* hT, void* carries, int dtype, int B, int T,
+    int L, float c, void* stream) {
   if (B <= 0 || T <= 0 || L <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lam = static_cast<const float*>(log_lam);
   const float* h0f = static_cast<const float*>(h0);
   float* hTf = static_cast<float*>(hT);
+  float* cr = static_cast<float*>(carries);
   if (dtype == 0)
-    return (int)launch<float>(x, a_gate, i_gate, lam, h0f, y, hTf, B, T, L, c, st);
+    return (int)launch<float>(x, a_gate, i_gate, lam, h0f, y, hTf, cr, B, T, L, c, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, a_gate, i_gate, lam, h0f, y, hTf, B, T, L, c, st);
+    return (int)launch<__nv_bfloat16>(x, a_gate, i_gate, lam, h0f, y, hTf, cr, B, T, L, c, st);
   return (int)cudaErrorInvalidValue;
 }

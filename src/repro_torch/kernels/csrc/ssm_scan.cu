@@ -47,6 +47,12 @@
 // 16-byte coalesced stores.  Tiles put 32 bytes after every SEG rows
 // (scan_tiles.cuh), so the 4 segments of a warp read distinct banks.
 //
+// Training asks for one more output, `carries` (Bt, ceil(T/TC), I, N) f32:
+// the state entering each chunk, which ssm_scan_bwd.cu rebuilds the chunk's
+// states from.  The kernel is templated on whether it writes them, so a
+// call without them (serving) runs the code it ran before, with no added
+// branch, store or barrier.
+//
 // Why these tiles.  4 lanes of 16 steps keep a segment's dA and dt*B*x in
 // registers and the shuffle scan at two levels; 8 warps of 121 registers
 // (no spills, python -m repro_torch.kernels._build) and 74,752 B of shared
@@ -166,13 +172,14 @@ __device__ __forceinline__ void scan_chunk(char* st, const float* a2,
 }
 
 // flags: bit 0 x and y rows 16-byte aligned, bit 1 dt's, bit 2 B's and C's.
-template <typename T, int NMAX>
+// SAVE: write the state entering each chunk to `carries`.
+template <typename T, int NMAX, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(
     const T* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ Dv,
     const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hT,
-    int Tn, int I, int N, int flags) {
+    float* __restrict__ carries, int Tn, int I, int N, int flags) {
   using L = Layout<T, NMAX>;
   extern __shared__ __align__(16) char smem[];
   float* a2 = reinterpret_cast<float*>(smem + STAGES * L::STAGE);
@@ -219,6 +226,14 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(
     prefetch(k + STAGES - 1);
     cp_async_wait<STAGES - 1>();
     __syncthreads();                                // chunk k has landed
+    if (SAVE) {                          // the state entering chunk k
+      float* out = carries + ((long)b * nchunks + k) * I * N;
+      for (int j = threadIdx.x; j < CH * NMAX; j += THREADS) {
+        const int ch = c0 + j / NMAX, n = j % NMAX;
+        if (ch < I && n < N) out[(long)ch * N + n] = carry[j];
+      }
+      __syncthreads();                   // read before the scan rewrites it
+    }
     char* st = smem + (k % STAGES) * L::STAGE;
     const int nt = min(TC, Tn - k * TC);
     if (nt == TC)
@@ -237,13 +252,13 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_kernel(
   }
 }
 
-template <typename T, int NMAX>
+template <typename T, int NMAX, bool SAVE>
 cudaError_t launch(const void* x, const float* dt, const float* A,
                    const float* Bm, const float* Cm, const float* Dv,
-                   const float* h0, void* y, float* hT, int Bt, int Tn, int I,
-                   int N, cudaStream_t stream) {
+                   const float* h0, void* y, float* hT, float* carries, int Bt,
+                   int Tn, int I, int N, cudaStream_t stream) {
   constexpr int smem = Layout<T, NMAX>::SMEM;
-  auto kernel = ssm_scan_kernel<T, NMAX>;
+  auto kernel = ssm_scan_kernel<T, NMAX, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -254,31 +269,44 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
   dim3 grid((I + CH - 1) / CH, Bt);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, A, Bm, Cm, Dv, h0, static_cast<T*>(y), hT,
-      Tn, I, N, flags);
+      carries, Tn, I, N, flags);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SAVE>
 cudaError_t dispatch_n(const void* x, const float* dt, const float* A,
                        const float* Bm, const float* Cm, const float* Dv,
-                       const float* h0, void* y, float* hT, int Bt, int Tn,
-                       int I, int N, cudaStream_t st) {
-  if (N <= 4) return launch<T, 4>(x, dt, A, Bm, Cm, Dv, h0, y, hT, Bt, Tn, I, N, st);
-  if (N <= 8) return launch<T, 8>(x, dt, A, Bm, Cm, Dv, h0, y, hT, Bt, Tn, I, N, st);
-  return launch<T, 16>(x, dt, A, Bm, Cm, Dv, h0, y, hT, Bt, Tn, I, N, st);
+                       const float* h0, void* y, float* hT, float* cr, int Bt,
+                       int Tn, int I, int N, cudaStream_t st) {
+  if (N <= 4)
+    return launch<T, 4, SAVE>(x, dt, A, Bm, Cm, Dv, h0, y, hT, cr, Bt, Tn, I, N, st);
+  if (N <= 8)
+    return launch<T, 8, SAVE>(x, dt, A, Bm, Cm, Dv, h0, y, hT, cr, Bt, Tn, I, N, st);
+  return launch<T, 16, SAVE>(x, dt, A, Bm, Cm, Dv, h0, y, hT, cr, Bt, Tn, I, N, st);
+}
+
+template <typename T>
+cudaError_t dispatch_save(const void* x, const float* dt, const float* A,
+                          const float* Bm, const float* Cm, const float* Dv,
+                          const float* h0, void* y, float* hT, float* cr,
+                          int Bt, int Tn, int I, int N, cudaStream_t st) {
+  if (cr != nullptr)
+    return dispatch_n<T, true>(x, dt, A, Bm, Cm, Dv, h0, y, hT, cr, Bt, Tn, I, N, st);
+  return dispatch_n<T, false>(x, dt, A, Bm, Cm, Dv, h0, y, hT, cr, Bt, Tn, I, N, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y share it; every other tensor is
 // float32).  All tensors are contiguous: x, dt, y (Bt,T,I); A (I,N); B, C
-// (Bt,T,N); D (I,); h0 and hT (Bt,I,N).  h0 may be null (zero state).
-// Returns the launch's cudaError_t (0 on success); the kernel runs
-// asynchronously on `stream`.
+// (Bt,T,N); D (I,); h0 and hT (Bt,I,N); carries (Bt,ceil(T/64),I,N).  h0
+// may be null (zero state); carries may be null (not written).  Returns the
+// launch's cudaError_t (0 on success); the kernel runs asynchronously on
+// `stream`.
 extern "C" int repro_ssm_scan_fwd(
     const void* x, const void* dt, const void* A, const void* B,
     const void* C, const void* D, const void* h0, void* y, void* hT,
-    int dtype, int Bt, int T, int I, int N, void* stream) {
+    void* carries, int dtype, int Bt, int T, int I, int N, void* stream) {
   if (Bt <= 0 || T <= 0 || I <= 0 || N <= 0 || N > 16 || Bt > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -289,9 +317,10 @@ extern "C" int repro_ssm_scan_fwd(
   const float* Df = static_cast<const float*>(D);
   const float* h0f = static_cast<const float*>(h0);
   float* hTf = static_cast<float*>(hT);
+  float* cr = static_cast<float*>(carries);
   if (dtype == 0)
-    return (int)dispatch_n<float>(x, dtf, Af, Bf, Cf, Df, h0f, y, hTf, Bt, T, I, N, st);
+    return (int)dispatch_save<float>(x, dtf, Af, Bf, Cf, Df, h0f, y, hTf, cr, Bt, T, I, N, st);
   if (dtype == 1)
-    return (int)dispatch_n<__nv_bfloat16>(x, dtf, Af, Bf, Cf, Df, h0f, y, hTf, Bt, T, I, N, st);
+    return (int)dispatch_save<__nv_bfloat16>(x, dtf, Af, Bf, Cf, Df, h0f, y, hTf, cr, Bt, T, I, N, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,10 +2,11 @@
 
 ``flash_attention``, ``ssm_scan``, ``rglru`` and ``quantize`` send a CUDA
 tensor to their hand-written kernel and a CPU tensor to the plain version;
-there is no other route.  Under autograd, ``flash_attention`` on the card
-differentiates through its CUDA backward kernel, and ``ssm_scan`` / ``rglru``
-on the card raise (their backward kernels are not yet ported); on the CPU
-all three differentiate through the plain versions.  The one-token decode
+there is no other route.  Under autograd, ``flash_attention``, ``ssm_scan``
+and ``rglru`` on the card differentiate through their CUDA backward kernels
+(``csrc/flash_attention_bwd.cu``, ``csrc/ssm_scan_bwd.cu``,
+``csrc/rglru_scan_bwd.cu``); on the CPU all three differentiate through the
+plain versions.  The one-token decode
 functions ``decode_attention``, ``ssm_step`` and ``rglru_step`` and
 ``dequantize`` are plain torch, as the reference's are plain jnp
 (``repro.kernels.ops``).

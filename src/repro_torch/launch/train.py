@@ -5,6 +5,8 @@ checkpoints through the paper's consistency layers.
         --layers 8 --batch 4 --seq 1024 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --tiny --device cpu --steps 20 --batch 8 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --layers 8 --batch 4 --seq 1024 --steps 3 --microbatches 1
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --tiny --device cpu --steps 5 --ckpt-every 2 --fail-at 3 \\
         --consistency session --ckpt-hosts 4
@@ -30,10 +32,12 @@ and training resumes from that step (from a fresh state at step 0 if no
 checkpoint exists yet).  Each save and the restore print their host wall
 time.
 
-On the card, architectures with mamba or RG-LRU blocks raise: the backward
-kernels of their scans are not yet ported (their CPU training runs through
-plain autograd).  ``--mesh`` raises ``NotImplementedError`` until the
-distribution slice brings it.
+Every ported architecture trains on the card: attention through the flash
+kernels' forward and backward, and the mamba and RG-LRU blocks through the
+scans' forward kernels and their CUDA backward kernels
+(``csrc/ssm_scan_bwd.cu``, ``csrc/rglru_scan_bwd.cu``); on the CPU all of
+them differentiate through the plain versions.  ``--mesh`` raises
+``NotImplementedError`` until the distribution slice brings it.
 """
 
 from __future__ import annotations
@@ -115,11 +119,6 @@ def run(argv=None) -> TrainRun:
         if not 0 < args.layers <= cfg.n_layers:
             raise ValueError(f"--layers must be in 1..{cfg.n_layers}")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    if device.type == "cuda" and {"mamba", "rglru"} & set(cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name} on the card: the backward kernels of the selective "
-            "scan and the RG-LRU are not yet ported; train it with "
-            "--device cpu")
     if min(args.steps, args.batch, args.seq, args.ckpt_hosts) < 1:
         raise ValueError("--steps, --batch, --seq and --ckpt-hosts must be >= 1")
     if min(args.ckpt_every, args.fail_at) < 0:

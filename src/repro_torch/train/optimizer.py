@@ -36,6 +36,10 @@ class AdamWConfig:
     state_dtype: Any = torch.float32   # bf16 for llama3-405b (memory budget)
 
 
+# Elements of a leaf that adamw_update updates at once.
+SLICE = 1 << 26
+
+
 def adamw_init(params: Tree, opt: AdamWConfig) -> Dict[str, Any]:
     """Zero moments in ``opt.state_dtype`` and a step count of 0 (int32),
     on the parameters' device."""
@@ -64,7 +68,10 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
 
     The arithmetic is the reference's, in f32: the clip factor
     ``min(1, grad_clip / max(|g|, 1e-12))`` and the bias corrections
-    ``1 - b**step`` are f32 tensors, not Python floats."""
+    ``1 - b**step`` are f32 tensors, not Python floats.  It is elementwise,
+    so each leaf is updated in slices of at most ``SLICE`` elements: the f32
+    temporaries of a 256000 x 4096 embedding table would otherwise take
+    about 20 GB beside the state."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -72,16 +79,20 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
     f32 = dict(dtype=torch.float32, device=gnorm.device)
     bc1 = 1 - torch.tensor(opt.b1, **f32) ** stepf
     bc2 = 1 - torch.tensor(opt.b2, **f32) ** stepf
-    for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        gf = grads[name].float() * clip
-        mf = opt.b1 * m.float() + (1 - opt.b1) * gf
-        vf = opt.b2 * v.float() + (1 - opt.b2) * gf * gf
-        delta = (mf / bc1) / (torch.sqrt(vf / bc2) + opt.eps)
-        if p.ndim >= 2:                  # decoupled weight decay, matrices only
-            delta = delta + opt.weight_decay * p.float()
-        p.copy_(p.float() - opt.lr * delta)
-        m.copy_(mf)
-        v.copy_(vf)
+    for name, leaf in params.items():
+        decay = leaf.ndim >= 2           # decoupled weight decay, matrices only
+        flat = (leaf.view(-1), grads[name].reshape(-1),
+                state["m"][name].view(-1), state["v"][name].view(-1))
+        for lo in range(0, leaf.numel(), SLICE):
+            p, g, m, v = (t[lo:lo + SLICE] for t in flat)
+            gf = g.float() * clip
+            mf = opt.b1 * m.float() + (1 - opt.b1) * gf
+            vf = opt.b2 * v.float() + (1 - opt.b2) * gf * gf
+            delta = (mf / bc1) / (torch.sqrt(vf / bc2) + opt.eps)
+            if decay:
+                delta = delta + opt.weight_decay * p.float()
+            p.copy_(p.float() - opt.lr * delta)
+            m.copy_(mf)
+            v.copy_(vf)
     return params, {"m": state["m"], "v": state["v"], "step": step}, {
         "grad_norm": gnorm, "clip": clip}

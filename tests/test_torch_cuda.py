@@ -11,7 +11,9 @@ f32 final states 1e-4 whatever the input dtype.  The flash backward is held
 against autograd of the plain attention at the same tolerances, must give
 the same bits on two calls, and takes the tensor cores at the bf16 shapes
 of the main paths; the quantize kernel's int8 codes must equal the plain
-version's exactly.
+version's exactly.  The scans' backward kernels are held against autograd
+of the plain scans in f32 (tolerances stated beside those tests) and must
+give the same bits on two calls.
 """
 
 import numpy as np
@@ -375,21 +377,152 @@ def test_flash_attention_serving_unchanged_by_lse(case, dtype):
     _close(lse[seen], want[seen], 1e-4)
 
 
+# The scans' backward kernels against autograd of the plain scans in f32, on
+# the same inputs and cotangents.  Tolerances: gradients of one element each
+# (dx, ddt, da_gate, di_gate, dh0) at atol = rtol = 1e-4, the forward's f32
+# tolerance, since each is a short chain of f32 operations in another order
+# than autograd's (and the kernels' exponentials are ex2.approx, about 2^-22
+# relative); gradients summed over the batch and time or over the channels
+# (dA, dD, dB, dC, dlog_lam) by the relative norm of their error, <= 1e-4,
+# since a sum of thousands of terms of both signs can cancel to near zero,
+# where an elementwise relative bound says nothing.  bf16 inputs are held
+# within 2e-2 (the bf16 output tolerance) of f32 autograd of plain on their
+# upcast values: the kernel reads bf16 and computes in f32, and rounds dx,
+# da_gate, di_gate to bf16 once.
+def _grads_vs_plain(run, plain, ins, cots, dtype, summed, names):
+    """(kernel grads, plain f32 grads) of sum(out * cot) over both outputs,
+    and the checks above."""
+    ins = [None if t is None else t.clone().requires_grad_() for t in ins]
+    outs = run(*ins)
+    loss = sum((o.float() * c.float()).sum() for o, c in zip(outs, cots)
+               if c is not None)
+    live = [t for t in ins if t is not None]
+    got = torch.autograd.grad(loss, live)
+    insf = [None if t is None else t.detach().float().requires_grad_() for t in ins]
+    outs = plain(*insf)
+    loss = sum((o * c.float()).sum() for o, c in zip(outs, cots) if c is not None)
+    want = torch.autograd.grad(loss, [t for t in insf if t is not None])
+    tol = TOL[dtype]
+    for name, g, w in zip([n for n, t in zip(names, ins) if t is not None],
+                          got, want):
+        assert g.dtype == dict(zip(names, ins))[name].dtype, name
+        if name in summed:
+            err = ((g.float() - w).norm() / w.norm().clamp(min=1e-30)).item()
+            assert err <= (1e-4 if dtype == torch.float32 else tol), (name, err)
+        else:
+            np.testing.assert_allclose(g.float().cpu().numpy(), w.cpu().numpy(),
+                                       atol=tol, rtol=tol, err_msg=name)
+    return got
+
+
 @pytest.mark.gpu
-def test_scan_kernels_raise_under_grad():
+@pytest.mark.parametrize("case", SSM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("with_dhT", [False, True], ids=["dhT=0", "dhT"])
+def test_ssm_scan_bwd_cuda_vs_autograd_of_plain(case, dtype, with_h0, with_dhT):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rng = np.random.default_rng(10)
-    x = _cuda(rng, (1, 8, 4)).requires_grad_()
-    dt, Bm, Cm = _cuda(rng, (1, 8, 4)), _cuda(rng, (1, 8, 2)), _cuda(rng, (1, 8, 2))
-    with pytest.raises(NotImplementedError, match="backward not yet ported"):
-        ss.ssm_scan_cuda(x, dt, -torch.ones(4, 2, device="cuda"), Bm, Cm,
-                         torch.ones(4, device="cuda"))
-    with pytest.raises(NotImplementedError, match="backward not yet ported"):
-        rs.rglru_scan_cuda(x, x.detach(), x.detach(), torch.zeros(4, device="cuda"))
-    with torch.no_grad():                        # no graph wanted: the kernel runs
-        ss.ssm_scan_cuda(x, dt, -torch.ones(4, 2, device="cuda"), Bm, Cm,
-                         torch.ones(4, device="cuda"))
+    Bt, T, I, N = case
+    rng = np.random.default_rng(11)
+    x = _cuda(rng, (Bt, T, I), dtype)
+    dt = torch.nn.functional.softplus(_cuda(rng, (Bt, T, I)))
+    A = -torch.exp(_cuda(rng, (I, N)))
+    Bm, Cm = _cuda(rng, (Bt, T, N), dtype), _cuda(rng, (Bt, T, N), dtype)
+    D = _cuda(rng, (I,))
+    h0 = _cuda(rng, (Bt, I, N)) if with_h0 else None
+    cots = (_cuda(rng, (Bt, T, I), dtype), _cuda(rng, (Bt, I, N)) if with_dhT else None)
+    before = ss.BWD_LAUNCHES
+    _grads_vs_plain(ops.ssm_scan, ref.ssm_scan_ref, (x, dt, A, Bm, Cm, D, h0),
+                    cots, dtype, ("A", "B", "C", "D"),
+                    ("x", "dt", "A", "B", "C", "D", "h0"))
+    assert ss.BWD_LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("with_dhT", [False, True], ids=["dhT=0", "dhT"])
+def test_rglru_scan_bwd_cuda_vs_autograd_of_plain(case, dtype, with_h0, with_dhT):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, L = case
+    rng = np.random.default_rng(12)
+    x, a, i = (_cuda(rng, (B, T, L), dtype) for _ in range(3))
+    lam = _cuda(rng, (L,))
+    h0 = _cuda(rng, (B, L)) if with_h0 else None
+    cots = (_cuda(rng, (B, T, L), dtype), _cuda(rng, (B, L)) if with_dhT else None)
+    before = rs.BWD_LAUNCHES
+    _grads_vs_plain(ops.rglru, ref.rglru_ref, (x, a, i, lam, h0), cots, dtype,
+                    ("log_lam",), ("x", "a_gate", "i_gate", "log_lam", "h0"))
+    assert rs.BWD_LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["ssm_scan", "rglru_scan"])
+def test_scan_backward_kernels_are_deterministic_at_the_training_shapes(kernel):
+    """No atomics: two backward calls at the training shapes (falcon-mamba-7b
+    B=4 T=1024, recurrentgemma-9b B=2 T=3000, bf16) give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(13)
+    if kernel == "ssm_scan":
+        Bt, T, I, N = 4, 1024, 8192, 16
+        args = ss._prepare(_cuda(rng, (Bt, T, I), torch.bfloat16),
+                           torch.nn.functional.softplus(_cuda(rng, (Bt, T, I))),
+                           -torch.exp(_cuda(rng, (I, N))),
+                           _cuda(rng, (Bt, T, N), torch.bfloat16),
+                           _cuda(rng, (Bt, T, N), torch.bfloat16),
+                           _cuda(rng, (I,)), None)
+        _, _, carries = ss._forward(*args, save=True)
+        dy = _cuda(rng, (Bt, T, I), torch.bfloat16)
+        first, second = (ss.ssm_scan_bwd_cuda(dy, None, *args[:6], carries)
+                         for _ in range(2))
+    else:
+        B, T, L = 2, 3000, 4096
+        args = rs._prepare(*(_cuda(rng, (B, T, L), torch.bfloat16) for _ in range(3)),
+                           _cuda(rng, (L,)), None)
+        _, _, carries = rs._forward(*args, 8.0, save=True)
+        dh = _cuda(rng, (B, T, L), torch.bfloat16)
+        first, second = (rs.rglru_scan_bwd_cuda(dh, None, *args[:4], carries)
+                         for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_scan_forward_with_carries_equals_without():
+    """The carries output changes nothing else: y and h_T are the same bits
+    with and without it, and the carries are the states entering each
+    chunk (chunk 0's is h0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(14)
+    Bt, T, I, N = 2, 3 * ss.CHUNK + 5, 72, 16
+    args = ss._prepare(_cuda(rng, (Bt, T, I), torch.bfloat16),
+                       torch.nn.functional.softplus(_cuda(rng, (Bt, T, I))),
+                       -torch.exp(_cuda(rng, (I, N))), _cuda(rng, (Bt, T, N)),
+                       _cuda(rng, (Bt, T, N)), _cuda(rng, (I,)),
+                       _cuda(rng, (Bt, I, N)))
+    y0, h0, none = ss._forward(*args, save=False)
+    y1, h1, carries = ss._forward(*args, save=True)
+    assert none is None and torch.equal(y0, y1) and torch.equal(h0, h1)
+    assert torch.equal(carries[:, 0], args[6])
+    _, h_first = ss._forward(*((args[0][:, :ss.CHUNK].contiguous(),
+                                args[1][:, :ss.CHUNK].contiguous(), args[2],
+                                args[3][:, :ss.CHUNK].contiguous(),
+                                args[4][:, :ss.CHUNK].contiguous()) + args[5:]),
+                             save=False)[:2]
+    torch.testing.assert_close(carries[:, 1], h_first, atol=1e-5, rtol=1e-5)
+    B, T, L = 2, 2 * rs.CHUNK + 9, 136
+    args = rs._prepare(*(_cuda(rng, (B, T, L)) for _ in range(3)),
+                       _cuda(rng, (L,)), _cuda(rng, (B, L)))
+    y0, h0, none = rs._forward(*args, 8.0, save=False)
+    y1, h1, carries = rs._forward(*args, 8.0, save=True)
+    assert none is None and torch.equal(y0, y1) and torch.equal(h0, h1)
+    assert torch.equal(carries[:, 0], args[4])
+    torch.testing.assert_close(carries[:, 1], y1[:, rs.CHUNK - 1].float(),
+                               atol=1e-5, rtol=1e-5)
 
 
 def _tie_rows(C):

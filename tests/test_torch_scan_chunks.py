@@ -16,6 +16,7 @@ reference tolerance, 1e-4 on f32 outputs and final states.  One test reads
 each ``.cu`` file and checks that its constants are the wrapper's.
 """
 
+import functools
 import math
 import re
 
@@ -26,6 +27,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import rglru_scan as rs  # noqa: E402
@@ -70,8 +72,10 @@ def _pad_channels(a, width, dim):
     return torch.cat([a, torch.zeros(shape, dtype=a.dtype)], dim=dim)
 
 
-def ssm_chunked(x, dt, A, B, C, D, h0=None, identity_pad=True):
-    """The selective-scan kernel's arithmetic, in f32."""
+def ssm_chunked(x, dt, A, B, C, D, h0=None, identity_pad=True, carries=None):
+    """The selective-scan kernel's arithmetic, in f32.  With a list
+    ``carries``, appends the state entering each chunk (Bt, I, N), as the
+    kernel writes it for the backward."""
     Bt, T, I = x.shape
     N = A.shape[1]
     lanes, seg, chunk = ss.LANES, ss.SEGMENT, ss.CHUNK
@@ -82,6 +86,8 @@ def ssm_chunked(x, dt, A, B, C, D, h0=None, identity_pad=True):
     carry = torch.zeros((Bt, Ip, N)) if h0 is None else _pad_channels(h0.float(), ss.CHANNELS, 1)
     y = torch.empty((Bt, T, Ip))
     for t0, valid in _chunks(T, chunk, lanes, seg):
+        if carries is not None:
+            carries.append(carry[:, :I].clone())
         idx = torch.clamp(t0 + torch.arange(chunk), max=T - 1).reshape(lanes, seg)
         dtv = dt[:, idx]                                    # (Bt, lanes, seg, Ip)
         xv = x[:, idx]
@@ -105,10 +111,12 @@ def ssm_chunked(x, dt, A, B, C, D, h0=None, identity_pad=True):
     return y[..., :I], carry[:, :I]
 
 
-def rglru_chunked(x, a_gate, i_gate, log_lam, h0=None, c=8.0, identity_pad=True):
+def rglru_chunked(x, a_gate, i_gate, log_lam, h0=None, c=8.0, identity_pad=True,
+                  carries=None):
     """The RG-LRU kernel's arithmetic, in f32: gates as the kernel forms
     them (sigmoid through exp2 and a reciprocal, log2 of a), then the
-    chunked scan."""
+    chunked scan.  With a list ``carries``, appends the state entering each
+    chunk (B, L)."""
     B, T, L = x.shape
     lanes, seg, chunk = rs.LANES, rs.SEGMENT, rs.CHUNK
     x, a_gate, i_gate = (_pad_channels(t.float(), rs.CHANNELS, 2)
@@ -123,6 +131,8 @@ def rglru_chunked(x, a_gate, i_gate, log_lam, h0=None, c=8.0, identity_pad=True)
         return 1.0 / (1.0 + torch.exp2(-v * LOG2E))
 
     for t0, valid in _chunks(T, chunk, lanes, seg):
+        if carries is not None:
+            carries.append(carry[:, :L].clone())
         idx = torch.clamp(t0 + torch.arange(chunk), max=T - 1).reshape(lanes, seg)
         xv, av, iv = x[:, idx], a_gate[:, idx], i_gate[:, idx]   # (B, lanes, seg, Lp)
         if not identity_pad:                 # zero inputs past T, as Pallas pads
@@ -255,3 +265,303 @@ def test_cuda_tile_constants_match_the_wrapper(module):
     assert 32 % lanes == 0 and math.log2(lanes).is_integer()
     assert "constexpr int TC = LANES * SEG;" in src
     assert "constexpr int CH = WARPS * CPW;" in src
+
+
+# --------------------------------------------------------------------------
+# the backward kernels (csrc/ssm_scan_bwd.cu, csrc/rglru_scan_bwd.cu)
+# --------------------------------------------------------------------------
+LN2 = 0.6931471805599453
+
+
+def _lane_scan_rev(P, Q, carry, lanes):
+    """Reverse inclusive scan of (P, Q) over dim 1 (the lanes) as the
+    kernels' shuffle-downs do it, the later chunk's carry folded into the
+    last lane; returns (the q each lane starts its backward walk from, the
+    earlier chunk's carry)."""
+    Q = Q.clone()
+    Q[:, -1] = P[:, -1] * carry + Q[:, -1]
+    off = 1
+    while off < lanes:
+        Qn, Pn = Q[:, off:].clone(), P[:, off:].clone()
+        Q[:, :-off] = P[:, :-off] * Qn + Q[:, :-off]
+        P = P.clone()
+        P[:, :-off] = P[:, :-off] * Pn
+        off *= 2
+    return torch.cat([Q[:, 1:], carry[:, None]], dim=1), Q[:, 0]
+
+
+def _block_sums(a, width):
+    """(Bt, T, Ip, N) -> the per-block sums over channels, (nblk, Bt, T, N),
+    as each block writes its partials."""
+    Bt, T, Ip, N = a.shape
+    return a.reshape(Bt, T, Ip // width, width, N).sum(3).permute(2, 0, 1, 3)
+
+
+def _in_order(parts):
+    """The partials summed over dim 0 one after another, as the second pass
+    adds them."""
+    out = torch.zeros_like(parts[0])
+    for p in parts:
+        out = out + p
+    return out
+
+
+def ssm_chunked_bwd(dy, dhT, x, dt, A, B, C, D, carries):
+    """The selective-scan backward kernel's order, in f32: chunks from last
+    to first; per state, the segment states rebuilt from the chunk's saved
+    carry (the forward's composition and lane scan), the backward
+    composition q_t = a_t (C_t dy_t + q_{t+1}) with the reverse lane scan,
+    and the walk; dB, dC as per-block partials summed in block order, dA,
+    dD as per-row partials summed in batch order.  Returns (dx, ddt, dA,
+    dB, dC, dD, dh0)."""
+    Bt, T, I = x.shape
+    N = A.shape[1]
+    lanes, seg, chunk, W = ss.LANES, ss.SEGMENT, ss.CHUNK, ss.CHANNELS
+    pad = lambda a, d: _pad_channels(a.float(), W, d)   # noqa: E731
+    x, dt, dy = pad(x, 2), pad(dt, 2), pad(dy, 2)
+    A, D = pad(A, 0), pad(D, 0)
+    Ip = x.shape[2]
+    a2 = A * LOG2E
+    An = a2 * LN2
+    Bf, Cf = B.float(), C.float()
+    qc = torch.zeros((Bt, Ip, N)) if dhT is None else pad(dhT, 1)
+    dAs = torch.zeros((Bt, Ip, N))
+    dDs = torch.zeros((Bt, Ip))
+    dx, ddt = torch.empty((Bt, T, Ip)), torch.empty((Bt, T, Ip))
+    dBs, dCs = torch.zeros((Bt, T, Ip, N)), torch.zeros((Bt, T, Ip, N))
+    for k, (t0, valid) in reversed(list(enumerate(_chunks(T, chunk, lanes, seg)))):
+        idx = torch.clamp(t0 + torch.arange(chunk), max=T - 1).reshape(lanes, seg)
+        dtv, xv, dyv = dt[:, idx], x[:, idx], dy[:, idx]   # (Bt, lanes, seg, Ip)
+        Bv, Cv = Bf[:, idx], Cf[:, idx]                    # (Bt, lanes, seg, N)
+        v = valid[None, :, :, None]
+        cin = pad(carries[k], 1)
+        acc_dt, acc_x = torch.zeros_like(dtv), torch.zeros_like(dtv)
+        dBc, dCc = torch.zeros(dtv.shape + (N,)), torch.zeros(dtv.shape + (N,))
+        for n in range(N):
+            dA = torch.where(v, torch.exp2(dtv * a2[:, n]), torch.ones(()))
+            u = torch.where(v, dtv * xv * Bv[..., n, None], torch.zeros(()))
+            P, hc = torch.ones_like(dA[:, :, 0]), torch.zeros_like(dA[:, :, 0])
+            for s in range(seg):
+                hc = dA[:, :, s] * hc + u[:, :, s]
+                P = P * dA[:, :, s]
+            start, _ = _lane_scan(P, hc, cin[..., n], lanes)
+            h, hc = torch.empty_like(dA), start
+            for s in range(seg):
+                hc = dA[:, :, s] * hc + u[:, :, s]
+                h[:, :, s] = hc
+            dCc[..., n] = dyv * h
+            Q = torch.zeros_like(P)
+            for s in reversed(range(seg)):
+                cd = torch.where(v[:, :, s], Cv[:, :, s, n, None] * dyv[:, :, s],
+                                 torch.zeros(()))
+                Q = dA[:, :, s] * (cd + Q)
+            q, qc[..., n] = _lane_scan_rev(P, Q, qc[..., n], lanes)
+            for s in reversed(range(seg)):
+                ok = v[:, :, s]
+                g = torch.where(ok, Cv[:, :, s, n, None] * dyv[:, :, s] + q, q)
+                hprev = h[:, :, s - 1] if s > 0 else start
+                ah = dA[:, :, s] * hprev
+                acc_dt[:, :, s] += g * (ah * An[:, n] + Bv[:, :, s, n, None] * xv[:, :, s])
+                acc_x[:, :, s] += g * Bv[:, :, s, n, None]
+                dAs[..., n] += torch.where(ok, g * ah * dtv[:, :, s], torch.zeros(())).sum(1)
+                dBc[:, :, s, :, n] = g * dtv[:, :, s] * xv[:, :, s]
+                q = dA[:, :, s] * g
+        nt = min(chunk, T - t0)
+        flat = lambda a: a.reshape((Bt, chunk) + a.shape[3:])[:, :nt]   # noqa: E731
+        dx[:, t0:t0 + nt] = flat(dtv * acc_x + D * dyv)
+        ddt[:, t0:t0 + nt] = flat(acc_dt)
+        dBs[:, t0:t0 + nt], dCs[:, t0:t0 + nt] = flat(dBc), flat(dCc)
+        dDs += torch.where(v, dyv * xv, torch.zeros(())).sum((1, 2))
+    dB, dC = (_in_order(_block_sums(a, W)) for a in (dBs, dCs))
+    return (dx[..., :I], ddt[..., :I], _in_order(dAs)[:I], dB, dC,
+            _in_order(dDs)[:I], qc[:, :I])
+
+
+def rglru_chunked_bwd(dh, dhT, x, a_gate, i_gate, log_lam, carries, c=8.0):
+    """The RG-LRU backward kernel's order, in f32: chunks from last to
+    first; the gates recomputed the kernel's way, the segment states rebuilt
+    from the chunk's saved carry, the backward composition q_t = a_t (dh_t
+    + q_{t+1}) with the reverse lane scan, and the walk; dlog_lam as
+    per-row partials summed in batch order.  Returns (dx, da_gate, di_gate,
+    dlog_lam, dh0)."""
+    B, T, L = x.shape
+    lanes, seg, chunk, W = rs.LANES, rs.SEGMENT, rs.CHUNK, rs.CHANNELS
+    pad = lambda a, d: _pad_channels(a.float(), W, d)   # noqa: E731
+    x, a_gate, i_gate, dh = (pad(t, 2) for t in (x, a_gate, i_gate, dh))
+    log_lam = pad(log_lam, 0)
+    neg_c_lam = -c * torch.where(log_lam > 20, log_lam, torch.log1p(torch.exp(log_lam)))
+    qc = torch.zeros((B, x.shape[2])) if dhT is None else pad(dhT, 1)
+    lam = torch.zeros_like(qc)
+    grads = [torch.empty_like(x) for _ in range(3)]
+
+    def sigmoid(v):
+        return 1.0 / (1.0 + torch.exp2(-v * LOG2E))
+
+    def gates(av, iv):
+        sa = sigmoid(av)
+        log_a2 = neg_c_lam * sa * LOG2E
+        e2 = torch.exp2(2.0 * log_a2)
+        return sa, log_a2, e2, torch.sqrt(torch.clamp(1.0 - e2, min=1e-12)), sigmoid(iv)
+
+    for k, (t0, valid) in reversed(list(enumerate(_chunks(T, chunk, lanes, seg)))):
+        idx = torch.clamp(t0 + torch.arange(chunk), max=T - 1).reshape(lanes, seg)
+        xv, av, iv, dhv = x[:, idx], a_gate[:, idx], i_gate[:, idx], dh[:, idx]
+        v = valid[None, :, :, None]
+        sa, log_a2, e2, mult, si = gates(av, iv)
+        a = torch.where(v, torch.exp2(log_a2), torch.ones(()))
+        u = torch.where(v, mult * (si * xv), torch.zeros(()))
+        P, hc = torch.ones_like(a[:, :, 0]), torch.zeros_like(a[:, :, 0])
+        for s in range(seg):
+            hc = a[:, :, s] * hc + u[:, :, s]
+            P = P * a[:, :, s]
+        start, _ = _lane_scan(P, hc, pad(carries[k], 1), lanes)
+        h, hc = torch.empty_like(a), start
+        for s in range(seg):
+            hc = a[:, :, s] * hc + u[:, :, s]
+            h[:, :, s] = hc
+        Q = torch.zeros_like(P)
+        for s in reversed(range(seg)):
+            Q = a[:, :, s] * (torch.where(v[:, :, s], dhv[:, :, s], torch.zeros(())) + Q)
+        q, qc = _lane_scan_rev(P, Q, qc, lanes)
+        out = [torch.zeros_like(a) for _ in range(3)]
+        for s in reversed(range(seg)):
+            ok = v[:, :, s]
+            g = torch.where(ok, dhv[:, :, s] + q, q)
+            hprev = h[:, :, s - 1] if s > 0 else start
+            sa_, e2_, m_, si_, x_ = (t[:, :, s] for t in (sa, e2, mult, si, xv))
+            dm = torch.where(1.0 - e2_ > 1e-12, -e2_ / m_, torch.zeros(()))
+            dla = g * (hprev * a[:, :, s] + dm * si_ * x_)
+            lam += torch.where(ok, dla * sa_, torch.zeros(())).sum(1)
+            out[0][:, :, s] = g * m_ * si_
+            out[1][:, :, s] = dla * neg_c_lam * sa_ * (1.0 - sa_)
+            out[2][:, :, s] = g * m_ * x_ * si_ * (1.0 - si_)
+            q = a[:, :, s] * g
+        nt = min(chunk, T - t0)
+        for dst, o in zip(grads, out):
+            dst[:, t0:t0 + nt] = o.reshape(B, chunk, -1)[:, :nt]
+    dlam = _in_order(lam * (-c) * torch.sigmoid(log_lam))
+    return (grads[0][..., :L], grads[1][..., :L], grads[2][..., :L],
+            dlam[:L], qc[:, :L])
+
+
+@functools.cache
+def _jax_ssm_grad(chunk):
+    """jax.grad of sum(y * wy) + sum(h_T * wh) through the reference's
+    chunked selective scan, jitted once per time chunk (h0 = 0 is the
+    reference's h0=None, wh = 0 no cotangent on h_T)."""
+    def loss(x, dt, A, B, C, D, h0, wy, wh):
+        y, h = jops.ssm_scan(x, dt, A, B, C, D, h0, time_chunk=chunk)
+        return jnp.sum(y * wy) + jnp.sum(h * wh)
+    return jax.jit(jax.grad(loss, argnums=tuple(range(7))))
+
+
+@functools.cache
+def _jax_rglru_grad(chunk):
+    """The same for the reference's chunked RG-LRU."""
+    def loss(x, ag, ig, lam, h0, wy, wh):
+        hs, hT = jops.rglru(x, ag, ig, lam, h0, time_chunk=chunk)
+        return jnp.sum(hs * wy) + jnp.sum(hT * wh)
+    return jax.jit(jax.grad(loss, argnums=tuple(range(5))))
+
+
+def _bwd_t_cases():
+    return [1, ss.SEGMENT - 1, ss.CHUNK, ss.CHUNK + 3, 2 * ss.CHUNK + 17, 200]
+
+
+@pytest.mark.parametrize("T", _bwd_t_cases())
+@pytest.mark.parametrize("N", [1, 5, 16])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("with_dhT", [False, True], ids=["dhT=0", "dhT"])
+def test_ssm_chunked_bwd_matches_references(T, N, with_h0, with_dhT):
+    """The selective-scan backward's chunked order against jax.grad of the
+    reference's chunked scan (time_chunk 4 and its default) and autograd of
+    the port's plain version: T around the segment and the chunk, I =
+    CHANNELS + 7 (a ragged channel block), N from 1 to 16, with and without
+    h0 and a cotangent on h_T."""
+    Bt, I = 2, ss.CHANNELS + 7
+    a = _ssm_arrays(130 + T + N, Bt, T, I, N)
+    r = np.random.default_rng(140 + T + N)
+    wy = r.standard_normal((Bt, T, I), dtype=np.float32)
+    wh = r.standard_normal((Bt, I, N), dtype=np.float32) if with_dhT else None
+    keys = ("x", "dt", "A", "B", "C", "D") + (("h0",) if with_h0 else ())
+    targs = [torch.from_numpy(a[k]) for k in keys]
+    carries = []
+    ssm_chunked(*targs[:6], targs[6] if with_h0 else None, carries=carries)
+    got = ssm_chunked_bwd(torch.from_numpy(wy),
+                          None if wh is None else torch.from_numpy(wh),
+                          *targs[:6], carries)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")[:len(keys)]
+
+    jargs = [jnp.asarray(a[k]) for k in ("x", "dt", "A", "B", "C", "D")]
+    jargs += [jnp.asarray(a["h0"] if with_h0 else np.zeros_like(a["h0"])),
+              jnp.asarray(wy), jnp.asarray(wh if with_dhT else np.zeros((Bt, I, N),
+                                                                      np.float32))]
+    for chunk in (4, 16):
+        want = _jax_ssm_grad(chunk)(*jargs)
+        for name, g, w in zip(names, got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg=f"{name} time_chunk={chunk}", **TOL)
+    ts = [t.clone().requires_grad_() for t in targs]
+    y, h = ref.ssm_scan_ref(*ts[:6], ts[6] if with_h0 else None)
+    loss = (y * torch.from_numpy(wy)).sum()
+    if with_dhT:
+        loss = loss + (h * torch.from_numpy(wh)).sum()
+    for name, g, w in zip(names, got, torch.autograd.grad(loss, ts)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("T", _bwd_t_cases())
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+@pytest.mark.parametrize("with_dhT", [False, True], ids=["dhT=0", "dhT"])
+def test_rglru_chunked_bwd_matches_references(T, with_h0, with_dhT):
+    """The RG-LRU backward's chunked order and gate arithmetic against
+    jax.grad of the reference's chunked scan (time_chunk 4 and its default)
+    and autograd of the port's plain version: T around the segment and the
+    chunk, L = CHANNELS + 7 (a ragged channel block), with and without h0
+    and a cotangent on h_T."""
+    B, L = 2, rs.CHANNELS + 7
+    x, ag, ig = (_np(160 + T + k, B, T, L) for k in range(3))
+    lam, h0 = _np(170 + T, L), _np(180 + T, B, L)
+    wy, wh = _np(190 + T, B, T, L), _np(200 + T, B, L)
+    arrays = [x, ag, ig, lam] + ([h0] if with_h0 else [])
+    targs = [torch.from_numpy(t) for t in arrays]
+    carries = []
+    rglru_chunked(*targs[:4], targs[4] if with_h0 else None, carries=carries)
+    got = rglru_chunked_bwd(torch.from_numpy(wy),
+                            torch.from_numpy(wh) if with_dhT else None,
+                            *targs[:4], carries)
+    names = ("dx", "da_gate", "di_gate", "dlog_lam", "dh0")[:len(arrays)]
+
+    jargs = [jnp.asarray(t) for t in (x, ag, ig, lam)]
+    jargs += [jnp.asarray(h0 if with_h0 else np.zeros_like(h0)), jnp.asarray(wy),
+              jnp.asarray(wh if with_dhT else np.zeros_like(wh))]
+    for chunk in (4, 256):
+        want = _jax_rglru_grad(chunk)(*jargs)
+        for name, g, w in zip(names, got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg=f"{name} time_chunk={chunk}", **TOL)
+    ts = [t.clone().requires_grad_() for t in targs]
+    hs, hT = ref.rglru_ref(*ts[:4], ts[4] if with_h0 else None)
+    loss = (hs * torch.from_numpy(wy)).sum()
+    if with_dhT:
+        loss = loss + (hT * torch.from_numpy(wh)).sum()
+    for name, g, w in zip(names, got, torch.autograd.grad(loss, ts)):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("module", [ss, rs], ids=["ssm_scan", "rglru_scan"])
+def test_backward_tile_constants_match_the_wrapper(module):
+    """The backward kernel walks the forward's chunks, so its ``.cu`` file
+    states the forward's tile constants, which the wrapper mirrors."""
+    fwd = (_build.CSRC / module.SOURCE).read_text()
+    bwd = (_build.CSRC / module.BWD_SOURCE).read_text()
+    for name in ("SEG", "LANES", "WARPS", "STAGES"):
+        pat = rf"constexpr int {name} = (\d+);"
+        assert re.search(pat, bwd).group(1) == re.search(pat, fwd).group(1), name
+    assert int(re.search(r"constexpr int SEG = (\d+);", bwd).group(1)) == module.SEGMENT
+    assert int(re.search(r"constexpr int LANES = (\d+);", bwd).group(1)) == module.LANES
+    assert int(re.search(r"constexpr int STAGES = (\d+);", bwd).group(1)) == module.STAGES
+    warps = int(re.search(r"constexpr int WARPS = (\d+);", bwd).group(1))
+    assert module.CHANNELS == warps * (32 // module.LANES)
+    assert "constexpr int TC = LANES * SEG;" in bwd
+    assert "constexpr int CH = WARPS * CPW;" in bwd

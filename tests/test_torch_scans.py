@@ -245,14 +245,16 @@ def test_rglru_scan_cuda_rejects_cpu_tensors():
         rglru_scan_cuda(x, x, x, torch.zeros(8))
 
 
-def test_scan_wrappers_refuse_to_run_under_grad():
-    """Under grad the CUDA scans would return a result without a graph, so
-    they raise before anything else (here before the device check)."""
+def test_scan_wrappers_reach_the_device_check_under_grad():
+    """Under grad the CUDA scans take their autograd path (forward kernel
+    with the chunk carries, backward kernel), which checks the device like
+    the no-grad path: a CPU tensor raises there, never a refusal to
+    differentiate."""
     x = torch.zeros(1, 4, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward not yet ported"):
+    with pytest.raises(ValueError, match="not a CUDA device"):
         ssm_scan_cuda(x, x.detach(), torch.zeros(8, 2), torch.zeros(1, 4, 2),
                       torch.zeros(1, 4, 2), torch.zeros(8))
-    with pytest.raises(NotImplementedError, match="backward not yet ported"):
+    with pytest.raises(ValueError, match="not a CUDA device"):
         rglru_scan_cuda(x.detach(), x.detach(), x.detach(),
                         torch.zeros(8, requires_grad=True))
 

@@ -115,10 +115,14 @@ def _np_batch(seed, vocab, B=4, S=16):
     return {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
 
 
-def _both_states(arch, wd, seed=0):
-    """One reference train state, and the port's state loaded from it."""
+def _both_states(arch, wd, seed=0, bf16_moments=False):
+    """One reference train state, and the port's state loaded from it
+    (``bf16_moments``: both keep the AdamW moments in bf16)."""
     jc = dataclasses.replace(jtiny(arch), dtype=jnp.float32)
     tc = dataclasses.replace(tiny_config(arch), dtype=torch.float32)
+    if bf16_moments:
+        jc = dataclasses.replace(jc, opt_state_dtype=jnp.bfloat16)
+        tc = dataclasses.replace(tc, opt_state_dtype=torch.bfloat16)
     jopt = JO.AdamWConfig(state_dtype=jc.opt_state_dtype, weight_decay=wd)
     topt = TO.AdamWConfig(state_dtype=tc.opt_state_dtype, weight_decay=wd)
     jstate = JTS.train_state_init(jax.random.PRNGKey(seed), jc, jopt)
@@ -131,8 +135,9 @@ def _both_states(arch, wd, seed=0):
     return jc, tc, jopt, topt, jstate, tstate
 
 
-def _one_step(arch, M, wd, batch_seed=5):
-    jc, tc, jopt, topt, jstate, tstate = _both_states(arch, wd)
+def _one_step(arch, M, wd, batch_seed=5, bf16_moments=False):
+    jc, tc, jopt, topt, jstate, tstate = _both_states(arch, wd,
+                                                      bf16_moments=bf16_moments)
     batch = _np_batch(batch_seed, jc.vocab)
     before = _leaves(tstate["params"])
     jnew, jm = jax.jit(JTS.make_train_step(jc, jopt, num_microbatches=M))(
@@ -144,7 +149,8 @@ def _one_step(arch, M, wd, batch_seed=5):
 
 @pytest.mark.parametrize("M", [1, 2])
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen3-32b",
-                                  "falcon-mamba-7b", "recurrentgemma-9b"])
+                                  "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "qwen2-72b", "llama3-405b"])
 def test_train_step_matches_reference(arch, M):
     tc, _, jnew, jm, tnew, tm = _one_step(arch, M, wd=0.0)
     for key in ("loss", "ce", "grad_norm"):
@@ -160,6 +166,29 @@ def test_train_step_matches_reference(arch, M):
             np.testing.assert_allclose(tnew["opt"][mom][n].numpy(),
                                        reference_leaf(jnew["opt"][mom], n, tc),
                                        err_msg=f"{mom} {n}", **TOL)
+
+
+def test_llama3_step_with_bf16_moments_matches_reference():
+    """llama3-405b keeps its AdamW moments in bf16 (CONFIG.opt_state_dtype):
+    one TINY step with bf16 moments on both sides.  The moments are held at
+    the bf16 tolerance, 2e-2 (each side rounds its f32 update to bf16 once,
+    so a moment may sit one bf16 ulp from the other's); the parameters,
+    updated in f32 from those moments, at 1e-4."""
+    tc, _, jnew, jm, tnew, tm = _one_step("llama3-405b", 1, wd=0.0,
+                                          bf16_moments=True)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               atol=1e-5, rtol=1e-5)
+    for n, p in tnew["params"].named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   reference_leaf(jnew["params"], n, tc),
+                                   atol=1e-4, rtol=1e-4, err_msg=n)
+        for mom in ("m", "v"):
+            got = tnew["opt"][mom][n]
+            assert got.dtype == torch.bfloat16, (mom, n)
+            np.testing.assert_allclose(
+                got.float().numpy(),
+                np.asarray(reference_leaf(jnew["opt"][mom], n, tc), np.float32),
+                atol=2e-2, rtol=2e-2, err_msg=f"{mom} {n}")
 
 
 def test_weight_decay_differs_from_reference_only_on_stacked_vectors():
@@ -372,3 +401,38 @@ def test_launch_train_same_batch_memorizes():
         losses.append(float(m["loss"]))
     assert int(state["step"]) == 8
     assert losses[-1] < losses[0] - 0.1, losses
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_launch_train_recurrent_tiny_on_cpu(arch):
+    """The recurrent archs train through the launcher (their scans' plain
+    versions on the CPU), and the trained state goes on through the same
+    train step on one batch, where the loss falls."""
+    res = tlaunch.run(["--arch", arch, "--tiny", "--device", "cpu", "--steps",
+                       "2", "--batch", "4", "--seq", "16", "--microbatches", "1"])
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+    step = make_train_step(res.cfg, TO.AdamWConfig(lr=3e-3))
+    state, batch, losses = res.state, _batch(5, cfg=res.cfg), []
+    for _ in range(6):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    assert int(state["step"]) == 8
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0] - 0.1, losses
+
+
+def test_adamw_in_slices_equals_one_pass(monkeypatch):
+    """adamw_update walks each leaf in slices of SLICE elements; the update
+    is elementwise, so slices of 7 give the bits of one pass per leaf."""
+    runs = []
+    for size in (TO.SLICE, 7):
+        monkeypatch.setattr(TO, "SLICE", size)
+        opt = TO.AdamWConfig(lr=1e-2)
+        state = _state(opt, seed=2)
+        for seed in (3, 4):
+            state, _ = make_train_step(CFG, opt)(state, _batch(seed))
+        runs.append(state)
+    (a, b) = runs
+    for n, p in a["params"].named_parameters():
+        assert torch.equal(p, dict(b["params"].named_parameters())[n]), n
+        for mom in ("m", "v"):
+            assert torch.equal(a["opt"][mom][n], b["opt"][mom][n]), (mom, n)
