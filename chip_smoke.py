@@ -20,7 +20,8 @@ without the final result line:
    on the tensor cores; the chunked scans' edges: T of one step, a segment
    less one, a chunk, a chunk plus 3 and two chunks plus 17, ragged channel
    blocks on the cp.async and the plain-load routes, N in {1, 5, 12, 16})
-   and the main-path shapes, in f32 and bf16.
+   and the main-path shapes, in f32 and bf16, among them recurrentgemma-9b's
+   local training shape (B=2, T=3000, head dim 256, window 2048).
    Tolerances: f32 atol/rtol 1e-4, bf16 outputs 2e-2, the scans' f32 final
    states 1e-4; the flash forward's log-sum-exp (written for the backward)
    against a plain logsumexp at 1e-4, with its output bit-identical to the
@@ -30,7 +31,8 @@ without the final result line:
    quantization's int8 codes exactly equal and its
    scales within 1e-6.  The flash kernels' path queries must put the bf16
    main shapes (qwen3, llama3 (H/K 16, forward only), recurrentgemma-local
-   and starcoder2 forward, starcoder2 backward) on the tensor cores and
+   and starcoder2 forward, starcoder2 and recurrentgemma-local backward) on
+   the tensor cores and
    f32 on the FMA kernels, and the backward's group split must be the one
    each case expects.  The scans' backward kernels, through autograd,
    against f32 autograd of the plain scans over the same cases and the
@@ -116,7 +118,8 @@ without the final result line:
    path it took, and each scan line the time of the scan kernel it
    replaced (one thread per channel walking all T).  The scans' backward
    kernels and the flash backward at the recurrentgemma local training
-   shape (head dim 256, the f32-FMA kernels) against autograd of plain.
+   shape (head dim 256, the tensor cores' warp-pair kernels) against
+   autograd of plain and of SDPA.
 7. The ``kernels`` JSON line (the scans' entries with their tile sizes),
    then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -159,8 +162,8 @@ ATTN_CASES = [
 ]
 # ... and head dims, ragged tiles and fully masked rows (T > S) beyond them,
 # on both paths of the kernels (bf16 with D in {16, 32, 64, 128, 256} runs
-# the forward on the tensor cores, and D in {16, 32, 64, 128} the backward;
-# f32 and other head dims run on the CUDA cores).
+# the forward and the backward on the tensor cores; f32 and other head dims
+# run on the CUDA cores).
 EXTRA_CASES = [
     (1, 40, 40, 4, 2, 256, True, 16),
     (2, 24, 8, 4, 2, 64, True, 0),
@@ -183,7 +186,9 @@ D256_CASES = [
 # The tensor-core backward's GQA group splits: case -> the number of groups
 # G its dK/dV pass splits a KV head's H/K query heads into.  Group sizes 1,
 # 3 and 12; G = 2 over a group of 3, which it does not divide; ragged T and
-# S, T > S, suffix queries, a window, non-causal T != S.
+# S, T > S, suffix queries, a window, non-causal T != S; at head dim 256
+# (the warp-pair kernels) recurrentgemma's group of 16 whole (G = 16) and
+# split 12 ways, which does not divide it.
 BWD_TC_GROUPS = {
     (1, 100, 100, 4, 4, 64, True, 0): 1,
     (2, 70, 90, 6, 2, 32, True, 0): 3,
@@ -191,6 +196,8 @@ BWD_TC_GROUPS = {
     (1, 130, 130, 12, 1, 128, True, 48): 12,
     (1, 200, 150, 12, 1, 32, False, 0): 12,
     (4, 1024, 1024, 12, 4, 64, True, 0): 2,
+    (1, 256, 256, 16, 1, 256, True, 0): 16,
+    (4, 700, 700, 16, 1, 256, True, 0): 12,
 }
 MAIN_SHAPE = (4, 1024, 1024, 64, 8, 128, True, 0)      # qwen3-32b prefill, B=4
 LOCAL_SHAPE = (4, 3000, 3000, 16, 1, 256, True, 2048)  # recurrentgemma local
@@ -198,9 +205,9 @@ TRAIN_SHAPE = (4, 1024, 1024, 24, 2, 128, True, 0)     # starcoder2-3b train, B=
 LLAMA3_SHAPE = (4, 1024, 1024, 128, 8, 128, True, 0)   # llama3-405b prefill
 LOCAL_TRAIN_SHAPE = (2, 3000, 3000, 16, 1, 256, True, 2048)  # its training
 ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
-            + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE])
+            + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LOCAL_TRAIN_SHAPE])
 FWD_ONLY = [LLAMA3_SHAPE]
-BWD_TC_GROUPS[TRAIN_SHAPE] = 4
+BWD_TC_GROUPS.update({TRAIN_SHAPE: 4, LOCAL_SHAPE: 3, LOCAL_TRAIN_SHAPE: 6})
 # Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
 # ties, and the largest gradient leaf of the starcoder2-3b main path (the
 # (3072, 12288) FFN matrix cut into 1024-wide rows by grad_compress._rows).
@@ -737,8 +744,8 @@ def main() -> int:
                       f"flash_attention backward {case} bf16: path "
                       f"{fa.PATHS[path]}, {fa.bwd_groups(B, S, H, K)} groups; "
                       f"expected the tensor cores, {BWD_TC_GROUPS[case]} groups")
-            if dtype == torch.bfloat16 and case == TRAIN_SHAPE:
-                paths["flash_attention_bwd"] = path
+            if dtype == torch.bfloat16 and case in (TRAIN_SHAPE, LOCAL_TRAIN_SHAPE):
+                paths[("flash_attention_bwd", case)] = path
             qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
             want = torch.autograd.grad(
                 ref.attention_ref(qf, kf, vf, causal=causal, window=window),
@@ -748,12 +755,16 @@ def main() -> int:
                     for name, g, w in zip("qkv", got, want)]
             if dtype == torch.bfloat16 and case == TRAIN_SHAPE:
                 main_err["flash_attention_bwd"] = max(errs)
+            if dtype == torch.bfloat16 and case == LOCAL_TRAIN_SHAPE:
+                main_err["flash_local_bwd"] = max(errs)
             n_cases += 1
             del q, k, v, qf, kf, vf, dout, got, want
             free()
     # The backward is deterministic: a second call gives the same bits (G=4
-    # at the training shape, G=2 over a group of 3).
-    for i, case in enumerate((TRAIN_SHAPE, (4, 1024, 1024, 12, 4, 64, True, 0))):
+    # at the training shape, G=2 over a group of 3, G=6 at recurrentgemma's
+    # local training shape on the warp-pair kernels).
+    for i, case in enumerate((TRAIN_SHAPE, (4, 1024, 1024, 12, 4, 64, True, 0),
+                              LOCAL_TRAIN_SHAPE)):
         B, T, S, H, K, D, causal, window = case
         q, k, v = attn_inputs(torch, case, torch.bfloat16, seed=600 + i)
         dout = randn(torch, torch.Generator(device="cuda").manual_seed(700 + i),
@@ -847,11 +858,13 @@ def main() -> int:
             ("llama3 forward", paths[("flash_attention", LLAMA3_SHAPE)]),
             ("recurrentgemma-local forward", paths[("flash_attention", LOCAL_SHAPE)]),
             ("starcoder2 forward", paths[("flash_attention", TRAIN_SHAPE)]),
-            ("starcoder2 backward", paths["flash_attention_bwd"])))
+            ("starcoder2 backward", paths[("flash_attention_bwd", TRAIN_SHAPE)]),
+            ("recurrentgemma-local backward",
+             paths[("flash_attention_bwd", LOCAL_TRAIN_SHAPE)])))
     phase(3, "kernels against plain",
           f"{n_cases} cases; paths (bf16): {path_line}; f32 on the FMA "
           "kernels; flash backward, both scans and both scan backwards "
-          "deterministic (6 cases bitwise equal); "
+          "deterministic (7 cases bitwise equal); "
           "main-path max abs err: flash qwen3 bf16 "
           f"{main_err[('flash_attention', MAIN_SHAPE)]:.3e}, flash local bf16 "
           f"{main_err[('flash_attention', LOCAL_SHAPE)]:.3e}, flash starcoder2 "
@@ -863,6 +876,7 @@ def main() -> int:
           f"bf16 {main_err['rglru_scan_bwd']:.3e} (elementwise gradients, "
           "against f32 autograd of plain), "
           f"flash backward starcoder2 bf16 {main_err['flash_attention_bwd']:.3e} "
+          f"and recurrentgemma-local bf16 {main_err['flash_local_bwd']:.3e} "
           "(against f32 autograd of plain), "
           f"quantize scales f32 {main_err['quantize']:.3e} (codes equal)")
 
@@ -1513,7 +1527,7 @@ def main() -> int:
     free()
 
     # The flash backward at recurrentgemma's local training shape: head dim
-    # 256 takes the f32-FMA kernels.
+    # 256 on the tensor cores, in the warp-pair kernels.
     B, T, S, H, K, D, causal, window = LOCAL_TRAIN_SHAPE
     q, k, v = (x.requires_grad_() for x in
                attn_inputs(torch, LOCAL_TRAIN_SHAPE, torch.bfloat16, seed=89))
@@ -1523,10 +1537,11 @@ def main() -> int:
         o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
                                    with_lse=True)
     path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
-    check(path == "fma", f"flash backward {LOCAL_TRAIN_SHAPE}: path {path}")
+    check(path == "tensor cores",
+          f"flash backward {LOCAL_TRAIN_SHAPE}: path {path}, not the tensor cores")
+    groups = fa.bwd_groups(B, S, H, K)
     ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
-        q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo), iters=3,
-        warmup=1)
+        q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo), iters=10)
     plain_out = ref.attention_ref(q, k, v, causal=causal, window=window)
     plain_ms = time_ms(torch, lambda: torch.autograd.grad(
         plain_out, (q, k, v), dout, retain_graph=True), iters=1, warmup=1)
@@ -1544,9 +1559,11 @@ def main() -> int:
     b_ms, b_by, detail = bound(flops, PEAK_BF16_FLOPS, 0,
                                nbytes(q, k, v, o, dout, lse, q, k, v))
     times["flash_local_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, library_ms=library_ms, path=path)
-    lines.append(f"flash_attention backward bf16 {LOCAL_TRAIN_SHAPE} ({path}): "
-                 f"kernel {ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, sdpa "
+                                    bound_by=b_by, library_ms=library_ms, path=path,
+                                    groups=groups)
+    lines.append(f"flash_attention backward bf16 {LOCAL_TRAIN_SHAPE} ({path}, "
+                 f"{groups} groups): kernel {ms:.4f} ms ({ms / b_ms:.2f}x bound), "
+                 f"plain (autograd) {plain_ms:.4f} ms, sdpa "
                  f"backward {library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
                  f"({detail}; f32 CUDA-core bound "
                  f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
@@ -1602,7 +1619,8 @@ def main() -> int:
                              "(src/repro/kernels/ops.py:47)")
             entry["shape"] = list(TRAIN_SHAPE)
             entry["at_recurrentgemma_local_train"] = dict(
-                shape=list(LOCAL_TRAIN_SHAPE), **times["flash_local_bwd"])
+                shape=list(LOCAL_TRAIN_SHAPE), max_abs_err=main_err["flash_local_bwd"],
+                **times["flash_local_bwd"])
         if name in ("ssm_scan_bwd", "rglru_scan_bwd"):
             fwd = name.removesuffix("_bwd")
             entry["note"] = (f"the backward of the function {fwd}'s Pallas kernel "

@@ -25,53 +25,75 @@
 // Two paths, chosen by repro_flash_attention_bwd_path (exported, so callers
 // can ask which one a call takes):
 //
-// * bf16 with D in {16, 32, 64, 128} and 16-byte aligned pointers (the
+// * bf16 with D in {16, 32, 64, 128, 256} and 16-byte aligned pointers (the
 //   training path): tensor cores, mma.sync m16n8k16 with bf16 inputs and
 //   f32 accumulation, ldmatrix / ldmatrix.trans (helpers in mma_bf16.cuh).
 //   Four launches:
 //   - delta kernel: one warp per (b, t, h) row.
-//   - dK/dV kernel, one 128-thread block per (64-key tile, b, kv head,
-//     group of query heads).  FA2's scheme with keys as the rows: each warp
-//     owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, forms P^T
-//     and dS^T = P^T (dP^T - Delta) in f32 registers, and repacks them as
-//     bf16 A fragments for dV += P^T dO and dK += dS^T Q, with no shared
-//     memory round trip (as the forward repacks P for P.V).  The dK and dV
-//     accumulators stay in registers for the whole block: 128 a thread at
-//     D=128, so query tiles are 32 rows there (64 up to D=64).  The Q / dO
-//     tiles and their lse / Delta are double-buffered with cp.async, so the
-//     next tile's copies overlap the current tile's products.
+//   - dK/dV kernel, one block per (64-key tile, b, kv head, group of query
+//     heads).  FA2's scheme with keys as the rows.  Up to D=128 (128
+//     threads) each warp owns 16 keys and computes S^T = K Q^T and
+//     dP^T = V dO^T, forms P^T and dS^T = P^T (dP^T - Delta) in f32
+//     registers, and repacks them as bf16 A fragments for dV += P^T dO and
+//     dK += dS^T Q, with no shared memory round trip (as the forward
+//     repacks P for P.V).  The dK and dV accumulators stay in registers
+//     for the whole block: 128 a thread at D=128, so query tiles are 32
+//     rows there (64 up to D=64).  The Q / dO tiles and their lse / Delta
+//     are double-buffered with cp.async, so the next tile's copies overlap
+//     the current tile's products.
+//   - At D=256 (recurrentgemma's local layers) one warp's dK and dV would
+//     be 256 registers a thread, over the 255 cap.  So the block has 256
+//     threads, and two warps share each 16-key slab, each owning 128 of
+//     the output columns (128 accumulators a thread, as at D=128).  The
+//     pair splits S^T and dP^T rather than both computing them: one warp
+//     computes S^T over all of D and forms P^T, the other dP^T; they swap
+//     the two 16 x 32 f32 tiles through shared memory behind a named
+//     barrier of their 64 threads, and each forms dS^T and runs dV and dK
+//     on its columns.  So a pair does the 4 products of 2*D flops per
+//     (key, query) that one warp does at D <= 128, not 6.  Shared memory:
+//     K, V and two stages of Q and dO (32 queries) plus the exchange, 149
+//     KB, one block per SM; 238 registers, no spills (ptxas -v, PERF.md).
 //   - The H/K query heads of a KV head (GQA sums over them) are split into
 //     G groups, G from the shape (repro_flash_attention_bwd_groups: enough
 //     blocks for 512, at most H/K).  At the starcoder2-3b training shape
-//     that gives G=4 and 16 x 8 x 4 = 512 blocks instead of 128.  Each
-//     block writes its f32 partial dK / dV to scratch that the caller
-//     allocates (2 G B S K D floats: 34 MB there, written and read once,
-//     about 20 us), and a reduce kernel sums the G partials in a fixed order
-//     and rounds once.  The key tile is the slowest block index, so the
-//     heaviest causal tiles (the first keys) are issued first.
+//     that gives G=4 and 16 x 8 x 4 = 512 blocks instead of 128, and at
+//     recurrentgemma-9b's local training shape G=6 and 47 x 2 x 6 = 564.
+//     Each block writes its f32 partial dK / dV to scratch that the caller
+//     allocates (2 G B S K D floats: 34 MB and 74 MB there, written and
+//     read once, about 20 and 44 us), and a reduce kernel sums the G
+//     partials in a fixed order and rounds once.  The key tile is the
+//     slowest block index, so the heaviest causal tiles (the first keys)
+//     are issued first.
 //   - dQ kernel, one block per (64-query tile, b, h), heaviest tiles first,
 //     K / V tiles double-buffered with cp.async.  It recomputes S = Q K^T
 //     and dP = dO V^T (7 products in all instead of 5, about 90 GFLOP at
-//     the training shape) rather than reading dS back: writing dS would be
-//     B H T S bf16, about 100 MB each way at that shape, more than the
-//     whole bound, and accumulating dQ from the dK/dV blocks would need
-//     atomics and give up determinism.
-// * everything else (f32, other head dims up to 256, among them
-//   recurrentgemma's 256, which no main path trains): f32 FMAs on the CUDA
-//   cores, three launches (delta, dK/dV, dQ).  Each of the 32 rows of a
-//   tile is owned by 8 lanes of one warp that split its 32 scores and its D
-//   output columns, so a row's P and dS go through shared memory only
-//   within the warp; one block per (32-key tile, b, kv head) sums the whole
-//   GQA group.  Staged rows are padded to D+1 floats so the dot products
-//   read shared memory without bank conflicts.
+//     the starcoder2 training shape) rather than reading dS back: writing
+//     dS would be B H T S bf16, about 100 MB each way at that shape, more
+//     than the whole bound, and accumulating dQ from the dK/dV blocks would
+//     need atomics and give up determinism.  At D=256 it takes the
+//     forward's budget and the warp pairs above: 32-key K / V tiles, Q and
+//     dO fragments read from shared memory per k-chunk, one warp of a pair
+//     computing S and P and the other dP, and each accumulating 128 of the
+//     256 dQ columns (64 registers a thread); 148 KB of shared memory, one
+//     block of 8 warps per SM, 129 registers.
+// * everything else (f32, other head dims up to 256, unaligned pointers):
+//   f32 FMAs on the CUDA cores, three launches (delta, dK/dV, dQ).  Each of
+//   the 32 rows of a tile is owned by 8 lanes of one warp that split its 32
+//   scores and its D output columns, so a row's P and dS go through shared
+//   memory only within the warp; one block per (32-key tile, b, kv head)
+//   sums the whole GQA group.  Staged rows are padded to D+1 floats so the
+//   dot products read shared memory without bank conflicts.
 //
-// Bound on an H100 SXM at the starcoder2-3b training shape (B=4,
-// T=S=1024, H=24, K=2, D=128, causal, bf16): the five products of 2*D
-// flops per visible (query, key) pair are 64.5 GFLOP, about 65 us
-// (0.0652 ms) at 989 TFLOP/s on the tensor cores; the bytes (q, k, v, o,
-// dO, lse read once; dq, dk, dv written once) are about 70 MB, 21 us at
-// 3.35 TB/s.  So it is bound by operations.  The tensor-core path runs
-// mma.sync from each warp in turn; wgmma and TMA, which the card's full
+// Bound on an H100 SXM: the five products of 2*D flops per visible (query,
+// key) pair, at 989 TFLOP/s on the tensor cores, against the bytes (q, k,
+// v, o, dO, lse read once; dq, dk, dv written once) at 3.35 TB/s.  At the
+// starcoder2-3b training shape (B=4, T=S=1024, H=24, K=2, D=128, causal)
+// that is 64.5 GFLOP, 65 us (0.0652 ms), against 109 MB, 33 us; at
+// recurrentgemma-9b's local training shape (B=2, T=S=3000, H=16, K=1,
+// D=256, window 2048) 331.6 GFLOP, 0.3353 ms, against 209 MB, 62 us.
+// So both are bound by operations; the kernels do 7 products, not 5 (464
+// GFLOP at the local shape).  The tensor-core path runs mma.sync from each
+// warp in turn; wgmma, TMA and warp specialisation, which the card's full
 // rate needs, are later work (ROADMAP.md).  The FMA path is bound by the
 // CUDA cores' 67 TFLOP/s f32 rate at best.
 
@@ -778,6 +800,396 @@ bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dim 256: pairs of warps split the output columns
+// ---------------------------------------------------------------------------
+// A warp that owns 16 rows cannot hold their outputs at D=256: dK and dV
+// would be 256 f32 registers a thread.  So two warps share each 16-row
+// slab, and each owns D/2 of the output columns: dK and dV are then 128
+// registers a thread, as at D=128, and dQ 64.  The pair splits the two
+// score products, each over all of D, rather than both recomputing them:
+// role 0 computes the scores and turns them into P, role 1 the score
+// gradients dP.  Each writes its 16 x N f32 tile to shared memory in the
+// accumulator's lane order, a named barrier of the pair's 64 threads
+// orders the exchange, and each reads the other's.  Both form
+// dS = P (dP - Delta) in f32 from the same bits, round P and dS to bf16 as
+// the kernels above do, and run the output products on their columns.
+
+constexpr int PAIR_THREADS = 256;   // 4 pairs of warps, one 16-row slab each
+constexpr int PAIR_BQ = 32;         // queries per Q / dO tile of the dK/dV pass
+constexpr int PAIR_BK = 32;         // keys per K / V tile of the dQ pass
+
+// The f32 exchange tiles: 8 warps x (N/8 n-tiles x 4 values x 32 lanes).
+__host__ __device__ constexpr size_t xchg_floats(int N) { return 8 * 16 * (size_t)N; }
+
+template <int D>
+__host__ __device__ constexpr size_t dkdv_pair_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * BKV + 4 * PAIR_BQ) * (D + PAD) +
+         sizeof(float) * (4 * PAIR_BQ + xchg_floats(PAIR_BQ));
+}
+
+template <int D>
+__host__ __device__ constexpr size_t dq_pair_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(2 * BQ_DQ + 4 * PAIR_BK) * (D + PAD) +
+         sizeof(float) * xchg_floats(PAIR_BK);
+}
+
+// This warp's NT n-tiles `x` to its slot of `xchg`, its partner's back in
+// `y`, behind the pair's named barrier (ids 1-4; 0 is __syncthreads).  The
+// block barrier that ends each tile frees the slots for the next.
+template <int NT>
+__device__ __forceinline__ void pair_exchange(float* xchg, int pair, int role,
+                                              const float (&x)[NT][4],
+                                              float (&y)[NT][4]) {
+  const int lane = threadIdx.x % 32;
+  float4* mine = reinterpret_cast<float4*>(xchg) + (pair * 2 + role) * NT * 32;
+  const float4* theirs =
+      reinterpret_cast<const float4*>(xchg) + (pair * 2 + (role ^ 1)) * NT * 32;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    mine[n * 32 + lane] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+  asm volatile("bar.sync %0, 64;\n" :: "r"(pair + 1) : "memory");
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float4 o = theirs[n * 32 + lane];
+    y[n][0] = o.x; y[n][1] = o.y; y[n][2] = o.z; y[n][3] = o.w;
+  }
+}
+
+// Role 0's x (P) and role 1's x (dP) after the exchange: P into x and
+// dS = P (dP - Delta) into y, in f32, the same bits in both warps.
+// dl(n, i) is the Delta of accumulator element (n, i).
+template <int NT, typename DeltaAt>
+__device__ __forceinline__ void pair_p_ds(int role, float (&x)[NT][4],
+                                          float (&y)[NT][4], DeltaAt dl) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = role ? y[n][i] : x[n][i];
+      const float dp = role ? x[n][i] : y[n][i];
+      x[n][i] = p;
+      y[n][i] = p * (dp - dl(n, i));
+    }
+}
+
+// dK/dV partials of one (64-key tile, b, kv head, group of query heads),
+// as bwd_dkdv_mma_kernel: pair w/2 owns keys k0+16(w/2) .. +15 and warp w
+// columns (w%2) D/2 .. +D/2-1 of their dK and dV.  Per 32-query tile, role
+// 0 computes S^T = K Q^T and P^T, role 1 dP^T = V dO^T; after the
+// exchange each accumulates dV += P^T dO and dK += dS^T Q on its columns.
+template <int D>
+__global__ void __launch_bounds__(PAIR_THREADS)
+bwd_dkdv_pair_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dk_part, float* __restrict__ dv_part,
+                     int B, int T_, int S, int H, int K, int groups, int causal,
+                     int window, float scale_log2) {
+  constexpr int BQ = PAIR_BQ;
+  constexpr int DP = D + PAD;
+  constexpr int KC = D / 16;        // k-chunks of S^T and dP^T over D
+  constexpr int NQ = BQ / 8;        // query n-tiles of S^T and dP^T
+  constexpr int NH = D / 16;        // n-tiles of a warp's half of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Vs = Ks + BKV * DP;
+  __nv_bfloat16* Qbuf = Vs + BKV * DP;          // two stages
+  __nv_bfloat16* dObuf = Qbuf + 2 * BQ * DP;    // two stages
+  float* lse_buf = reinterpret_cast<float*>(dObuf + 2 * BQ * DP);
+  float* dl_buf = lse_buf + 2 * BQ;
+  float* xchg = dl_buf + 2 * BQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, role = warp & 1;
+  const int per_tile = B * K * groups;
+  const int kt = blockIdx.x / per_tile;
+  int rest = blockIdx.x % per_tile;
+  const int grp = rest % groups;
+  rest /= groups;
+  const int kh = rest % K, b = rest / K;
+  const int rep = H / K;
+  const int h_begin = kh * rep + grp * rep / groups;
+  const int h_end = kh * rep + (grp + 1) * rep / groups;
+  const int k0 = kt * BKV;
+  const int offs = S - T_;
+
+  const int k_last = min(k0 + BKV, S) - 1;
+  int t_begin = causal ? max(0, k0 - offs) : 0;
+  const int t_end = window > 0 ? min(T_, k_last - offs + window) : T_;
+  t_begin = (t_begin / BQ) * BQ;
+  const int n_qt = t_end > t_begin ? (t_end - t_begin + BQ - 1) / BQ : 0;
+  const int n_iter = n_qt * (h_end - h_begin);
+
+  auto issue = [&](int it) {
+    const int h = h_begin + it / n_qt, q0 = t_begin + (it % n_qt) * BQ;
+    const int st = it & 1;
+    load_rows_async<BQ, D, PAIR_THREADS>(Qbuf + st * BQ * DP, q, b, q0, T_, H, h);
+    load_rows_async<BQ, D, PAIR_THREADS>(dObuf + st * BQ * DP, dout, b, q0, T_, H, h);
+    if (tid < BQ) {
+      const int tq = q0 + tid;
+      const long i = ((long)b * H + h) * T_ + min(tq, T_ - 1);
+      cp_async_4(lse_buf + st * BQ + tid, lse + i, tq < T_);
+      cp_async_4(dl_buf + st * BQ + tid, delta + i, tq < T_);
+    }
+  };
+
+  load_rows_async<BKV, D, PAIR_THREADS>(Ks, k, b, k0, S, K, kh);
+  load_rows_async<BKV, D, PAIR_THREADS>(Vs, v, b, k0, S, K, kh);
+  if (n_iter > 0) issue(0);
+  cp_async_commit();
+
+  const int kr0 = pair * 16;
+  const int kpos[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
+  const int c0 = role * (D / 2);              // this warp's output columns
+  const __nv_bfloat16* rows = role ? Vs : Ks;  // A of this warp's score product
+  float dk[NH][4], dv[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int q0 = t_begin + (it % n_qt) * BQ;
+    const int st = it & 1;
+    if (it + 1 < n_iter) issue(it + 1);   // that stage was freed by the last barrier
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* Qs = Qbuf + st * BQ * DP;
+    const __nv_bfloat16* dOs = dObuf + st * BQ * DP;
+    const float* lse_s = lse_buf + st * BQ;
+    const float* dl_s = dl_buf + st * BQ;
+    const __nv_bfloat16* cols = role ? dOs : Qs;
+
+    float x[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_frag_addr(rows, DP, kr0, kc * 16));
+#pragma unroll
+      for (int n = 0; n < NQ; n += 2) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, bt_frag_addr(cols, DP, n * 8, kc * 16));
+        mma_bf16(x[n], a, bq[0], bq[1]);
+        mma_bf16(x[n + 1], a, bq[2], bq[3]);
+      }
+    }
+    if (role == 0) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const int qi = n * 8 + 2 * t + (i & 1);
+          const int tq = q0 + qi, qpos = offs + tq;
+          const float l = lse_s[qi];
+          bool ok = tq < T_ && kpos[r] < S && l != -INFINITY;
+          if (causal) ok = ok && kpos[r] <= qpos;
+          if (window > 0) ok = ok && kpos[r] > qpos - window;
+          x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l * LOG2E) : 0.f;
+        }
+      }
+    }
+    float y[NQ][4];
+    pair_exchange<NQ>(xchg, pair, role, x, y);
+    pair_p_ds<NQ>(role, x, y, [&](int n, int i) {
+      return dl_s[n * 8 + 2 * t + (i & 1)];
+    });
+
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      const uint32_t pa[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
+                              pack_bf16(x[2 * j][2], x[2 * j][3]),
+                              pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
+                              pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
+      const uint32_t da[4] = {pack_bf16(y[2 * j][0], y[2 * j][1]),
+                              pack_bf16(y[2 * j][2], y[2 * j][3]),
+                              pack_bf16(y[2 * j + 1][0], y[2 * j + 1][1]),
+                              pack_bf16(y[2 * j + 1][2], y[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NH; n += 2) {
+        uint32_t ob[4], qb[4];
+        ldmatrix_x4_trans(ob, b_frag_addr(dOs, DP, j * 16, c0 + n * 8));
+        mma_bf16(dv[n], pa, ob[0], ob[1]);
+        mma_bf16(dv[n + 1], pa, ob[2], ob[3]);
+        ldmatrix_x4_trans(qb, b_frag_addr(Qs, DP, j * 16, c0 + n * 8));
+        mma_bf16(dk[n], da, qb[0], qb[1]);
+        mma_bf16(dk[n + 1], da, qb[2], qb[3]);
+      }
+    }
+    __syncthreads();            // this stage and the exchange slots are free
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (kpos[r] < S) {
+      const long base = ((((long)grp * B + b) * S + kpos[r]) * K + kh) * D + c0;
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        *reinterpret_cast<float2*>(dk_part + base + n * 8 + 2 * t) =
+            make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv_part + base + n * 8 + 2 * t) =
+            make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dQ of one (64-query tile, b, h), as bwd_dq_mma_kernel with the forward's
+// D=256 budget: 32-key K / V tiles double-buffered with cp.async, Q and dO
+// fragments read from shared memory per k-chunk.  Pair w/2 owns queries
+// q0+16(w/2) .. +15 and warp w columns (w%2) D/2 .. +D/2-1 of their dQ;
+// role 0 computes S = Q K^T and P, role 1 dP = dO V^T, and after the
+// exchange each accumulates dQ += dS K on its columns.
+template <int D>
+__global__ void __launch_bounds__(PAIR_THREADS)
+bwd_dq_pair_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int T_, int S, int H, int K,
+                   int causal, int window, float scale_log2, float scale) {
+  constexpr int BQ = BQ_DQ;
+  constexpr int BK = PAIR_BK;
+  constexpr int DP = D + PAD;
+  constexpr int KC = D / 16;
+  constexpr int NS = BK / 8;        // key n-tiles of S and dP
+  constexpr int NH = D / 16;        // n-tiles of a warp's half of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dOs = Qs + BQ * DP;
+  __nv_bfloat16* Kbuf = dOs + BQ * DP;          // two stages
+  __nv_bfloat16* Vbuf = Kbuf + 2 * BK * DP;     // two stages
+  float* xchg = reinterpret_cast<float*>(Vbuf + 2 * BK * DP);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int pair = warp >> 1, role = warp & 1;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  // Heaviest causal tiles (last queries) are scheduled first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int offs = S - T_;
+
+  const int q_last = min(q0 + BQ, T_) - 1;
+  int kv_begin = window > 0 ? max(0, offs + q0 - window + 1) : 0;
+  const int kv_end = causal ? min(S, offs + q_last + 1) : S;
+  kv_begin = (kv_begin / BK) * BK;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK : 0;
+
+  int tq[2], qpos[2];
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tq[r] = q0 + pair * 16 + g + 8 * r;
+    qpos[r] = offs + tq[r];
+    const bool in = tq[r] < T_;
+    l2[r] = in ? lse[(long)bh * T_ + tq[r]] * LOG2E : -INFINITY;
+    dl[r] = in ? delta[(long)bh * T_ + tq[r]] : 0.f;
+  }
+
+  load_rows_async<BQ, D, PAIR_THREADS>(Qs, q, b, q0, T_, H, h);
+  load_rows_async<BQ, D, PAIR_THREADS>(dOs, dout, b, q0, T_, H, h);
+  if (n_tiles > 0) {
+    load_rows_async<BK, D, PAIR_THREADS>(Kbuf, k, b, kv_begin, S, K, kh);
+    load_rows_async<BK, D, PAIR_THREADS>(Vbuf, v, b, kv_begin, S, K, kh);
+  }
+  cp_async_commit();
+
+  const int c0 = role * (D / 2);              // this warp's output columns
+  const __nv_bfloat16* rows = role ? dOs : Qs; // A of this warp's score product
+  float acc[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = kv_begin + it * BK;
+    const __nv_bfloat16* Ks = Kbuf + (it & 1) * BK * DP;
+    const __nv_bfloat16* Vs = Vbuf + (it & 1) * BK * DP;
+    if (it + 1 < n_tiles) {     // that stage was freed by the last barrier
+      load_rows_async<BK, D, PAIR_THREADS>(Kbuf + ((it + 1) & 1) * BK * DP, k, b,
+                                           k0 + BK, S, K, kh);
+      load_rows_async<BK, D, PAIR_THREADS>(Vbuf + ((it + 1) & 1) * BK * DP, v, b,
+                                           k0 + BK, S, K, kh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* cols = role ? Vs : Ks;
+
+    float x[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_frag_addr(rows, DP, pair * 16, kc * 16));
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, bt_frag_addr(cols, DP, n * 8, kc * 16));
+        mma_bf16(x[n], a, kb[0], kb[1]);
+        mma_bf16(x[n + 1], a, kb[2], kb[3]);
+      }
+    }
+    if (role == 0) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const int kpos = k0 + n * 8 + 2 * t + (i & 1);
+          bool ok = kpos < S && l2[r] != -INFINITY;
+          if (causal) ok = ok && kpos <= qpos[r];
+          if (window > 0) ok = ok && kpos > qpos[r] - window;
+          x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l2[r]) : 0.f;
+        }
+      }
+    }
+    float y[NS][4];
+    pair_exchange<NS>(xchg, pair, role, x, y);
+    pair_p_ds<NS>(role, x, y, [&](int, int i) { return dl[i >> 1]; });
+
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t da[4] = {pack_bf16(y[2 * j][0], y[2 * j][1]),
+                              pack_bf16(y[2 * j][2], y[2 * j][3]),
+                              pack_bf16(y[2 * j + 1][0], y[2 * j + 1][1]),
+                              pack_bf16(y[2 * j + 1][2], y[2 * j + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NH; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, b_frag_addr(Ks, DP, j * 16, c0 + n * 8));
+        mma_bf16(acc[n], da, kb[0], kb[1]);
+        mma_bf16(acc[n + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();            // this stage and the exchange slots are free
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (tq[r] < T_) {
+      __nv_bfloat16* row = dq + ((long)(b * T_ + tq[r]) * H + h) * D + c0;
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+        *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) =
+            pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    }
+  }
+}
+
 // dk = scale * sum_g dk_part[g], dv = sum_g dv_part[g], summed in f32 in
 // the fixed order g = 0, 1, ..., then rounded to bf16 once; four values a
 // thread per step.
@@ -799,6 +1211,18 @@ bwd_reduce_kernel(const float4* __restrict__ dk_part,
   }
 }
 
+// The dK/dV and dQ kernels of head dim D; only these are instantiated.
+template <int D>
+auto dkdv_kernel() {
+  if constexpr (D > 128) return &bwd_dkdv_pair_kernel<D>;
+  else return &bwd_dkdv_mma_kernel<D>;
+}
+template <int D>
+auto dq_kernel() {
+  if constexpr (D > 128) return &bwd_dq_pair_kernel<D>;
+  else return &bwd_dq_mma_kernel<D>;
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* o_lo, const void* dout,
@@ -816,22 +1240,27 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const long n = (long)B * S * K * D;           // elements of dk (and dv)
   float* dk_part = partial;
   float* dv_part = partial + (long)groups * n;
-  auto kv_kern = bwd_dkdv_mma_kernel<D>;
+  // Head dim 256 runs the warp-pair kernels, with the same grids.
+  constexpr bool pairs = D > 128;
+  constexpr int threads = pairs ? PAIR_THREADS : THREADS;
+  constexpr size_t kv_smem = pairs ? dkdv_pair_smem<D>() : dkdv_smem<D>();
+  constexpr size_t q_smem = pairs ? dq_pair_smem<D>() : dq_smem<D>();
+  auto kv_kern = dkdv_kernel<D>();
+  auto q_kern = dq_kernel<D>();
   err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dkdv_smem<D>());
+                             (int)kv_smem);
   if (err != cudaSuccess) return err;
   const long kv_blocks = (long)((S + BKV - 1) / BKV) * B * K * groups;
-  kv_kern<<<(unsigned)kv_blocks, THREADS, dkdv_smem<D>(), stream>>>(
+  kv_kern<<<(unsigned)kv_blocks, threads, kv_smem, stream>>>(
       q_, k_, v_, do_, lse, delta, dk_part, dv_part, B, T_, S, H, K, groups,
       causal, window, scale * LOG2E);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto q_kern = bwd_dq_mma_kernel<D>;
   err = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dq_smem<D>());
+                             (int)q_smem);
   if (err != cudaSuccess) return err;
-  q_kern<<<dim3((T_ + BQ_DQ - 1) / BQ_DQ, B * H), THREADS, dq_smem<D>(), stream>>>(
+  q_kern<<<dim3((T_ + BQ_DQ - 1) / BQ_DQ, B * H), threads, q_smem, stream>>>(
       q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dq), T_, S, H, K, causal,
       window, scale * LOG2E, scale);
   err = cudaGetLastError();
@@ -854,7 +1283,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // dout, dq, dk and dv all start on 16 bytes.  repro_flash_attention_bwd
 // dispatches by this function.
 extern "C" int repro_flash_attention_bwd_path(int dtype, int D, int aligned) {
-  return dtype == 1 && aligned && (D == 16 || D == 32 || D == 64 || D == 128);
+  return dtype == 1 && aligned &&
+         (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
 }
 
 // The number of groups G the H/K query heads of a KV head are split into
@@ -903,6 +1333,7 @@ extern "C" int repro_flash_attention_bwd(
       case 32: return (int)tc::launch<32>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
       case 64: return (int)tc::launch<64>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
       case 128: return (int)tc::launch<128>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+      case 256: return (int)tc::launch<256>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
     }
   }
   if (dtype == 0)

@@ -221,6 +221,12 @@ def test_flash_attention_bwd_cuda_vs_autograd_of_plain(case, dtype):
 # that shape.  GQA group sizes 1, 3 and 12; G = 2 at a group of 3, which it
 # does not divide; ragged T and S, T > S, suffix queries, a window, a
 # non-causal T != S, and the starcoder2-3b training shape (B=4, G=4).
+# Head dim 256 (the warp-pair kernels) at recurrentgemma's GQA 16:1 and at
+# 2:1: causal, a window that empties whole tiles, T > S, non-causal T != S,
+# G = 12 over a group of 16, which it does not divide, and recurrentgemma-9b's
+# local training shape (B=2, T=3000, window 2048, G=6).
+TRAIN_CASE = (4, 1024, 1024, 24, 2, 128, True, 0)
+LOCAL_TRAIN_CASE = (2, 3000, 3000, 16, 1, 256, True, 2048)
 BWD_TC_CASES = [
     ((1, 100, 100, 4, 4, 64, True, 0), 1),
     ((2, 70, 90, 6, 2, 32, True, 0), 3),
@@ -228,7 +234,14 @@ BWD_TC_CASES = [
     ((1, 130, 130, 12, 1, 128, True, 48), 12),
     ((1, 200, 150, 12, 1, 32, False, 0), 12),
     ((4, 1024, 1024, 12, 4, 64, True, 0), 2),
-    ((4, 1024, 1024, 24, 2, 128, True, 0), 4),
+    (TRAIN_CASE, 4),
+    ((1, 256, 256, 16, 1, 256, True, 0), 16),
+    ((1, 300, 300, 16, 1, 256, True, 64), 16),
+    ((2, 40, 24, 4, 2, 256, True, 0), 2),
+    ((1, 33, 90, 16, 1, 256, False, 0), 16),
+    ((1, 130, 200, 4, 2, 256, True, 48), 2),
+    ((4, 700, 700, 16, 1, 256, True, 0), 12),
+    (LOCAL_TRAIN_CASE, 6),
 ]
 
 
@@ -266,10 +279,12 @@ def test_flash_attention_bwd_tensor_cores_vs_autograd_of_plain(case, groups):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [BWD_TC_CASES[-1][0], BWD_TC_CASES[-2][0]], ids=str)
+@pytest.mark.parametrize("case", [TRAIN_CASE, (4, 1024, 1024, 12, 4, 64, True, 0),
+                                  LOCAL_TRAIN_CASE], ids=str)
 def test_flash_attention_bwd_is_deterministic(case):
     """No atomics: two backward calls on the same inputs agree bit for bit
-    (G = 4 at the training shape; G = 2 over a group of 3)."""
+    (G = 4 at the training shape; G = 2 over a group of 3; G = 6 at
+    recurrentgemma's local training shape, head dim 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, T, S, H, K, D, causal, window = case
@@ -286,7 +301,7 @@ def test_flash_attention_bwd_is_deterministic(case):
 
 @pytest.mark.gpu
 def test_flash_attention_paths():
-    """The bf16 main shapes (head dims 128 and 256 forward, 128 backward)
+    """The bf16 main shapes (head dims 128 and 256, forward and backward)
     take the tensor cores; f32, head dims the tensor-core kernels do not
     instantiate, and unaligned pointers take the FMA kernels."""
     if not torch.cuda.is_available():
@@ -294,12 +309,13 @@ def test_flash_attention_paths():
     bf16, f32 = torch.bfloat16, torch.float32
     assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1] * 5
     assert [fa.bwd_path(bf16, D) for D in (16, 32, 64, 128)] == [1] * 4
-    assert fa.bwd_path(bf16, 256) == 0
+    assert fa.bwd_path(bf16, 256) == 1
     assert fa.fwd_path(bf16, 96) == fa.bwd_path(bf16, 96) == 0
     assert fa.fwd_path(f32, 128) == fa.bwd_path(f32, 128) == 0
-    assert fa.fwd_path(f32, 256) == 0
+    assert fa.fwd_path(f32, 256) == fa.bwd_path(f32, 256) == 0
     assert fa.fwd_path(bf16, 128, aligned=False) == 0
     assert fa.bwd_path(bf16, 128, aligned=False) == 0
+    assert fa.bwd_path(bf16, 256, aligned=False) == 0
 
 
 @pytest.mark.gpu
