@@ -218,24 +218,30 @@ QUANT_MAIN = (36864, 1024)
 # then the chunked kernel's edges (64-step chunks of 16-step segments,
 # 64-channel blocks): T in {1, 15, 64, 67, 145, 200}, I a ragged block on the
 # plain-load route (71, 33) and on the cp.async route (72, 80), N in {1, 5,
-# 12, 16}; and the falcon-mamba-7b prefill shape.
+# 12, 16}; then the backward kernel's own edges (8-step segments, 64-channel
+# blocks, states in pairs): T = 73 ends inside a chunk's second segment, I =
+# 40 is one ragged block, N = 3 a pair with a zero state; and the
+# falcon-mamba-7b prefill shape.
 SSM_CASES = [(1, 8, 4, 2, False), (2, 16, 8, 4, False), (1, 24, 6, 3, False),
              (2, 16, 8, 4, True), (2, 20, 200, 16, True),
              (1, 1000, 130, 16, False),
              (2, 145, 71, 16, True), (1, 1, 5, 1, False), (2, 15, 16, 5, True),
              (1, 64, 33, 16, False), (3, 67, 72, 5, True),
-             (1, 200, 80, 12, True)]
+             (1, 200, 80, 12, True), (2, 73, 40, 3, True)]
 SSM_MAIN = (4, 1024, 8192, 16, False)
 # B, T, L, with h0 -- tests/test_kernels.py RGLRU_CASES, then T=20 (where the
 # Pallas wrapper's unmasked padding breaks h_T), T=1000 with L not a multiple
 # of the 64-channel block; then the chunked kernel's edges (64-step chunks of
 # 16-step segments): T in {1, 15, 64, 67, 145, 200}, L a ragged block on the
-# plain-load route (71, 3) and on the cp.async route (72, 136); and the
+# plain-load route (71, 3) and on the cp.async route (72, 136); then the
+# backward kernel's own edges (4-step segments, 32-channel blocks): T = 73
+# ends inside a chunk's third segment, L = 40 leaves 8 channels; and the
 # recurrentgemma-9b prefill shape.
 RGLRU_CASES = [(1, 8, 4, False), (2, 16, 8, False), (1, 13, 6, False),
                (1, 20, 6, False), (2, 20, 6, True), (2, 1000, 100, True),
                (2, 145, 71, True), (1, 1, 3, False), (2, 15, 64, True),
-               (1, 64, 100, False), (3, 67, 72, True), (1, 200, 136, False)]
+               (1, 64, 100, False), (3, 67, 72, True), (1, 200, 136, False),
+               (2, 73, 40, True)]
 RGLRU_MAIN = (4, 3000, 4096, False)
 # The scans' training shapes: falcon-mamba-7b's is its prefill shape, and
 # recurrentgemma-9b trains at B=2 (its logits and f32 moments fill the card).
@@ -1630,7 +1636,8 @@ def main() -> int:
                              f"{152 if fwd == 'ssm_scan' else 215})")
             entry["shape"] = list((SSM_TRAIN if fwd == "ssm_scan" else RGLRU_TRAIN)[:-1])
             entry["tiles"] = {k: getattr(m, k) for k in
-                              ("CHUNK", "SEGMENT", "LANES", "CHANNELS", "STAGES")}
+                              ("CHUNK", "BWD_SEGMENT", "BWD_LANES", "BWD_CHANNELS",
+                               "BWD_STAGES", "BWD_GROUP") if hasattr(m, k)}
         line.append(entry)
     print(smi_line, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

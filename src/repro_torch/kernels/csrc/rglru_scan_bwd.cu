@@ -20,34 +20,50 @@
 //   dlog_lam  = sum_{b,t} dlog a_t * (-c) s(a_gate_t) s(log_lam)
 //   dh0       = a_0 g_0.
 //
-// Design: rglru_scan.cu's chunked structure, reversed.  A block of 8 warps
-// owns CH = 64 channels of one batch row and walks T in chunks of TC = 64
-// steps from the last chunk to the first; each chunk's x, a_gate, i_gate
-// and dh tiles reach shared memory through the same ring of STAGES = 2
-// cp.async buffers, filled in reverse order.  LANES = 4 lanes share a
-// channel, each over a segment of SEG = 16 steps.  A lane
-//   1. recomputes its segment's gates with the forward's ex2 / rcp / sqrt
-//      instructions and rebuilds the segment's states from the f32 state
-//      the forward saved at the chunk's start (`carries`), with the
-//      forward's composition, shuffle scan and re-walk (the bf16 h output
-//      is not read);
-//   2. composes its segment backwards into (prod a, q), q_t = a_t g_t, and
-//      takes a reverse shuffle scan across the 4 lanes, the later chunk's q
-//      folded into the last lane; the first lane's result is the earlier
-//      chunk's carry, and after the first chunk it is dh0;
-//   3. walks its segment backwards, recomputing each step's gates, and
-//      writes dx, da_gate and di_gate into the x, a_gate and i_gate tiles,
-//      which leave as coalesced stores.
-// dlog_lam is summed over time in registers, over the channel's 4 lanes by
-// shuffles in a fixed order, and over the batch by a second pass in batch
-// order.  There are no cross-channel sums and no atomics: two runs give the
-// same bits.
+// Design.  The work per element is light (no state dimension, no sums over
+// channels), so what the kernel needs is enough warps to hide the latency
+// of its loads and of the dependent steps of a lane.  At the
+// recurrentgemma-9b training shape (B=2, L=4096) the earlier kernel ran 128
+// blocks of 8 warps, one per SM on 128 of the 132 SMs, 8 warps each.  Here
+// a block of 16 warps owns CH = 32 channels of one batch row, and LANES =
+// 16 lanes share a channel, each over a segment of SEG = 4 steps of the
+// forward's chunks of TC = 64 (a warp holds CPW = 2 channels): 256 blocks
+// of 16 warps, two blocks per SM, at least 16 warps on every SM.  The block
+// walks T from the last chunk to the first; each chunk's x, a_gate, i_gate
+// and dh tiles and the forward's states entering it (`carries`) reach
+// shared memory through a ring of STAGES = 3 cp.async buffers, filled in
+// reverse order, so two chunks load while one is computed.  The tiles put
+// 16 bytes after each segment (scan_tiles.cuh): a warp's 16 segments then
+// read 8 banks twice over, but the copies go 16 bytes at a time, which on
+// the card beat 8-byte pads with 8-byte copies and no conflicts (PERF.md).
+// A lane
+//   1. reads its 4 steps of the four tiles once, forms the gates with the
+//      forward's ex2 / rcp / sqrt instructions and keeps them in registers,
+//      and composes its segment forwards into (prod a, h) and, in the same
+//      pass, the backward recurrence into Q = sum_t (a_1...a_t) dh_t, the q
+//      the segment passes to the one before (q_t = a_t g_t);
+//   2. scans the (prod a, h) pairs forwards across its 16 lanes with the
+//      chunk's saved state folded into the first, and the (prod a, Q) pairs
+//      backwards with the later chunk's q folded into the last; the first
+//      lane's Q is the earlier chunk's carry, and after the first chunk dh0;
+//   3. re-walks its states and walks its segment backwards, writing dx,
+//      da_gate and di_gate into the x, a_gate and i_gate tiles, which leave
+//      as coalesced stores.
+// Steps past T read zero x and dh and take a = 1, which makes them the
+// identity.  dlog_lam is summed over time in registers, over the channel's
+// 16 lanes by a butterfly of shuffles, and over the batch by a second pass
+// in batch order.  There are no cross-channel sums and no atomics: two runs
+// give the same bits.
 //
-// What bounds it.  At the recurrentgemma-9b training shape (B=2, T=3000,
-// L=4096, bf16) reading x, a_gate, i_gate and dh and writing dx, da_gate
-// and di_gate is 344 MB, about 0.10 ms at 3.35 TB/s; the 13 special-
-// function evaluations per element (7 to rebuild h, 6 in the walk) are
-// 320M, about 0.08 ms on the special-function units.  Bytes bind.
+// What bounds it.  At the training shape reading x, a_gate, i_gate, dh and
+// the carries and writing dx, da_gate and di_gate is 345.7 MB, about 0.10
+// ms at 3.35 TB/s; the 8 special-function evaluations per element (7 for
+// the gates, one reciprocal in m') are 197M, about 0.05 ms on the
+// special-function units.  Bytes bind.  On an H100 80GB HBM3 at 700 W
+// the kernel takes about 0.17 ms there, 1.65x that bound, and a copy of it
+// that only loads and stores its tiles about 0.155 (tools/bench_scans.py,
+// tools/ablate_scan_bwd.py; PERF.md).  63 registers, no spills (python -m
+// repro_torch.kernels._build): two blocks per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,23 +78,25 @@ namespace {
 using namespace scan_sums;
 using namespace scan_tiles;
 
-// Tile constants, as in rglru_scan.cu and mirrored in rglru_scan.py
-// (SEGMENT, LANES, CHANNELS, CHUNK, STAGES) for the CPU tests.
-constexpr int SEG = 16;                 // steps a lane composes
-constexpr int LANES = 4;                // lanes that scan one channel
+// Tile constants, mirrored in rglru_scan.py (BWD_SEGMENT, BWD_LANES,
+// BWD_CHANNELS, BWD_STAGES) for the CPU tests; TC is the forward's CHUNK.
+constexpr int SEG = 4;                  // steps a lane composes
+constexpr int LANES = 16;               // lanes that scan one channel
 constexpr int CPW = 32 / LANES;         // channels per warp
-constexpr int WARPS = 8;
+constexpr int WARPS = 16;
 constexpr int THREADS = WARPS * 32;
 constexpr int CH = WARPS * CPW;         // channels per block
 constexpr int TC = LANES * SEG;         // steps per chunk
-constexpr int STAGES = 2;
+constexpr int STAGES = 3;
+constexpr int TPAD = 16;                // bytes after each segment's rows
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T>
 struct Layout {
-  static constexpr int X = tile_bytes<T, CH, TC, SEG>();
-  static constexpr int STAGE = 4 * X;             // x, a_gate, i_gate, dh
+  static constexpr int X = tile_bytes<T, CH, TC, SEG, TPAD>();
+  static constexpr int CR = CH * 4;               // the states entering it
+  static constexpr int STAGE = 4 * X + CR;        // x, a_gate, i_gate, dh
   static constexpr int SMEM = STAGES * STAGE;
 };
 
@@ -87,115 +105,100 @@ __device__ __forceinline__ float sigmoid(float v) {
   return rcp_approx(1.f + ex2_approx(-v * LOG2E));
 }
 
-// One step's gates, as rglru_scan.cu computes them: sigmoid(a_gate), log2
-// a, a^2, m and sigmoid(i_gate).
-struct Gates {
-  float sa, log_a2, e2, mult, si;
-};
-
-__device__ __forceinline__ Gates gates(float av, float iv, float neg_c_lam) {
-  Gates q;
-  q.sa = sigmoid(av);
-  q.log_a2 = neg_c_lam * q.sa * LOG2E;
-  q.e2 = ex2_approx(2.f * q.log_a2);
-  q.mult = sqrt_approx(fmaxf(1.f - q.e2, 1e-12f));
-  q.si = sigmoid(iv);
-  return q;
+template <typename T>
+__device__ __forceinline__ T* el(char* tile, int g, int s, int c) {
+  return at_seg<T, CH, SEG, TPAD>(tile, g, s, c);
 }
 
-// One chunk of one lane: segment g of channel c, `live` valid steps (all
-// SEG unless MASKED), from the forward's state `carry` entering the chunk
-// (lane g == 0) and the later chunk's q carry `qc` (lane g == LANES-1).
-// Writes dx, da_gate, di_gate into the x, a_gate, i_gate places in the
-// tile, adds the segment's sum of dlog a * s(a_gate) to `lam`, and returns
-// the earlier chunk's q carry (to every lane).
-template <typename T, bool MASKED>
-__device__ __forceinline__ float bwd_chunk(char* st, float neg_c_lam,
-                                           float carry, float qc, int g,
-                                           int c, int ch, int live,
+// One chunk of one lane: segment g of channel c, with `live` of its steps
+// before T; qc is the later chunk's q carry (lane g == LANES-1).  Writes
+// dx, da_gate, di_gate into the x, a_gate, i_gate places in the tile, adds
+// the segment's sum of dlog a * s(a_gate) to `lam`, and returns the
+// earlier chunk's q carry (to every lane).
+template <typename T>
+__device__ __forceinline__ float bwd_chunk(char* st, float neg_c_lam, float qc,
+                                           int g, int c, int ch, int live,
                                            float& lam) {
   using Ly = Layout<T>;
   char* xs = st;
   char* as = st + Ly::X;
   char* is = st + 2 * Ly::X;
   char* dhs = st + 3 * Ly::X;
-  const int src = ((g + LANES - 1) % LANES) * CPW + ch;   // lane g-1
-  // 1. gates and the forward's composition of the segment ...
-  float a[SEG], h[SEG];
-  float P = 1.f, hc = 0.f;
+  const float carry = g == 0 ? reinterpret_cast<const float*>(st + 4 * Ly::X)[c] : 0.f;
+  // 1. the gates, kept, and the segment composed both ways.
+  float xv[SEG], dh[SEG], a[SEG], h[SEG], sa[SEG], si[SEG], m[SEG], e2[SEG];
+  float P = 1.f, hc = 0.f, Q = 0.f;
 #pragma unroll
   for (int s = 0; s < SEG; ++s) {
-    const float xv = to_f32(*at_seg<T, CH, SEG>(xs, g, s, c));
-    const Gates q = gates(to_f32(*at_seg<T, CH, SEG>(as, g, s, c)),
-                          to_f32(*at_seg<T, CH, SEG>(is, g, s, c)), neg_c_lam);
-    const bool ok = !MASKED || s < live;
-    a[s] = ok ? ex2_approx(q.log_a2) : 1.f;
-    h[s] = ok ? q.mult * (q.si * xv) : 0.f;         // the input, for now
+    const bool ok = s < live;
+    xv[s] = ok ? to_f32(*el<T>(xs, g, s, c)) : 0.f;
+    dh[s] = ok ? to_f32(*el<T>(dhs, g, s, c)) : 0.f;
+    sa[s] = sigmoid(to_f32(*el<T>(as, g, s, c)));
+    si[s] = sigmoid(to_f32(*el<T>(is, g, s, c)));
+    const float log_a2 = neg_c_lam * sa[s] * LOG2E;
+    a[s] = ok ? ex2_approx(log_a2) : 1.f;
+    e2[s] = ex2_approx(2.f * log_a2);
+    m[s] = sqrt_approx(fmaxf(1.f - e2[s], 1e-12f));
+    h[s] = m[s] * (si[s] * xv[s]);                  // the input, for now
     hc = fmaf(a[s], hc, h[s]);
     P *= a[s];
+    Q = fmaf(P, dh[s], Q);
   }
-  const float Pseg = P;
-  // ... the lanes' scan, the saved state folded into the first ...
+  // 2. the lanes' scans: forwards with the saved state folded into the
+  // first, backwards with the later chunk's q folded into the last.
+  float Pf = P;
   if (g == 0) hc = fmaf(P, carry, hc);
 #pragma unroll
   for (int off = 1; off < LANES; off *= 2) {
     const float hp = __shfl_up_sync(FULL, hc, off * CPW);
-    const float Pp = __shfl_up_sync(FULL, P, off * CPW);
-    if (g >= off) {
-      hc = fmaf(P, hp, hc);
-      P *= Pp;
+    if (2 * off < LANES) {
+      const float Pp = __shfl_up_sync(FULL, Pf, off * CPW);
+      if (g >= off) {
+        hc = fmaf(Pf, hp, hc);
+        Pf *= Pp;
+      }
+    } else if (g >= off) {
+      hc = fmaf(Pf, hp, hc);
     }
   }
-  const float nxt = __shfl_sync(FULL, hc, src);
-  const float hstart = g == 0 ? carry : nxt;        // h before the segment
-  // ... and the re-walk, keeping each h_t.
+  const float prev = __shfl_up_sync(FULL, hc, CPW);
+  const float hstart = g == 0 ? carry : prev;       // h before the segment
+  float Pr = P;
+  if (g == LANES - 1) Q = fmaf(P, qc, Q);
+#pragma unroll
+  for (int off = 1; off < LANES; off *= 2) {
+    const float Qn = __shfl_down_sync(FULL, Q, off * CPW);
+    if (2 * off < LANES) {
+      const float Pn = __shfl_down_sync(FULL, Pr, off * CPW);
+      if (g + off < LANES) {
+        Q = fmaf(Pr, Qn, Q);
+        Pr *= Pn;
+      }
+    } else if (g + off < LANES) {
+      Q = fmaf(Pr, Qn, Q);
+    }
+  }
+  const float later = __shfl_down_sync(FULL, Q, CPW);
+  const float first = __shfl_sync(FULL, Q, ch);     // lane g == 0's
+  float q = g == LANES - 1 ? qc : later;
+  // 3. the states re-walked, then the walk backwards.
   hc = hstart;
 #pragma unroll
   for (int s = 0; s < SEG; ++s) {
     hc = fmaf(a[s], hc, h[s]);
     h[s] = hc;
   }
-  // 2. compose the segment backwards: q_t = a_t (dh_t + q_{t+1}), then the
-  // reverse scan over the lanes, the later chunk's q folded into the last.
-  float Q = 0.f;
 #pragma unroll
   for (int s = SEG - 1; s >= 0; --s) {
-    const bool ok = !MASKED || s < live;
-    const float dhv = ok ? to_f32(*at_seg<T, CH, SEG>(dhs, g, s, c)) : 0.f;
-    Q = a[s] * (dhv + Q);
-  }
-  float Pr = Pseg;
-  if (g == LANES - 1) Q = fmaf(Pr, qc, Q);
-#pragma unroll
-  for (int off = 1; off < LANES; off *= 2) {
-    const float Qn = __shfl_down_sync(FULL, Q, off * CPW);
-    const float Pn = __shfl_down_sync(FULL, Pr, off * CPW);
-    if (g + off < LANES) {
-      Q = fmaf(Pr, Qn, Q);
-      Pr *= Pn;
-    }
-  }
-  const float later = __shfl_down_sync(FULL, Q, CPW);
-  const float first = __shfl_sync(FULL, Q, ch);     // lane g == 0's
-  float q = g == LANES - 1 ? qc : later;
-  // 3. walk the segment backwards.
-#pragma unroll
-  for (int s = SEG - 1; s >= 0; --s) {
-    if (MASKED && s >= live) continue;              // identity: q passes
-    T* px = at_seg<T, CH, SEG>(xs, g, s, c);
-    T* pa = at_seg<T, CH, SEG>(as, g, s, c);
-    T* pi = at_seg<T, CH, SEG>(is, g, s, c);
-    const float xv = to_f32(*px);
-    const Gates gv = gates(to_f32(*pa), to_f32(*pi), neg_c_lam);
-    const float gt = to_f32(*at_seg<T, CH, SEG>(dhs, g, s, c)) + q;
+    const float gt = dh[s] + q;
     const float hprev = s > 0 ? h[s - 1] : hstart;
-    const float gm = gt * gv.mult;
-    const float dmult = 1.f - gv.e2 > 1e-12f ? -gv.e2 / gv.mult : 0.f;
-    const float dla = gt * fmaf(hprev, a[s], dmult * gv.si * xv);
-    lam = fmaf(dla, gv.sa, lam);
-    from_f32(px, gm * gv.si);
-    from_f32(pi, gm * xv * gv.si * (1.f - gv.si));
-    from_f32(pa, dla * neg_c_lam * gv.sa * (1.f - gv.sa));
+    const float gm = gt * m[s];
+    const float dmult = 1.f - e2[s] > 1e-12f ? -e2[s] * rcp_approx(m[s]) : 0.f;
+    const float dla = gt * fmaf(hprev, a[s], dmult * si[s] * xv[s]);
+    if (s < live) lam = fmaf(dla, sa[s], lam);
+    from_f32(el<T>(xs, g, s, c), gm * si[s]);
+    from_f32(el<T>(is, g, s, c), gm * xv[s] * si[s] * (1.f - si[s]));
+    from_f32(el<T>(as, g, s, c), dla * neg_c_lam * sa[s] * (1.f - sa[s]));
     q = a[s] * gt;
   }
   return first;
@@ -223,11 +226,10 @@ __global__ void __launch_bounds__(THREADS, 2) rglru_scan_bwd_kernel(
   const int l = c0 + c;
   const bool active = l < L;
 
-  float neg_c_lam = 0.f, dsoft = 0.f, qc = 0.f;     // qc: lane g == LANES-1
+  float neg_c_lam = 0.f, qc = 0.f;                  // qc: lane g == LANES-1
   if (active) {
     const float v = log_lam[l];
     neg_c_lam = -cc * (v > 20.f ? v : log1pf(expf(v)));   // softplus
-    dsoft = 1.f / (1.f + expf(-v));                  // its derivative
     if (dhT != nullptr && g == LANES - 1) qc = dhT[(long)b * L + l];
   }
 
@@ -243,10 +245,13 @@ __global__ void __launch_bounds__(THREADS, 2) rglru_scan_bwd_kernel(
       char* st = smem + (j % STAGES) * Ly::STAGE;
       const int nt = min(TC, Tn - k * TC);
       const long off = ((long)b * Tn + (long)k * TC) * L + c0;
-      load_tile<T, CH, SEG, THREADS>(st, x + off, L, nt, ncols, vec);
-      load_tile<T, CH, SEG, THREADS>(st + Ly::X, ag + off, L, nt, ncols, vec);
-      load_tile<T, CH, SEG, THREADS>(st + 2 * Ly::X, ig + off, L, nt, ncols, vec);
-      load_tile<T, CH, SEG, THREADS>(st + 3 * Ly::X, dh + off, L, nt, ncols, vec);
+      load_tile<T, CH, SEG, THREADS, TPAD>(st, x + off, L, nt, ncols, vec);
+      load_tile<T, CH, SEG, THREADS, TPAD>(st + Ly::X, ag + off, L, nt, ncols, vec);
+      load_tile<T, CH, SEG, THREADS, TPAD>(st + 2 * Ly::X, ig + off, L, nt, ncols, vec);
+      load_tile<T, CH, SEG, THREADS, TPAD>(st + 3 * Ly::X, dh + off, L, nt, ncols, vec);
+      if (threadIdx.x < ncols)
+        cp_async_4(st + 4 * Ly::X + 4 * threadIdx.x,
+                   carries + ((long)b * nchunks + k) * L + c0 + threadIdx.x);
     }
     cp_async_commit();                              // empty groups keep count
   };
@@ -255,32 +260,31 @@ __global__ void __launch_bounds__(THREADS, 2) rglru_scan_bwd_kernel(
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) prefetch(j);
   for (int j = 0; j < nchunks; ++j) {
+    cp_async_wait<STAGES - 2>();
+    // The chunk has landed, and the stage the next prefetch fills was
+    // stored by every thread an iteration ago.
+    __syncthreads();
     prefetch(j + STAGES - 1);
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();                                // the chunk has landed
     const int k = nchunks - 1 - j;
     char* st = smem + (j % STAGES) * Ly::STAGE;
     const int nt = min(TC, Tn - k * TC);
-    const float carry =
-        active && g == 0 ? carries[((long)b * nchunks + k) * L + l] : 0.f;
-    const float first =
-        nt == TC
-            ? bwd_chunk<T, false>(st, neg_c_lam, carry, qc, g, c, ch, SEG, lam)
-            : bwd_chunk<T, true>(st, neg_c_lam, carry, qc, g, c, ch,
-                                 nt - g * SEG, lam);
+    const float first = bwd_chunk<T>(st, neg_c_lam, qc, g, c, ch, nt - g * SEG, lam);
     if (g == LANES - 1) qc = first;
     __syncthreads();
     const long off = ((long)b * Tn + (long)k * TC) * L + c0;
-    store_tile<T, CH, SEG, THREADS>(dx + off, st, L, nt, ncols, vec);
-    store_tile<T, CH, SEG, THREADS>(dag + off, st + Ly::X, L, nt, ncols, vec);
-    store_tile<T, CH, SEG, THREADS>(dig + off, st + 2 * Ly::X, L, nt, ncols, vec);
-    __syncthreads();                                // the buffer is free
+    store_tile<T, CH, SEG, THREADS, TPAD>(dx + off, st, L, nt, ncols, vec);
+    store_tile<T, CH, SEG, THREADS, TPAD>(dag + off, st + Ly::X, L, nt, ncols, vec);
+    store_tile<T, CH, SEG, THREADS, TPAD>(dig + off, st + 2 * Ly::X, L, nt, ncols, vec);
   }
-  // dh0 is the first chunk's q carry; dlog_lam's partial over the batch.
+  // dh0 is the first chunk's q carry; dlog_lam's partial over the batch,
+  // the 16 segments' sums added pairwise by the butterfly.
   if (active && g == LANES - 1) dh0[(long)b * L + l] = qc;
-  lam += __shfl_xor_sync(FULL, lam, CPW);
-  lam += __shfl_xor_sync(FULL, lam, 2 * CPW);
-  if (active && g == 0) part[(long)b * L + l] = lam * -cc * dsoft;
+#pragma unroll
+  for (int off = CPW; off < 32; off *= 2) lam += __shfl_xor_sync(FULL, lam, off);
+  if (active && g == 0) {
+    const float v = log_lam[l];
+    part[(long)b * L + l] = lam * -cc * (1.f / (1.f + expf(-v)));
+  }
 }
 
 template <typename T>

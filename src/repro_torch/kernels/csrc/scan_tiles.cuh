@@ -1,15 +1,15 @@
 // Time tiles in shared memory for the chunked scans (ssm_scan.cu,
-// rglru_scan.cu): cp.async copies of a chunk's rows, and the coalesced
-// write-back of an output tile.
+// rglru_scan.cu and their backward kernels): cp.async copies of a chunk's
+// rows, and the coalesced write-back of an output tile.
 //
 // A tile holds `rows` time steps of TW contiguous elements (channels, or
-// states), row-major, with PAD bytes after every SEG rows.  A lane that walks
-// a segment of SEG consecutive steps reads rows g*SEG + s; without the pad,
-// the lanes of segments g = 0, 1, ... would hit the same banks, and with it
-// segment g starts PAD bytes (8 banks) further on, so the 4 segments of a
-// warp, each 8 lanes on 8 neighbouring f32 columns, read 32 distinct banks.
-// PAD is a multiple of 16 bytes, so each row stays 16-byte aligned for
-// cp.async.
+// states), row-major, with PADB bytes after every SEG rows (PAD = 32 unless
+// a kernel picks another).  A lane that walks a segment of SEG consecutive
+// steps reads rows g*SEG + s; without the pad, the lanes of segments g = 0,
+// 1, ... would hit the same banks, and with it segment g starts PADB bytes
+// further on: with PAD, the 4 segments of a warp, each 8 lanes on 8
+// neighbouring f32 columns, read 32 distinct banks.  PADB is a multiple of
+// 16 bytes, so each row stays 16-byte aligned for cp.async.
 
 #pragma once
 
@@ -32,32 +32,39 @@ template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
 }
 
 // Bytes of a tile of ROWS rows of TW elements of E, pads included.
-template <typename E, int TW, int ROWS, int SEG>
-constexpr int tile_bytes() { return ROWS * TW * (int)sizeof(E) + (ROWS / SEG) * PAD; }
+template <typename E, int TW, int ROWS, int SEG, int PADB = PAD>
+constexpr int tile_bytes() { return ROWS * TW * (int)sizeof(E) + (ROWS / SEG) * PADB; }
 
 // Byte offset of row r.
-template <typename E, int TW, int SEG>
+template <typename E, int TW, int SEG, int PADB = PAD>
 __device__ __forceinline__ int row_off(int r) {
-  return r * TW * (int)sizeof(E) + (int)((unsigned)r / SEG) * PAD;
+  return r * TW * (int)sizeof(E) + (int)((unsigned)r / SEG) * PADB;
 }
 
-template <typename E, int TW, int SEG>
+template <typename E, int TW, int SEG, int PADB = PAD>
 __device__ __forceinline__ E* at(char* tile, int r, int col) {
-  return reinterpret_cast<E*>(tile + row_off<E, TW, SEG>(r)) + col;
+  return reinterpret_cast<E*>(tile + row_off<E, TW, SEG, PADB>(r)) + col;
 }
 
 // Element `col` of row g*SEG + s, for s < SEG: rows of one segment are
 // contiguous, so with s known at compile time the address is the segment's
 // base plus an immediate.
-template <typename E, int TW, int SEG>
+template <typename E, int TW, int SEG, int PADB = PAD>
 __device__ __forceinline__ E* at_seg(char* tile, int g, int s, int col) {
   constexpr int ROW = TW * (int)sizeof(E);
-  return reinterpret_cast<E*>(tile + g * (SEG * ROW + PAD) + s * ROW) + col;
+  return reinterpret_cast<E*>(tile + g * (SEG * ROW + PADB) + s * ROW) + col;
 }
 
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+// 4 bytes (cp.async.ca: .cg copies only 16).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                :: "r"(s), "l"(src) : "memory");
 }
 
@@ -78,29 +85,30 @@ __device__ __forceinline__ void cp_async_wait() {
 // plain loads and stores, element by element, that write zeros past ncols.
 // Rows past nt and, on the cp.async route, columns past ncols are left as
 // they were.
-template <typename E, int TW, int SEG, int NT>
+template <typename E, int TW, int SEG, int NT, int PADB = PAD>
 __device__ __forceinline__ void load_tile(char* tile, const E* __restrict__ src,
                                           long ld, int nt, int ncols, bool vec) {
+  static_assert(PADB % 16 == 0, "rows stay 16-byte aligned");
   constexpr int PIECES = TW * (int)sizeof(E) / 16;  // of a whole row
   if (vec && (ncols * (int)sizeof(E)) % 16 == 0) {
     const int pieces = ncols * (int)sizeof(E) / 16;
     for (int k = threadIdx.x; k < nt * PIECES; k += NT) {
       const int r = (unsigned)k / PIECES, p = (unsigned)k % PIECES;
       if (p < pieces)
-        cp_async_16(tile + row_off<E, TW, SEG>(r) + 16 * p,
+        cp_async_16(tile + row_off<E, TW, SEG, PADB>(r) + 16 * p,
                     reinterpret_cast<const char*>(src + r * ld) + 16 * p);
     }
   } else {
     for (int k = threadIdx.x; k < nt * TW; k += NT) {
       const int r = (unsigned)k / TW, c = (unsigned)k % TW;
-      *at<E, TW, SEG>(tile, r, c) = c < ncols ? src[r * ld + c] : zero<E>();
+      *at<E, TW, SEG, PADB>(tile, r, c) = c < ncols ? src[r * ld + c] : zero<E>();
     }
   }
 }
 
 // Rows [0, nt) and columns [0, ncols) of `tile` to the matrix at `dst` (row
 // stride ld elements), 16 bytes a thread where `vec` allows, by NT threads.
-template <typename E, int TW, int SEG, int NT>
+template <typename E, int TW, int SEG, int NT, int PADB = PAD>
 __device__ __forceinline__ void store_tile(E* __restrict__ dst, const char* tile,
                                            long ld, int nt, int ncols, bool vec) {
   constexpr int PIECES = TW * (int)sizeof(E) / 16;
@@ -110,12 +118,13 @@ __device__ __forceinline__ void store_tile(E* __restrict__ dst, const char* tile
       const int r = (unsigned)k / PIECES, p = (unsigned)k % PIECES;
       if (p < pieces)
         *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dst + r * ld) + 16 * p) =
-            *reinterpret_cast<const uint4*>(tile + row_off<E, TW, SEG>(r) + 16 * p);
+            *reinterpret_cast<const uint4*>(tile + row_off<E, TW, SEG, PADB>(r) + 16 * p);
     }
   } else {
     for (int k = threadIdx.x; k < nt * TW; k += NT) {
       const int r = (unsigned)k / TW, c = (unsigned)k % TW;
-      if (c < ncols) dst[r * ld + c] = *at<E, TW, SEG>(const_cast<char*>(tile), r, c);
+      if (c < ncols)
+        dst[r * ld + c] = *at<E, TW, SEG, PADB>(const_cast<char*>(tile), r, c);
     }
   }
 }

@@ -12,51 +12,64 @@
 // linear recurrence run backwards with the a's shifted by one step, and
 //
 //   dC_t   = sum_i dy_t h_t                 dB_t = sum_i g_t dt_t x_t
-//   ddt_t  = sum_n g_t (h_{t-1} a_t A + B_t x_t)
-//   dx_t   = sum_n g_t dt_t B_t + D dy_t    dD   = sum_{b,t} dy_t x_t
+//   ddt_t  = sum_n g_t h_{t-1} a_t A + x_t sum_n g_t B_t
+//   dx_t   = dt_t sum_n g_t B_t + D dy_t    dD   = sum_{b,t} dy_t x_t
 //   dA     = sum_{b,t} g_t h_{t-1} a_t dt_t dh0  = a_0 g_0.
 //
-// Design: ssm_scan.cu's chunked structure, reversed.  A block of 8 warps
-// owns CH = 64 channels of one batch row and walks T in chunks of TC = 64
-// steps from the last chunk to the first; each chunk's x, dt and dy tiles
-// and B, C rows reach shared memory through the same ring of STAGES = 2
-// cp.async buffers, filled in reverse order.  LANES = 4 lanes share a
-// channel, each over a segment of SEG = 16 steps.  For each state n a lane
-//   1. rebuilds its segment's states from the state the forward saved at
-//      the chunk's start (`carries`, written by ssm_scan.cu when asked):
-//      the forward's own composition, shuffle scan and re-walk, with the
-//      forward's ex2(dt*A*log2(e)), so it sees the forward's a_t and h_t.
-//      The states stay in registers (a chunk's states at 64 channels x 16
-//      states are 256 KB, more than shared memory holds);
-//   2. composes its segment backwards into a pair (prod a, q), where q_t =
-//      a_t g_t is what step t passes to t-1, and takes a reverse shuffle
-//      scan of the pairs across the 4 lanes, the later chunk's q folded
-//      into the last lane; the first lane's result is the earlier chunk's
-//      carry, and after the first chunk it is dh0;
-//   3. walks its segment backwards, forming g_t and every term above.
-// ddt and dx are summed over n in registers and leave through the x and dt
-// tiles as coalesced stores.  dB and dC are sums over channels: each warp
-// sums its 8 channels with a reduce-scatter of shuffles (each lane ends
-// with 2 of the 16 steps), the 8 warps' sums meet in shared memory in a
-// fixed order, and each block writes f32 partials (nblk, Bt, T, N); a
-// second pass adds the partials of the ceil(I/64) blocks in block order.
-// dA and dD are summed over time in each block (dA in shared memory by one
-// lane per (channel, state)), giving partials over the batch that the
-// second pass adds in batch order.  There are no atomics: two runs give
-// the same bits.
+// Design.  A block of 16 warps owns CH = 64 channels of one batch row and
+// walks T in the forward's chunks of TC = 64 steps, from the last chunk to
+// the first; each chunk's x, dt and dy tiles, its B and C rows and the
+// forward's states entering it (`carries`, written by ssm_scan.cu when
+// asked) reach shared memory through a ring of STAGES = 2 cp.async
+// buffers, filled in reverse order.  LANES = 8 lanes share a channel, each
+// over a segment of SEG = 8 steps, and a warp holds CPW = 4 channels (lane
+// = segment * CPW + channel).  A lane reads its 8 steps of dt, dt*x and dy
+// from shared memory once a chunk and keeps them, and its sums over the
+// states of g*B and g*a*h*A, in registers.  It then takes the states in
+// pairs (GROUP = 2; an odd N's last pair has a state of zeros): one 16-byte
+// load of a step's row gives B and C of both states, laid out as (B_n,
+// B_n+1, C_n, C_n+1) by the copy into shared memory, each segment's rows
+// 16 bytes further on so that the 8 segments' loads fall on distinct banks.
+// For a pair a lane
+//   1. forms its steps' a_t and dt*B*x, composes them forwards into (prod
+//      a, h), and in the same pass composes the backward recurrence as
+//      Q = sum_t (a_1...a_t) C_t dy_t, the q its segment passes to the one
+//      before (q_t = a_t g_t);
+//   2. scans the (prod a, h) pairs forwards across its 8 lanes with the
+//      chunk's saved state folded into the first, and the (prod a, Q)
+//      pairs backwards with the later chunk's q folded into the last: 13
+//      shuffles a state, and the first lane's Q is the earlier chunk's q
+//      (dh0 after the first chunk);
+//   3. re-walks its segment's states and walks it backwards, forming g_t
+//      and every term above.
+// dB and dC are sums over channels: a reduce-scatter of shuffles over the
+// warp's 4 channels (24 shuffles a pair for 32 values, 0.75 a value), two
+// 16-byte stores a lane into shared memory, one barrier a pair, and 256
+// threads add the 16 warps' sums in warp order into the chunk's block sums,
+// which leave as f32 partials (2, ceil(I/64), Bt, T, N); a second pass adds
+// them in a fixed order (scan_sums.cuh).  dA is summed per lane over time
+// in shared memory and over the 8 segments in order at the end; dD over
+// time in registers and over the 8 segments by shuffles.  Steps past T read
+// zero dt, dt*x and dy, which makes them the identity (a = ex2(0) = 1, no
+// input, no C*dy) with no mask inside the state loop.  There are no atomics:
+// two runs give the same bits.
 //
 // What bounds it.  At the falcon-mamba-7b training shape (Bt=4, T=1024,
 // I=8192, N=16) the Bt*T*I*N = 537M exponentials take about 0.13 ms on the
 // special-function units, and the bytes (x, dt, dy, the carries and B, C
-// read; dx, ddt written; about 0.5 GB) about 0.15 ms at 3.35 TB/s.  As in
-// the forward, the instructions around each exponential (here about 25 per
-// (t, n): the rebuild, the backward composition, the walk's terms and the
-// shuffles of the dB and dC sums) bind first.  8 warps held to 128
-// registers (no spills, python -m repro_torch.kernels._build) and 111,872 B
-// of shared memory (bf16, N <= 16) leave two blocks per SM; unbounded, the
-// kernel took 183 registers, one block per SM, and 1.72 ms at that shape
-// (chip_smoke.py phase 6, H100 80GB HBM3, 700 W; PERF.md has the time with
-// two).
+// read; dx, ddt written; about 0.5 GB) about 0.15 ms at 3.35 TB/s.  The
+// earlier kernel (16-step segments, one state a pass) was held by the
+// shared-memory and shuffle pipe: it re-read dt, x and dy for each state
+// (11.7 shared-memory loads a (step, state)) and summed dB and dC with 1.75
+// shuffles a value.  This one issues per (step, state) 1.75 shared-memory
+// loads, 3.1 shuffles and 23 f32 instructions, 33 in all against 52-61
+// (SASS, tools/ablate_scan_bwd.py).  What holds it on the card (PERF.md has
+// the times, on an H100 80GB HBM3 at 700 W): the dB/dC channel sums and
+// the lane scans, whose shuffles come in bursts that the barrier of each
+// pair lines up, and the bytes with the dB/dC partials, which alone take a
+// quarter of its time.  One block of 16 warps per SM in 128 registers
+// (python -m repro_torch.kernels._build): against two blocks of 8 warps
+// and 32 channels it halves the partials and measured faster.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,16 +83,20 @@ namespace {
 using namespace scan_sums;
 using namespace scan_tiles;
 
-// Tile constants, as in ssm_scan.cu and mirrored in ssm_scan.py (SEGMENT,
-// LANES, CHANNELS, CHUNK, STAGES) for the CPU tests.
-constexpr int SEG = 16;                 // steps a lane composes
-constexpr int LANES = 4;                // lanes that scan one channel
+// Tile constants, mirrored in ssm_scan.py (BWD_SEGMENT, BWD_LANES,
+// BWD_CHANNELS, BWD_STAGES, BWD_GROUP) for the CPU tests; TC is the
+// forward's CHUNK.
+constexpr int SEG = 8;                  // steps a lane composes
+constexpr int LANES = 8;                // lanes that scan one channel
 constexpr int CPW = 32 / LANES;         // channels per warp
-constexpr int WARPS = 8;
+constexpr int WARPS = 16;
 constexpr int THREADS = WARPS * 32;
 constexpr int CH = WARPS * CPW;         // channels per block
 constexpr int TC = LANES * SEG;         // steps per chunk
 constexpr int STAGES = 2;
+constexpr int GROUP = 2;                // states a pass of the state loop
+constexpr int BCPAD = 16;               // bytes after each segment's B, C rows
+constexpr int RED_HALF = WARPS * 2 * TC * GROUP;  // floats of one red buffer
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -88,211 +105,284 @@ template <typename T, int NMAX>
 struct Layout {
   static constexpr int X = tile_bytes<T, CH, TC, SEG>();        // x, dy
   static constexpr int F = tile_bytes<float, CH, TC, SEG>();    // dt
-  static constexpr int S = tile_bytes<float, NMAX, TC, SEG>();  // B, C
-  static constexpr int STAGE = 2 * X + F + 2 * S;
-  static constexpr int STATE = CH * NMAX * 4;  // A*log2(e), q carry, dA sums
-  static constexpr int RED = 2 * 2 * WARPS * TC * 4;  // warps' dB, dC sums, x2
-  static constexpr int OUT = 2 * TC * NMAX * 4;       // the block's dB, dC
-  static constexpr int SMEM = STAGES * STAGE + 3 * STATE + RED + OUT;
+  static constexpr int BCROW = NMAX * 8;                        // B and C
+  static constexpr int BC = TC * BCROW + (TC / SEG) * BCPAD;
+  static constexpr int CR = CH * NMAX * 4;          // the states entering it
+  static constexpr int STAGE = 2 * X + F + BC + CR;
+  static constexpr int STATE = CH * NMAX * 4;       // A*log2(e), the q carry
+  static constexpr int DA = CH * NMAX * LANES * 4;  // dA sums per segment
+  static constexpr int RED = 2 * RED_HALF * 4;      // warps' dB, dC sums, x2
+  static constexpr int OSTR = NMAX + 1;             // floats a row of OUT
+  static constexpr int OUT = (2 * TC * OSTR * 4 + 15) / 16 * 16;  // block's dB, dC
+  static constexpr int DV = CH * 4;                 // D by channel
+  static constexpr int SMEM = STAGES * STAGE + 2 * STATE + DA + RED + OUT + DV;
 };
 
-// Sums v[s] over the CPW = 8 channels of this lane's segment in its warp, a
-// reduce-scatter of 14 shuffles: on return v[0] and v[1] hold the sums of
-// steps base and base + 1, base = 8*b0 + 4*b1 + 2*b2 for the bits b of the
-// lane's channel.  The order of the additions is fixed.
-__device__ __forceinline__ int reduce_scatter(float (&v)[SEG], int ch) {
-  const bool b0 = ch & 1, b1 = ch & 2, b2 = ch & 4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float keep = b0 ? v[j + 8] : v[j];
-    const float send = b0 ? v[j] : v[j + 8];
-    v[j] = keep + __shfl_xor_sync(FULL, send, 1);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float keep = b1 ? v[j + 4] : v[j];
-    const float send = b1 ? v[j] : v[j + 4];
-    v[j] = keep + __shfl_xor_sync(FULL, send, 2);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const float keep = b2 ? v[j + 2] : v[j];
-    const float send = b2 ? v[j] : v[j + 2];
-    v[j] = keep + __shfl_xor_sync(FULL, send, 4);
-  }
-  return 8 * b0 + 4 * b1 + 2 * b2;
+// Step s of segment g in the B, C tile: (B_n, B_n+1, C_n, C_n+1) of pair p.
+// A row is NMAX * 8 bytes and each segment starts BCPAD bytes further on,
+// so the 8 segments' 16-byte reads fall on distinct banks.
+template <int NMAX>
+__device__ __forceinline__ const float4* bc_at(const char* tile, int g, int s,
+                                               int p) {
+  constexpr int ROW = NMAX * 8;
+  return reinterpret_cast<const float4*>(tile + g * (SEG * ROW + BCPAD) + s * ROW) + p;
 }
 
-// The block's sum of one of dB / dC over its 8 warps, for state n: threads
-// 0..2*TC-1 each add one step's 8 warp sums, in warp order.
-__device__ __forceinline__ void block_sum(const float* red, float* out, int n,
-                                          int nmax) {
-  if (threadIdx.x < 2 * TC) {
-    const int which = threadIdx.x / TC, t = threadIdx.x % TC;
-    const float* r = red + which * WARPS * TC + t;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s += r[w * TC];
-    out[(which * TC + t) * nmax + n] = s;
-  }
-}
-
-// One chunk of one lane: segment g of channel c (in block) in warp w,
-// `live` valid steps (all SEG unless MASKED).  cin: the forward's state
-// entering this chunk for channel c (not read past I); qc, dAs
-// (CH x NMAX): the q carry from the later chunk (read and written by the
-// lane with g == LANES-1) and the running dA sums (lane g == 0).  Writes dx
-// and ddt into x's and dt's places in the tile and the chunk's dB, dC block
-// sums to `out`.
-template <typename T, int NMAX, bool MASKED>
-__device__ __forceinline__ void bwd_chunk(char* st, const float* a2,
-                                          const float* cin, float* qc,
-                                          float* dAs, float* red, float* out,
-                                          int N, int g, int c, int w, int ch,
-                                          int live, bool active, float d,
-                                          float& dD) {
-  using L = Layout<T, NMAX>;
-  char* xs = st;
-  char* dys = st + L::X;
-  char* dts = st + 2 * L::X;
-  char* Bs = dts + L::F;
-  char* Cs = Bs + L::S;
-  const int src = ((g + LANES - 1) % LANES) * CPW + ch;   // lane g-1
-  float ddt[SEG], dxs[SEG];
-#pragma unroll
-  for (int s = 0; s < SEG; ++s) ddt[s] = dxs[s] = 0.f;
-
+// Rows [0, nt) of B and C (row stride N) into the interleaved tile, 4 bytes
+// a copy; states past N and rows past nt are left as they were (zeros).
+template <int NMAX>
+__device__ __forceinline__ void load_bc(char* tile, const float* __restrict__ B,
+                                        const float* __restrict__ C, int N, int nt) {
+  constexpr int ROW = NMAX * 8;
 #pragma unroll 1
-  for (int n = 0; n < N; ++n) {
-    const float an = a2[c * NMAX + n];
-    const float An = an * LN2;                      // A itself
-    float dA[SEG], h[SEG], v[SEG];
-    // 1. the forward's states: compose the segment ...
-    float P = 1.f, hc = 0.f;
-#pragma unroll
-    for (int s = 0; s < SEG; ++s) {
-      const float dtv = *at_seg<float, CH, SEG>(dts, g, s, c);
-      const float dtx = dtv * to_f32(*at_seg<T, CH, SEG>(xs, g, s, c));
-      const float bn = *at_seg<float, NMAX, SEG>(Bs, g, s, n);
-      const bool ok = !MASKED || s < live;
-      dA[s] = ok ? ex2_approx(dtv * an) : 1.f;
-      h[s] = ok ? dtx * bn : 0.f;                   // dt*B*x for now
-      hc = fmaf(dA[s], hc, h[s]);
-      P *= dA[s];
+  for (int k = threadIdx.x; k < TC * NMAX; k += THREADS) {
+    const int r = k / NMAX, n = k % NMAX;
+    if (r < nt && n < N) {
+      float* dst = reinterpret_cast<float*>(tile + (r / SEG) * (SEG * ROW + BCPAD) +
+                                            (r % SEG) * ROW) + (n / 2) * 4 + (n & 1);
+      cp_async_4(dst, B + r * N + n);
+      cp_async_4(dst + 2, C + r * N + n);
     }
-    const float Pseg = P;
-    // ... scan the lanes, the chunk's saved state folded into the first ...
-    const float old = g == 0 && active ? cin[n] : 0.f;
-    if (g == 0) hc = fmaf(P, old, hc);
+  }
+}
+
+// The forward's states entering the chunk for the block's ncols channels
+// (contiguous, N per channel) into cr (NMAX per channel), 4 bytes a copy.
+template <int NMAX>
+__device__ __forceinline__ void load_carries(float* cr, const float* __restrict__ src,
+                                             int N, int ncols) {
+#pragma unroll 1
+  for (int k = threadIdx.x; k < CH * NMAX; k += THREADS) {
+    const int c = k / NMAX, n = k % NMAX;
+    if (c < ncols && n < N) cp_async_4(cr + k, src + c * N + n);
+  }
+}
+
+// The forward scan of the lanes' (P, hc) pairs, hin folded into lane 0, and
+// the reverse scan of their (P, Q) pairs, qin folded into the last lane:
+// the state entering this lane's segment, the q entering its backward walk
+// (from the lane after it; qin for the last lane), and lane 0's composed Q
+// (the earlier chunk's q carry).
+__device__ __forceinline__ void lane_scans(float P, float hc, float Q, float hin,
+                                           float qin, int g, int ch,
+                                           float& hstart, float& q, float& first) {
+  float Pf = P;
+  if (g == 0) hc = fmaf(P, hin, hc);
 #pragma unroll
-    for (int off = 1; off < LANES; off *= 2) {
-      const float hp = __shfl_up_sync(FULL, hc, off * CPW);
-      if (2 * off < LANES) {
-        const float Pp = __shfl_up_sync(FULL, P, off * CPW);
-        if (g >= off) {
-          hc = fmaf(P, hp, hc);
-          P *= Pp;
-        }
-      } else if (g >= off) {
-        hc = fmaf(P, hp, hc);
+  for (int off = 1; off < LANES; off *= 2) {
+    const float hp = __shfl_up_sync(FULL, hc, off * CPW);
+    if (2 * off < LANES) {
+      const float Pp = __shfl_up_sync(FULL, Pf, off * CPW);
+      if (g >= off) {
+        hc = fmaf(Pf, hp, hc);
+        Pf *= Pp;
       }
+    } else if (g >= off) {
+      hc = fmaf(Pf, hp, hc);
     }
-    const float prev = __shfl_sync(FULL, hc, src);
-    const float hstart = g == 0 ? old : prev;       // h before the segment
-    // ... and re-walk it, keeping each h_t.
-    hc = hstart;
+  }
+  const float prev = __shfl_up_sync(FULL, hc, CPW);
+  hstart = g == 0 ? hin : prev;
+  float Pr = P;
+  if (g == LANES - 1) Q = fmaf(P, qin, Q);
 #pragma unroll
-    for (int s = 0; s < SEG; ++s) {
-      hc = fmaf(dA[s], hc, h[s]);
-      h[s] = hc;
-    }
-
-    // dC_t = sum_i dy_t h_t: this warp's 8 channels, then the block's.
-#pragma unroll
-    for (int s = 0; s < SEG; ++s)
-      v[s] = active ? to_f32(*at_seg<T, CH, SEG>(dys, g, s, c)) * h[s] : 0.f;
-    float* rb = red + (n & 1) * 2 * WARPS * TC;     // this state's buffer
-    int base = reduce_scatter(v, ch);
-    rb[WARPS * TC + w * TC + g * SEG + base] = v[0];    // the dC half
-    rb[WARPS * TC + w * TC + g * SEG + base + 1] = v[1];
-
-    // 2. compose the segment backwards: q_t = a_t (C_t dy_t + q_{t+1}).
-    float Q = 0.f;
-#pragma unroll
-    for (int s = SEG - 1; s >= 0; --s) {
-      const bool ok = !MASKED || s < live;
-      const float cd = ok ? *at_seg<float, NMAX, SEG>(Cs, g, s, n) *
-                                to_f32(*at_seg<T, CH, SEG>(dys, g, s, c))
-                          : 0.f;
-      Q = dA[s] * (cd + Q);
-    }
-    // Reverse scan over the lanes, the later chunk's q folded into the last.
-    float Pr = Pseg;
-    const float qin = g == LANES - 1 ? qc[c * NMAX + n] : 0.f;
-    if (g == LANES - 1) Q = fmaf(Pr, qin, Q);
-#pragma unroll
-    for (int off = 1; off < LANES; off *= 2) {
-      const float Qn = __shfl_down_sync(FULL, Q, off * CPW);
+  for (int off = 1; off < LANES; off *= 2) {
+    const float Qn = __shfl_down_sync(FULL, Q, off * CPW);
+    if (2 * off < LANES) {
       const float Pn = __shfl_down_sync(FULL, Pr, off * CPW);
       if (g + off < LANES) {
         Q = fmaf(Pr, Qn, Q);
         Pr *= Pn;
       }
+    } else if (g + off < LANES) {
+      Q = fmaf(Pr, Qn, Q);
     }
-    // Lane g starts from lane g+1's q, the last lane from the carry; the
-    // first lane's q is the earlier chunk's carry.
-    const float later = __shfl_down_sync(FULL, Q, CPW);
-    const float first = __shfl_sync(FULL, Q, ch);       // lane g == 0's
-    float q = g == LANES - 1 ? qin : later;
-    if (g == LANES - 1) qc[c * NMAX + n] = first;
-
-    // 3. walk the segment backwards.
-    float dAn = 0.f;
-#pragma unroll
-    for (int s = SEG - 1; s >= 0; --s) {
-      const bool ok = !MASKED || s < live;
-      const float dtv = *at_seg<float, CH, SEG>(dts, g, s, c);
-      const float xv = to_f32(*at_seg<T, CH, SEG>(xs, g, s, c));
-      const float dyv = to_f32(*at_seg<T, CH, SEG>(dys, g, s, c));
-      const float bn = *at_seg<float, NMAX, SEG>(Bs, g, s, n);
-      const float cn = *at_seg<float, NMAX, SEG>(Cs, g, s, n);
-      const float gt = ok ? fmaf(cn, dyv, q) : q;
-      const float ah = dA[s] * (s > 0 ? h[s - 1] : hstart);   // a_t h_{t-1}
-      ddt[s] = fmaf(gt, fmaf(ah, An, bn * xv), ddt[s]);
-      dxs[s] = fmaf(gt, bn, dxs[s]);
-      if (ok) dAn = fmaf(gt * ah, dtv, dAn);
-      v[s] = active ? gt * dtv * xv : 0.f;
-      q = dA[s] * gt;
-    }
-    base = reduce_scatter(v, ch);
-    rb[w * TC + g * SEG + base] = v[0];                 // the dB half
-    rb[w * TC + g * SEG + base + 1] = v[1];
-    // dA over the channel's 4 lanes, then over the chunks in shared memory.
-    dAn += __shfl_xor_sync(FULL, dAn, CPW);
-    dAn += __shfl_xor_sync(FULL, dAn, 2 * CPW);
-    if (g == 0) dAs[c * NMAX + n] += dAn;
-    __syncthreads();                    // this state's warp sums are written
-    block_sum(rb, out, n, NMAX);
   }
-  // dx = dt * sum_n g B + D dy and ddt into x's and dt's places; dD.
+  const float later = __shfl_down_sync(FULL, Q, CPW);
+  q = g == LANES - 1 ? qin : later;
+  first = __shfl_sync(FULL, Q, ch);                 // lane g == 0's
+}
+
+// This lane's dB values vb and dC values vc (GROUP states x SEG steps)
+// summed over the warp's CPW = 4 channels by a reduce-scatter of shuffles:
+// xor 1 halves the steps, xor 2 halves them again, so each lane ends with 2
+// steps of both states, each the sum ((c0 + c1) + (c2 + c3)) over the
+// warp's channels c0..c3.  They go to the warp's rows of `red`, laid out
+// (warp, dB/dC, step, state), as two 16-byte stores.
+__device__ __forceinline__ void channel_sums(float (&vb)[GROUP][SEG],
+                                             float (&vc)[GROUP][SEG], int ch,
+                                             float* red, int w, int g) {
+  const bool b0 = ch & 1, b1 = ch & 2;
+#pragma unroll
+  for (int j = 0; j < GROUP; ++j) {
+#pragma unroll
+    for (int s = 0; s < SEG / 2; ++s) {
+      float keep = b0 ? vb[j][s + SEG / 2] : vb[j][s];
+      float send = b0 ? vb[j][s] : vb[j][s + SEG / 2];
+      vb[j][s] = keep + __shfl_xor_sync(FULL, send, 1);
+      keep = b0 ? vc[j][s + SEG / 2] : vc[j][s];
+      send = b0 ? vc[j][s] : vc[j][s + SEG / 2];
+      vc[j][s] = keep + __shfl_xor_sync(FULL, send, 1);
+    }
+#pragma unroll
+    for (int s = 0; s < SEG / 4; ++s) {
+      float keep = b1 ? vb[j][s + SEG / 4] : vb[j][s];
+      float send = b1 ? vb[j][s] : vb[j][s + SEG / 4];
+      vb[j][s] = keep + __shfl_xor_sync(FULL, send, 2);
+      keep = b1 ? vc[j][s + SEG / 4] : vc[j][s];
+      send = b1 ? vc[j][s] : vc[j][s + SEG / 4];
+      vc[j][s] = keep + __shfl_xor_sync(FULL, send, 2);
+    }
+  }
+  const int base = (b0 ? SEG / 2 : 0) + (b1 ? SEG / 4 : 0);
+  float* r = red + (w * 2 * TC + g * SEG + base) * GROUP;
+  *reinterpret_cast<float4*>(r) = make_float4(vb[0][0], vb[1][0], vb[0][1], vb[1][1]);
+  *reinterpret_cast<float4*>(r + TC * GROUP) =
+      make_float4(vc[0][0], vc[1][0], vc[0][1], vc[1][1]);
+}
+
+// The block's dB and dC of states n0, n0+1 over its warps, in warp order:
+// each of the first 2*TC*GROUP threads adds one (dB/dC, step, state)'s warp
+// sums into `out`, whose rows (dB/dC, step) are OSTR = NMAX + 1 floats
+// apart so that the 32 threads of a warp store to distinct banks.
+__device__ __forceinline__ void block_sum(const float* red, float* out, int n0,
+                                          int ostr) {
+  constexpr int OUTS = 2 * TC * GROUP;
+  static_assert(OUTS <= THREADS, "one thread an output");
+  if (threadIdx.x < OUTS) {
+    const float* r = red + threadIdx.x;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s += r[w * OUTS];
+    out[(threadIdx.x / GROUP) * ostr + n0 + threadIdx.x % GROUP] = s;
+  }
+}
+
+// One chunk of one lane: segment g of channel c (in block) in warp w, with
+// `live` of its steps before T.  a2s, qc (CH x NMAX): A*log2(e) and the q
+// carry from the later chunk (read and written by the lane with g ==
+// LANES-1); dAs: the running dA sums, (pair, channel, segment) of float2;
+// ds: D by channel (read after the state loop, so that it holds no register
+// across it).  Writes dx and ddt into x's and dt's places in the tile and
+// the chunk's dB, dC block sums to `out`.
+template <typename T, int NMAX>
+__device__ __forceinline__ void bwd_chunk(char* st, const float* a2s, float* qc,
+                                          float* dAs, float* red, float* out,
+                                          const float* ds, int N, int g, int c,
+                                          int w, int ch, int live, float& dD) {
+  using L = Layout<T, NMAX>;
+  char* xs = st;
+  char* dys = st + L::X;
+  char* dts = st + 2 * L::X;
+  const char* bcs = dts + L::F;
+  const float* cr = reinterpret_cast<const float*>(bcs + L::BC);
+  // The lane's operands for the whole state loop, zero past T.
+  float dt[SEG], dtx[SEG], dy[SEG], gb[SEG], gaha[SEG];
 #pragma unroll
   for (int s = 0; s < SEG; ++s) {
-    if (!MASKED || s < live) {
+    const bool ok = s < live;
+    const float dtv = *at_seg<float, CH, SEG>(dts, g, s, c);
+    const float xv = to_f32(*at_seg<T, CH, SEG>(xs, g, s, c));
+    dt[s] = ok ? dtv : 0.f;
+    dtx[s] = ok ? dtv * xv : 0.f;
+    dy[s] = ok ? to_f32(*at_seg<T, CH, SEG>(dys, g, s, c)) : 0.f;
+    gb[s] = gaha[s] = 0.f;
+  }
+
+  const int npairs = (N + GROUP - 1) / GROUP;
+#pragma unroll 1
+  for (int grp = 0; grp < npairs; ++grp) {
+    const int n0 = grp * GROUP;
+    const float2 a2p = *reinterpret_cast<const float2*>(a2s + c * NMAX + n0);
+    const float2 hin2 = g == 0 ? *reinterpret_cast<const float2*>(cr + c * NMAX + n0)
+                               : make_float2(0.f, 0.f);
+    const float2 qin2 = g == LANES - 1
+                            ? *reinterpret_cast<const float2*>(qc + c * NMAX + n0)
+                            : make_float2(0.f, 0.f);
+    const float a2[GROUP] = {a2p.x, a2p.y};
+    const float hin[GROUP] = {hin2.x, hin2.y}, qin[GROUP] = {qin2.x, qin2.y};
+    float dA[GROUP][SEG], h[GROUP][SEG], P[GROUP], hc[GROUP], Q[GROUP];
+    // 1. the segment composed forwards, (prod a, h) and Q.
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) P[j] = 1.f, hc[j] = Q[j] = 0.f;
+#pragma unroll
+    for (int s = 0; s < SEG; ++s) {
+      const float4 bc = *bc_at<NMAX>(bcs, g, s, grp);
+      const float bv[GROUP] = {bc.x, bc.y}, cv[GROUP] = {bc.z, bc.w};
+#pragma unroll
+      for (int j = 0; j < GROUP; ++j) {
+        dA[j][s] = ex2_approx(dt[s] * a2[j]);
+        h[j][s] = dtx[s] * bv[j];                   // dt*B*x for now
+        hc[j] = fmaf(dA[j][s], hc[j], h[j][s]);
+        P[j] *= dA[j][s];
+        Q[j] = fmaf(P[j], cv[j] * dy[s], Q[j]);
+      }
+    }
+    // 2. across the lanes.
+    float hstart[GROUP], q[GROUP], first[GROUP];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j)
+      lane_scans(P[j], hc[j], Q[j], hin[j], qin[j], g, ch, hstart[j], q[j], first[j]);
+    if (g == LANES - 1)
+      *reinterpret_cast<float2*>(qc + c * NMAX + n0) = make_float2(first[0], first[1]);
+    // 3. the states re-walked, then the walk backwards: g_t, the terms of
+    // ddt, dx and dA, and in the registers of a_t and h_t, once a step no
+    // longer needs them, its dB and dC values.
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) {
+      float hh = hstart[j];
+#pragma unroll
+      for (int s = 0; s < SEG; ++s) {
+        hh = fmaf(dA[j][s], hh, h[j][s]);
+        h[j][s] = hh;
+      }
+    }
+    float dAn[GROUP] = {0.f, 0.f};
+#pragma unroll
+    for (int s = SEG - 1; s >= 0; --s) {
+      const float4 bc = *bc_at<NMAX>(bcs, g, s, grp);
+      const float bv[GROUP] = {bc.x, bc.y}, cv[GROUP] = {bc.z, bc.w};
+#pragma unroll
+      for (int j = 0; j < GROUP; ++j) {
+        const float gt = fmaf(cv[j], dy[s], q[j]);
+        const float hprev = s > 0 ? h[j][s - 1] : hstart[j];
+        const float gah = gt * (dA[j][s] * hprev);
+        gaha[s] = fmaf(gah, a2[j], gaha[s]);   // times ln 2 below: A
+        gb[s] = fmaf(gt, bv[j], gb[s]);
+        dAn[j] = fmaf(gah, dt[s], dAn[j]);
+        q[j] = dA[j][s] * gt;
+        dA[j][s] = gt * dtx[s];                     // dB's value
+        h[j][s] = dy[s] * h[j][s];                  // dC's value
+      }
+    }
+    float2* da = reinterpret_cast<float2*>(dAs) + (grp * CH + c) * LANES + g;
+    float2 acc = *da;
+    acc.x += dAn[0];
+    acc.y += dAn[1];
+    *da = acc;
+    // 4. dB, dC over the channels: the warp's, then the block's.
+    channel_sums(dA, h, ch, red + (grp & 1) * RED_HALF, w, g);
+    __syncthreads();                    // this pair's warp sums are written
+    block_sum(red + (grp & 1) * RED_HALF, out, n0, L::OSTR);
+  }
+  // dx = dt * sum_n g B + D dy and ddt = sum_n g a h A + x sum_n g B into
+  // x's and dt's places (gaha summed g a h A*log2(e)); dD.
+  const float d = ds[c];
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) {
+    if (s < live) {
       T* px = at_seg<T, CH, SEG>(xs, g, s, c);
-      float* pdt = at_seg<float, CH, SEG>(dts, g, s, c);
       const float xv = to_f32(*px);
-      const float dyv = to_f32(*at_seg<T, CH, SEG>(dys, g, s, c));
-      dD = fmaf(dyv, xv, dD);
-      from_f32(px, fmaf(*pdt, dxs[s], d * dyv));
-      *pdt = ddt[s];
+      dD = fmaf(dy[s], xv, dD);
+      from_f32(px, fmaf(dt[s], gb[s], d * dy[s]));
+      *at_seg<float, CH, SEG>(dts, g, s, c) = fmaf(xv, gb[s], gaha[s] * LN2);
     }
   }
 }
 
-// flags: bit 0 rows of x, dy and dx 16-byte aligned, bit 1 dt's and ddt's,
-// bit 2 B's and C's.
+// flags: bit 0 rows of x, dy and dx 16-byte aligned, bit 1 dt's and ddt's.
 template <typename T, int NMAX>
-__global__ void __launch_bounds__(THREADS, 2) ssm_scan_bwd_kernel(
+__global__ void __launch_bounds__(THREADS, 1) ssm_scan_bwd_kernel(
     const T* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
     const float* __restrict__ Cm, const float* __restrict__ Dv,
@@ -303,11 +393,12 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_bwd_kernel(
     float* __restrict__ partD, int Bt, int Tn, int I, int N, int flags) {
   using L = Layout<T, NMAX>;
   extern __shared__ __align__(16) char smem[];
-  float* a2 = reinterpret_cast<float*>(smem + STAGES * L::STAGE);
-  float* qc = a2 + CH * NMAX;
+  float* a2s = reinterpret_cast<float*>(smem + STAGES * L::STAGE);
+  float* qc = a2s + CH * NMAX;
   float* dAs = qc + CH * NMAX;
-  float* red = dAs + CH * NMAX;
-  float* out = red + 2 * 2 * WARPS * TC;
+  float* red = dAs + CH * NMAX * LANES;
+  float* out = red + 2 * RED_HALF;
+  float* ds = out + L::OUT / 4;
   const int b = blockIdx.y;
   const int blk = blockIdx.x, nblk = gridDim.x;
   const int c0 = blk * CH;
@@ -318,80 +409,91 @@ __global__ void __launch_bounds__(THREADS, 2) ssm_scan_bwd_kernel(
   const int ch = lane % CPW;
   const int c = w * CPW + ch;                       // channel in block
   const bool active = c0 + c < I;
-  const float d = active ? Dv[c0 + c] : 0.f;
 
   zero_smem<THREADS>(smem, STAGES * L::STAGE);
   for (int k = threadIdx.x; k < CH * NMAX; k += THREADS) {
     const int col = c0 + k / NMAX, n = k % NMAX;
     const bool live = col < I && n < N;
-    a2[k] = live ? A[(long)col * N + n] * LOG2E : 0.f;
+    a2s[k] = live ? A[(long)col * N + n] * LOG2E : 0.f;
     qc[k] = live && dhT != nullptr ? dhT[((long)b * I + col) * N + n] : 0.f;
-    dAs[k] = 0.f;
   }
+  for (int k = threadIdx.x; k < CH * NMAX * LANES; k += THREADS) dAs[k] = 0.f;
+  if (threadIdx.x < CH)
+    ds[threadIdx.x] = c0 + threadIdx.x < I ? Dv[c0 + threadIdx.x] : 0.f;
   __syncthreads();
 
-  const bool vx = flags & 1, vdt = flags & 2, vbc = flags & 4;
-  const int nchunks = (Tn + TC - 1) / TC;
-  // Chunk nchunks-1-j goes into stage j % STAGES.
-  auto prefetch = [&](int j) {
-    if (j < nchunks) {
-      const int k = nchunks - 1 - j;
-      char* st = smem + (j % STAGES) * L::STAGE;
+  // The chunks are taken from the last to the first; chunk k goes into
+  // stage k % STAGES.  The loop keeps nothing but k across the state loop:
+  // with a second counter, the chunk count and D held in registers too, the
+  // kernel spilled them there and ran about a tenth slower.
+  auto prefetch = [&](int k) {
+    if (k >= 0) {
+      char* st = smem + (k % STAGES) * L::STAGE;
       const int nt = min(TC, Tn - k * TC);
       const long row0 = (long)b * Tn + (long)k * TC;
-      load_tile<T, CH, SEG, THREADS>(st, x + row0 * I + c0, I, nt, ncols, vx);
+      load_tile<T, CH, SEG, THREADS>(st, x + row0 * I + c0, I, nt, ncols, flags & 1);
       load_tile<T, CH, SEG, THREADS>(st + L::X, dy + row0 * I + c0, I, nt,
-                                     ncols, vx);
+                                     ncols, flags & 1);
       load_tile<float, CH, SEG, THREADS>(st + 2 * L::X, dt + row0 * I + c0, I,
-                                         nt, ncols, vdt);
-      load_tile<float, NMAX, SEG, THREADS>(st + 2 * L::X + L::F, Bm + row0 * N,
-                                           N, nt, N, vbc);
-      load_tile<float, NMAX, SEG, THREADS>(st + 2 * L::X + L::F + L::S,
-                                           Cm + row0 * N, N, nt, N, vbc);
+                                         nt, ncols, flags & 2);
+      char* bcs = st + 2 * L::X + L::F;
+      load_bc<NMAX>(bcs, Bm + row0 * N, Cm + row0 * N, N, nt);
+      load_carries<NMAX>(reinterpret_cast<float*>(bcs + L::BC),
+                         carries + (((long)b * ((Tn + TC - 1) / TC) + k) * I + c0) * N,
+                         N, ncols);
     }
     cp_async_commit();                              // empty groups keep count
   };
 
+  const int last = (Tn - 1) / TC;
   float dD = 0.f;
 #pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) prefetch(j);
-  for (int j = 0; j < nchunks; ++j) {
-    prefetch(j + STAGES - 1);
+  for (int j = 0; j < STAGES - 1; ++j) prefetch(last - j);
+  for (int k = last; k >= 0; --k) {
+    prefetch(k - (STAGES - 1));
     cp_async_wait<STAGES - 1>();
     __syncthreads();                                // the chunk has landed
-    const int k = nchunks - 1 - j;
-    char* st = smem + (j % STAGES) * L::STAGE;
+    char* st = smem + (k % STAGES) * L::STAGE;
     const int nt = min(TC, Tn - k * TC);
-    const float* cin = carries + (((long)b * nchunks + k) * I + c0 + c) * N;
-    if (nt == TC)
-      bwd_chunk<T, NMAX, false>(st, a2, cin, qc, dAs, red, out, N, g, c, w, ch,
-                                SEG, active, d, dD);
-    else
-      bwd_chunk<T, NMAX, true>(st, a2, cin, qc, dAs, red, out, N, g, c, w, ch,
-                               nt - g * SEG, active, d, dD);
+    bwd_chunk<T, NMAX>(st, a2s, qc, dAs, red, out, ds, N, g, c, w, ch,
+                       nt - g * SEG, dD);
     __syncthreads();
+    // The stores' bounds come from opaque copies of nt and flags, formed
+    // here: left to itself the compiler forms them before the state loop
+    // and spills them across it.
+    int ntc, fl;
+    asm volatile("mov.b32 %0, %1;" : "=r"(ntc) : "r"(nt));
+    asm volatile("mov.b32 %0, %1;" : "=r"(fl) : "r"(flags));
     const long row0 = (long)b * Tn + (long)k * TC;
-    store_tile<T, CH, SEG, THREADS>(dx + row0 * I + c0, st, I, nt, ncols, vx);
+    store_tile<T, CH, SEG, THREADS>(dx + row0 * I + c0, st, I, ntc, ncols, fl & 1);
     store_tile<float, CH, SEG, THREADS>(ddt + row0 * I + c0, st + 2 * L::X, I,
-                                        nt, ncols, vdt);
+                                        ntc, ncols, fl & 2);
     // The chunk's dB and dC block sums: partials (2, nblk, Bt, T, N).
-    for (int e = threadIdx.x; e < 2 * nt * N; e += THREADS) {
-      const int which = e / (nt * N), r = (e / N) % nt, n = e % N;
-      partBC[(((long)which * nblk + blk) * Bt * Tn + row0 + r) * N + n] =
-          out[(which * TC + r) * NMAX + n];
+#pragma unroll 1
+    for (int e = threadIdx.x; e < 2 * TC * NMAX; e += THREADS) {
+      const int which = e / (TC * NMAX), r = (e / NMAX) % TC, n = e % NMAX;
+      if (r < ntc && n < N)
+        partBC[(((long)which * nblk + blk) * Bt * Tn + row0 + r) * N + n] =
+            out[(which * TC + r) * L::OSTR + n];
     }
     __syncthreads();                                // the buffer is free
   }
-  // dh0 is the first chunk's q carry; the dA and dD partials over the batch.
+  // dh0 is the first chunk's q carry; the dA partials over the batch (the 8
+  // segments' sums added in order) and the dD partials (the segments'
+  // sums added pairwise by the butterfly).
   for (int e = threadIdx.x; e < CH * NMAX; e += THREADS) {
-    const int col = c0 + e / NMAX, n = e % NMAX;
+    const int cc = e / NMAX, n = e % NMAX, col = c0 + cc;
     if (col < I && n < N) {
       dh0[((long)b * I + col) * N + n] = qc[e];
-      partA[((long)b * I + col) * N + n] = dAs[e];
+      const float* da = dAs + (((n / GROUP) * CH + cc) * LANES) * GROUP + n % GROUP;
+      float s = 0.f;
+#pragma unroll
+      for (int seg = 0; seg < LANES; ++seg) s += da[seg * GROUP];
+      partA[((long)b * I + col) * N + n] = s;
     }
   }
-  dD += __shfl_xor_sync(FULL, dD, CPW);
-  dD += __shfl_xor_sync(FULL, dD, 2 * CPW);
+#pragma unroll
+  for (int off = CPW; off < 32; off *= 2) dD += __shfl_xor_sync(FULL, dD, off);
   if (g == 0 && active) partD[(long)b * I + c0 + c] = dD;
 }
 
@@ -410,8 +512,7 @@ cudaError_t launch(const void* x, const float* dt, const float* A,
   const long xrow = (long)I * sizeof(T);
   const int flags =
       (aligned16(x, xrow) && aligned16(dy, xrow) && aligned16(dx, xrow) ? 1 : 0)
-      | (aligned16(dt, (long)I * 4) && aligned16(ddt, 0) ? 2 : 0)
-      | (aligned16(Bm, (long)N * 4) && aligned16(Cm, 0) ? 4 : 0);
+      | (aligned16(dt, (long)I * 4) && aligned16(ddt, 0) ? 2 : 0);
   dim3 grid((I + CH - 1) / CH, Bt);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), dt, A, Bm, Cm, Dv, carries,

@@ -9,9 +9,10 @@ parallel inside a block: chunks of ``CHUNK`` steps, lanes over segments of
 The Pallas kernel has no backward (the reference differentiates its chunked
 jnp scan, ``repro.kernels.ops.rglru``, with ``jax.grad``); here the gradient
 is ``csrc/rglru_scan_bwd.cu``, the same chunks walked in reverse from the
-f32 states the forward saves at each chunk's start, joined to the forward
-by a ``torch.autograd.Function``.  The plain version of the same function
-is :func:`repro_torch.kernels.ref.rglru_ref`, and of its gradient autograd
+f32 states the forward saves at each chunk's start (in shorter segments,
+over more lanes), joined to the forward by a ``torch.autograd.Function``.
+The plain version of the same function is
+:func:`repro_torch.kernels.ref.rglru_ref`, and of its gradient autograd
 through it.  Unlike the Pallas wrapper, which pads T without masking, the
 kernels walk exactly T steps, so ``h_T`` is right for every T.
 """
@@ -29,16 +30,22 @@ from repro_torch.kernels import _build
 SOURCE = "rglru_scan.cu"
 BWD_SOURCE = "rglru_scan_bwd.cu"
 REPLACES = "src/repro/kernels/rglru_scan.py:73"     # its pl.pallas_call
-# The kernels' tiles (csrc/rglru_scan.cu and csrc/rglru_scan_bwd.cu state
-# them; tests hold the three equal): LANES lanes scan one channel, each over
-# SEGMENT consecutive steps, so a chunk is CHUNK = LANES * SEGMENT steps; a
-# block owns CHANNELS channels of one batch row, and STAGES chunks are in
-# shared memory at once.
+# The forward kernel's tiles (csrc/rglru_scan.cu states them; tests hold the
+# two equal): LANES lanes scan one channel, each over SEGMENT consecutive
+# steps, so a chunk is CHUNK = LANES * SEGMENT steps; a block owns CHANNELS
+# channels of one batch row, and STAGES chunks are in shared memory at once.
 SEGMENT = 16
 LANES = 4
 CHANNELS = 64
 CHUNK = LANES * SEGMENT
 STAGES = 2
+# The backward kernel's own tiles (csrc/rglru_scan_bwd.cu states them): the
+# forward's chunks of CHUNK steps cut into BWD_LANES segments of BWD_SEGMENT
+# steps, BWD_CHANNELS channels a block, BWD_STAGES chunks in shared memory.
+BWD_SEGMENT = 4
+BWD_LANES = 16
+BWD_CHANNELS = 32
+BWD_STAGES = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the forward and of the backward kernel in this process; read

@@ -9,8 +9,9 @@ parallel inside a block: chunks of ``CHUNK`` steps, lanes over segments of
 The Pallas kernel has no backward (the reference differentiates its chunked
 jnp scan, ``repro.kernels.ops.ssm_scan``, with ``jax.grad``); here the
 gradient is ``csrc/ssm_scan_bwd.cu``, the same chunks walked in reverse from
-the states the forward saves at each chunk's start, joined to the forward by
-a ``torch.autograd.Function``.  The plain version of the same function is
+the states the forward saves at each chunk's start (in shorter segments,
+over more lanes, with the states in pairs), joined to the forward by a
+``torch.autograd.Function``.  The plain version of the same function is
 :func:`repro_torch.kernels.ref.ssm_scan_ref`, and of its gradient autograd
 through it.
 """
@@ -29,16 +30,24 @@ SOURCE = "ssm_scan.cu"
 BWD_SOURCE = "ssm_scan_bwd.cu"
 REPLACES = "src/repro/kernels/ssm_scan.py:79"       # its pl.pallas_call
 MAX_STATE = 16
-# The kernels' tiles (csrc/ssm_scan.cu and csrc/ssm_scan_bwd.cu state them;
-# tests hold the three equal): LANES lanes scan one channel, each over
-# SEGMENT consecutive steps, so a chunk is CHUNK = LANES * SEGMENT steps; a
-# block owns CHANNELS channels of one batch row, and STAGES chunks are in
-# shared memory at once.
+# The forward kernel's tiles (csrc/ssm_scan.cu states them; tests hold the
+# two equal): LANES lanes scan one channel, each over SEGMENT consecutive
+# steps, so a chunk is CHUNK = LANES * SEGMENT steps; a block owns CHANNELS
+# channels of one batch row, and STAGES chunks are in shared memory at once.
 SEGMENT = 16
 LANES = 4
 CHANNELS = 64
 CHUNK = LANES * SEGMENT
 STAGES = 2
+# The backward kernel's own tiles (csrc/ssm_scan_bwd.cu states them): the
+# forward's chunks of CHUNK steps cut into BWD_LANES segments of BWD_SEGMENT
+# steps, BWD_CHANNELS channels a block, BWD_STAGES chunks in shared memory,
+# and the states taken BWD_GROUP at a time.
+BWD_SEGMENT = 8
+BWD_LANES = 8
+BWD_CHANNELS = 64
+BWD_STAGES = 2
+BWD_GROUP = 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the forward and of the backward kernel in this process; read

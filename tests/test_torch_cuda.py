@@ -506,6 +506,65 @@ def test_scan_backward_kernels_are_deterministic_at_the_training_shapes(kernel):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+# The backward kernels' own tiles (ss.BWD_SEGMENT = 8 steps, 8 lanes, 64
+# channels, states in pairs; rs.BWD_SEGMENT = 4 steps, 16 lanes, 32
+# channels): odd N (a pair with a zero state), T not a multiple of the
+# 64-step chunk with the last chunk ending inside a segment, and channel
+# counts that leave a ragged channel block on the plain-load route (33, 71)
+# and on the cp.async route (72, 136).
+SSM_BWD_EDGES = [(2, ss.BWD_SEGMENT - 1, 33, 1), (1, ss.CHUNK + ss.BWD_SEGMENT + 1, 72, 3),
+                 (2, 2 * ss.CHUNK + 5, 71, 5), (3, 3 * ss.CHUNK - 1, 136, 7),
+                 (1, 130, 40, 9), (2, 77, 96, 15)]
+RGLRU_BWD_EDGES = [(2, rs.BWD_SEGMENT - 1, 33), (1, rs.CHUNK + rs.BWD_SEGMENT + 1, 72),
+                   (2, 2 * rs.CHUNK + 5, 71), (3, 3 * rs.CHUNK - 1, 136)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSM_BWD_EDGES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_dhT", [False, True], ids=["dhT=0", "dhT"])
+def test_ssm_scan_bwd_at_the_backward_tile_edges(case, dtype, with_dhT):
+    """The selective-scan backward at its own tile edges against autograd
+    of plain (tolerances as above), and the same bits on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    Bt, T, I, N = case
+    rng = np.random.default_rng(15)
+    x = _cuda(rng, (Bt, T, I), dtype)
+    dt = torch.nn.functional.softplus(_cuda(rng, (Bt, T, I)))
+    A = -torch.exp(_cuda(rng, (I, N)))
+    Bm, Cm = _cuda(rng, (Bt, T, N), dtype), _cuda(rng, (Bt, T, N), dtype)
+    D, h0 = _cuda(rng, (I,)), _cuda(rng, (Bt, I, N))
+    cots = (_cuda(rng, (Bt, T, I), dtype), _cuda(rng, (Bt, I, N)) if with_dhT else None)
+    first, second = (_grads_vs_plain(ops.ssm_scan, ref.ssm_scan_ref,
+                                     (x, dt, A, Bm, Cm, D, h0), cots, dtype,
+                                     ("A", "B", "C", "D"),
+                                     ("x", "dt", "A", "B", "C", "D", "h0"))
+                     for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_BWD_EDGES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_dhT", [False, True], ids=["dhT=0", "dhT"])
+def test_rglru_scan_bwd_at_the_backward_tile_edges(case, dtype, with_dhT):
+    """The RG-LRU backward at its own tile edges against autograd of plain
+    (tolerances as above), and the same bits on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, L = case
+    rng = np.random.default_rng(16)
+    x, a, i = (_cuda(rng, (B, T, L), dtype) for _ in range(3))
+    lam, h0 = _cuda(rng, (L,)), _cuda(rng, (B, L))
+    cots = (_cuda(rng, (B, T, L), dtype), _cuda(rng, (B, L)) if with_dhT else None)
+    first, second = (_grads_vs_plain(ops.rglru, ref.rglru_ref, (x, a, i, lam, h0), cots,
+                                     dtype, ("log_lam",),
+                                     ("x", "a_gate", "i_gate", "log_lam", "h0"))
+                     for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.gpu
 def test_scan_forward_with_carries_equals_without():
     """The carries output changes nothing else: y and h_T are the same bits

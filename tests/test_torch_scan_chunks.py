@@ -290,156 +290,198 @@ def _lane_scan_rev(P, Q, carry, lanes):
     return torch.cat([Q[:, 1:], carry[:, None]], dim=1), Q[:, 0]
 
 
-def _block_sums(a, width):
+def _sum_slices():
+    """``SLICES`` of ``csrc/scan_sums.cuh``: the ranges the second pass cuts
+    the partials into."""
+    src = (_build.CSRC / "scan_sums.cuh").read_text()
+    return int(re.search(r"constexpr int SLICES = (\d+);", src).group(1))
+
+
+def _sum_lead(parts):
+    """The partials summed over dim 0 as the second pass adds them: cut into
+    SLICES contiguous ranges of ceil(K / SLICES), each summed in order, the
+    ranges' sums added in order (for K <= SLICES, k = 0, 1, ... in order)."""
+    slices = _sum_slices()
+    K = parts.shape[0]
+    per = -(-K // slices)
+    total = torch.zeros_like(parts[0])
+    for sl in range(slices):
+        k0 = min(K, sl * per)
+        acc = torch.zeros_like(parts[0])
+        for k in range(k0, min(K, k0 + per)):
+            acc = acc + parts[k]
+        total = total + acc
+    return total
+
+
+def _pairwise(a, dim):
+    """a summed over ``dim`` (a power of two long) by a butterfly of
+    shuffles: neighbours first, ((a0 + a1) + (a2 + a3)) + ..."""
+    while a.shape[dim] > 1:
+        a = a.unflatten(dim, (-1, 2))
+        a = a.select(dim + 1, 0) + a.select(dim + 1, 1)
+    return a.squeeze(dim)
+
+
+def _block_sums(a, width, cpw):
     """(Bt, T, Ip, N) -> the per-block sums over channels, (nblk, Bt, T, N),
-    as each block writes its partials."""
+    as the selective-scan backward forms them: each warp's cpw channels
+    added pairwise by its reduce-scatter, then the block's warps added in
+    warp order."""
     Bt, T, Ip, N = a.shape
-    return a.reshape(Bt, T, Ip // width, width, N).sum(3).permute(2, 0, 1, 3)
-
-
-def _in_order(parts):
-    """The partials summed over dim 0 one after another, as the second pass
-    adds them."""
-    out = torch.zeros_like(parts[0])
-    for p in parts:
-        out = out + p
-    return out
+    warps = _pairwise(a.reshape(Bt, T, Ip // width, width // cpw, cpw, N), 4)
+    out = torch.zeros_like(warps[:, :, :, 0])
+    for k in range(warps.shape[3]):
+        out = out + warps[:, :, :, k]
+    return out.permute(2, 0, 1, 3)
 
 
 def ssm_chunked_bwd(dy, dhT, x, dt, A, B, C, D, carries):
-    """The selective-scan backward kernel's order, in f32: chunks from last
-    to first; per state, the segment states rebuilt from the chunk's saved
-    carry (the forward's composition and lane scan), the backward
-    composition q_t = a_t (C_t dy_t + q_{t+1}) with the reverse lane scan,
-    and the walk; dB, dC as per-block partials summed in block order, dA,
-    dD as per-row partials summed in batch order.  Returns (dx, ddt, dA,
-    dB, dC, dD, dh0)."""
+    """The selective-scan backward kernel's order, in f32, with its own
+    tiles (``BWD_SEGMENT``, ``BWD_LANES``, ``BWD_CHANNELS``, states in
+    pairs): chunks from last to first; dt, dt*x and dy zero past T; per
+    state, the segment composed forwards into (prod a, h) and Q = sum_t
+    (a_1...a_t) C_t dy_t, the forward lane scan from the chunk's saved
+    carry and the reverse one from the later chunk's q, the re-walk and the
+    backward walk, whose sums over the states of g*B and g*a*h*A*log2(e)
+    give dx = dt*gb + D*dy and ddt = x*gb + gaha*ln(2); dB, dC as per-block partials (warp
+    channels pairwise, warps in order) summed by the second pass; dA summed
+    per segment over time, the segments in order, then over the batch; dD
+    per segment over time, the segments pairwise, then over the batch.
+    Returns (dx, ddt, dA, dB, dC, dD, dh0)."""
     Bt, T, I = x.shape
     N = A.shape[1]
-    lanes, seg, chunk, W = ss.LANES, ss.SEGMENT, ss.CHUNK, ss.CHANNELS
+    lanes, seg, W, G = ss.BWD_LANES, ss.BWD_SEGMENT, ss.BWD_CHANNELS, ss.BWD_GROUP
+    chunk = ss.CHUNK
     pad = lambda a, d: _pad_channels(a.float(), W, d)   # noqa: E731
     x, dt, dy = pad(x, 2), pad(dt, 2), pad(dy, 2)
-    A, D = pad(A, 0), pad(D, 0)
+    Np = -(-N // G) * G                    # an odd N's last pair: a zero state
+    pad_n = lambda a: _pad_channels(a.float(), Np, a.dim() - 1)   # noqa: E731
+    A, D = pad_n(pad(A, 0)), pad(D, 0)
     Ip = x.shape[2]
     a2 = A * LOG2E
-    An = a2 * LN2
-    Bf, Cf = B.float(), C.float()
-    qc = torch.zeros((Bt, Ip, N)) if dhT is None else pad(dhT, 1)
-    dAs = torch.zeros((Bt, Ip, N))
-    dDs = torch.zeros((Bt, Ip))
+    Bf, Cf = pad_n(B), pad_n(C)
+    qc = torch.zeros((Bt, Ip, Np)) if dhT is None else pad_n(pad(dhT, 1))
+    dAs = torch.zeros((Bt, lanes, Ip, Np))
+    dDs = torch.zeros((Bt, lanes, Ip))
     dx, ddt = torch.empty((Bt, T, Ip)), torch.empty((Bt, T, Ip))
-    dBs, dCs = torch.zeros((Bt, T, Ip, N)), torch.zeros((Bt, T, Ip, N))
+    dBs, dCs = torch.zeros((Bt, T, Ip, Np)), torch.zeros((Bt, T, Ip, Np))
     for k, (t0, valid) in reversed(list(enumerate(_chunks(T, chunk, lanes, seg)))):
         idx = torch.clamp(t0 + torch.arange(chunk), max=T - 1).reshape(lanes, seg)
-        dtv, xv, dyv = dt[:, idx], x[:, idx], dy[:, idx]   # (Bt, lanes, seg, Ip)
-        Bv, Cv = Bf[:, idx], Cf[:, idx]                    # (Bt, lanes, seg, N)
         v = valid[None, :, :, None]
-        cin = pad(carries[k], 1)
-        acc_dt, acc_x = torch.zeros_like(dtv), torch.zeros_like(dtv)
-        dBc, dCc = torch.zeros(dtv.shape + (N,)), torch.zeros(dtv.shape + (N,))
-        for n in range(N):
-            dA = torch.where(v, torch.exp2(dtv * a2[:, n]), torch.ones(()))
-            u = torch.where(v, dtv * xv * Bv[..., n, None], torch.zeros(()))
-            P, hc = torch.ones_like(dA[:, :, 0]), torch.zeros_like(dA[:, :, 0])
+        zero = torch.zeros(())
+        dtv = torch.where(v, dt[:, idx], zero)            # (Bt, lanes, seg, Ip)
+        dtx = torch.where(v, dt[:, idx] * x[:, idx], zero)
+        dyv = torch.where(v, dy[:, idx], zero)
+        Bv, Cv = Bf[:, idx], Cf[:, idx]                   # (Bt, lanes, seg, Np)
+        cin = pad_n(pad(carries[k], 1))
+        gb, gaha = torch.zeros_like(dtv), torch.zeros_like(dtv)
+        dBc, dCc = torch.zeros(dtv.shape + (Np,)), torch.zeros(dtv.shape + (Np,))
+        for n in range(Np):
+            dA = torch.exp2(dtv * a2[:, n])
+            u = dtx * Bv[..., n, None]
+            P = torch.ones_like(dA[:, :, 0])
+            hc, Q = torch.zeros_like(P), torch.zeros_like(P)
             for s in range(seg):
                 hc = dA[:, :, s] * hc + u[:, :, s]
                 P = P * dA[:, :, s]
+                Q = P * (Cv[:, :, s, n, None] * dyv[:, :, s]) + Q
             start, _ = _lane_scan(P, hc, cin[..., n], lanes)
+            q, qc[..., n] = _lane_scan_rev(P, Q, qc[..., n], lanes)
             h, hc = torch.empty_like(dA), start
             for s in range(seg):
                 hc = dA[:, :, s] * hc + u[:, :, s]
                 h[:, :, s] = hc
-            dCc[..., n] = dyv * h
-            Q = torch.zeros_like(P)
+            dAn = torch.zeros_like(P)
             for s in reversed(range(seg)):
-                cd = torch.where(v[:, :, s], Cv[:, :, s, n, None] * dyv[:, :, s],
-                                 torch.zeros(()))
-                Q = dA[:, :, s] * (cd + Q)
-            q, qc[..., n] = _lane_scan_rev(P, Q, qc[..., n], lanes)
-            for s in reversed(range(seg)):
-                ok = v[:, :, s]
-                g = torch.where(ok, Cv[:, :, s, n, None] * dyv[:, :, s] + q, q)
+                g = Cv[:, :, s, n, None] * dyv[:, :, s] + q
                 hprev = h[:, :, s - 1] if s > 0 else start
-                ah = dA[:, :, s] * hprev
-                acc_dt[:, :, s] += g * (ah * An[:, n] + Bv[:, :, s, n, None] * xv[:, :, s])
-                acc_x[:, :, s] += g * Bv[:, :, s, n, None]
-                dAs[..., n] += torch.where(ok, g * ah * dtv[:, :, s], torch.zeros(())).sum(1)
-                dBc[:, :, s, :, n] = g * dtv[:, :, s] * xv[:, :, s]
+                gah = g * (dA[:, :, s] * hprev)
+                gaha[:, :, s] = gah * a2[:, n] + gaha[:, :, s]
+                gb[:, :, s] = g * Bv[:, :, s, n, None] + gb[:, :, s]
+                dAn = gah * dtv[:, :, s] + dAn
                 q = dA[:, :, s] * g
+                dBc[:, :, s, :, n] = g * dtx[:, :, s]
+                dCc[:, :, s, :, n] = dyv[:, :, s] * h[:, :, s]
+            dAs[..., n] += dAn
         nt = min(chunk, T - t0)
         flat = lambda a: a.reshape((Bt, chunk) + a.shape[3:])[:, :nt]   # noqa: E731
-        dx[:, t0:t0 + nt] = flat(dtv * acc_x + D * dyv)
-        ddt[:, t0:t0 + nt] = flat(acc_dt)
+        dx[:, t0:t0 + nt] = flat(dtv * gb + D * dyv)
+        ddt[:, t0:t0 + nt] = flat(x[:, idx] * gb + gaha * LN2)
         dBs[:, t0:t0 + nt], dCs[:, t0:t0 + nt] = flat(dBc), flat(dCc)
-        dDs += torch.where(v, dyv * xv, torch.zeros(())).sum((1, 2))
-    dB, dC = (_in_order(_block_sums(a, W)) for a in (dBs, dCs))
-    return (dx[..., :I], ddt[..., :I], _in_order(dAs)[:I], dB, dC,
-            _in_order(dDs)[:I], qc[:, :I])
+        for s in range(seg):
+            dDs = dyv[:, :, s] * torch.where(v[:, :, s], x[:, idx][:, :, s], zero) + dDs
+    dB, dC = (_sum_lead(_block_sums(a, W, 32 // lanes))[..., :N] for a in (dBs, dCs))
+    dA = torch.zeros_like(dAs[:, 0])
+    for g in range(lanes):
+        dA = dA + dAs[:, g]
+    return (dx[..., :I], ddt[..., :I], _sum_lead(dA)[:I, :N], dB, dC,
+            _sum_lead(_pairwise(dDs, 1))[:I], qc[:, :I, :N])
 
 
 def rglru_chunked_bwd(dh, dhT, x, a_gate, i_gate, log_lam, carries, c=8.0):
-    """The RG-LRU backward kernel's order, in f32: chunks from last to
-    first; the gates recomputed the kernel's way, the segment states rebuilt
-    from the chunk's saved carry, the backward composition q_t = a_t (dh_t
-    + q_{t+1}) with the reverse lane scan, and the walk; dlog_lam as
-    per-row partials summed in batch order.  Returns (dx, da_gate, di_gate,
+    """The RG-LRU backward kernel's order, in f32, with its own tiles
+    (``BWD_SEGMENT``, ``BWD_LANES``, ``BWD_CHANNELS``): chunks from last to
+    first; x and dh zero and a = 1 past T; the gates formed the kernel's
+    way, the segment composed forwards into (prod a, h) and Q = sum_t
+    (a_1...a_t) dh_t, the forward lane scan from the chunk's saved carry and
+    the reverse one from the later chunk's q, the re-walk and the backward
+    walk; dlog_lam summed per segment over time (backwards), the segments
+    pairwise, then over the batch.  Returns (dx, da_gate, di_gate,
     dlog_lam, dh0)."""
     B, T, L = x.shape
-    lanes, seg, chunk, W = rs.LANES, rs.SEGMENT, rs.CHUNK, rs.CHANNELS
+    lanes, seg, W, chunk = rs.BWD_LANES, rs.BWD_SEGMENT, rs.BWD_CHANNELS, rs.CHUNK
     pad = lambda a, d: _pad_channels(a.float(), W, d)   # noqa: E731
     x, a_gate, i_gate, dh = (pad(t, 2) for t in (x, a_gate, i_gate, dh))
     log_lam = pad(log_lam, 0)
     neg_c_lam = -c * torch.where(log_lam > 20, log_lam, torch.log1p(torch.exp(log_lam)))
     qc = torch.zeros((B, x.shape[2])) if dhT is None else pad(dhT, 1)
-    lam = torch.zeros_like(qc)
+    lam = torch.zeros((B, lanes, x.shape[2]))
     grads = [torch.empty_like(x) for _ in range(3)]
 
     def sigmoid(v):
         return 1.0 / (1.0 + torch.exp2(-v * LOG2E))
 
-    def gates(av, iv):
-        sa = sigmoid(av)
-        log_a2 = neg_c_lam * sa * LOG2E
-        e2 = torch.exp2(2.0 * log_a2)
-        return sa, log_a2, e2, torch.sqrt(torch.clamp(1.0 - e2, min=1e-12)), sigmoid(iv)
-
     for k, (t0, valid) in reversed(list(enumerate(_chunks(T, chunk, lanes, seg)))):
         idx = torch.clamp(t0 + torch.arange(chunk), max=T - 1).reshape(lanes, seg)
-        xv, av, iv, dhv = x[:, idx], a_gate[:, idx], i_gate[:, idx], dh[:, idx]
         v = valid[None, :, :, None]
-        sa, log_a2, e2, mult, si = gates(av, iv)
+        zero = torch.zeros(())
+        xv, dhv = torch.where(v, x[:, idx], zero), torch.where(v, dh[:, idx], zero)
+        sa, si = sigmoid(a_gate[:, idx]), sigmoid(i_gate[:, idx])
+        log_a2 = neg_c_lam * sa * LOG2E
         a = torch.where(v, torch.exp2(log_a2), torch.ones(()))
-        u = torch.where(v, mult * (si * xv), torch.zeros(()))
-        P, hc = torch.ones_like(a[:, :, 0]), torch.zeros_like(a[:, :, 0])
+        e2 = torch.exp2(2.0 * log_a2)
+        m = torch.sqrt(torch.clamp(1.0 - e2, min=1e-12))
+        u = m * (si * xv)
+        P = torch.ones_like(a[:, :, 0])
+        hc, Q = torch.zeros_like(P), torch.zeros_like(P)
         for s in range(seg):
             hc = a[:, :, s] * hc + u[:, :, s]
             P = P * a[:, :, s]
+            Q = P * dhv[:, :, s] + Q
         start, _ = _lane_scan(P, hc, pad(carries[k], 1), lanes)
+        q, qc = _lane_scan_rev(P, Q, qc, lanes)
         h, hc = torch.empty_like(a), start
         for s in range(seg):
             hc = a[:, :, s] * hc + u[:, :, s]
             h[:, :, s] = hc
-        Q = torch.zeros_like(P)
-        for s in reversed(range(seg)):
-            Q = a[:, :, s] * (torch.where(v[:, :, s], dhv[:, :, s], torch.zeros(())) + Q)
-        q, qc = _lane_scan_rev(P, Q, qc, lanes)
         out = [torch.zeros_like(a) for _ in range(3)]
         for s in reversed(range(seg)):
-            ok = v[:, :, s]
-            g = torch.where(ok, dhv[:, :, s] + q, q)
+            g = dhv[:, :, s] + q
             hprev = h[:, :, s - 1] if s > 0 else start
-            sa_, e2_, m_, si_, x_ = (t[:, :, s] for t in (sa, e2, mult, si, xv))
-            dm = torch.where(1.0 - e2_ > 1e-12, -e2_ / m_, torch.zeros(()))
+            sa_, e2_, m_, si_, x_ = (t[:, :, s] for t in (sa, e2, m, si, xv))
+            gm = g * m_
+            dm = torch.where(1.0 - e2_ > 1e-12, -e2_ * (1.0 / m_), zero)
             dla = g * (hprev * a[:, :, s] + dm * si_ * x_)
-            lam += torch.where(ok, dla * sa_, torch.zeros(())).sum(1)
-            out[0][:, :, s] = g * m_ * si_
+            lam = torch.where(v[:, :, s], dla * sa_, zero) + lam
+            out[0][:, :, s] = gm * si_
             out[1][:, :, s] = dla * neg_c_lam * sa_ * (1.0 - sa_)
-            out[2][:, :, s] = g * m_ * x_ * si_ * (1.0 - si_)
+            out[2][:, :, s] = gm * x_ * si_ * (1.0 - si_)
             q = a[:, :, s] * g
         nt = min(chunk, T - t0)
         for dst, o in zip(grads, out):
             dst[:, t0:t0 + nt] = o.reshape(B, chunk, -1)[:, :nt]
-    dlam = _in_order(lam * (-c) * torch.sigmoid(log_lam))
+    dlam = _sum_lead(_pairwise(lam, 1) * (-c) * torch.sigmoid(log_lam))
     return (grads[0][..., :L], grads[1][..., :L], grads[2][..., :L],
             dlam[:L], qc[:, :L])
 
@@ -465,11 +507,15 @@ def _jax_rglru_grad(chunk):
 
 
 def _bwd_t_cases():
-    return [1, ss.SEGMENT - 1, ss.CHUNK, ss.CHUNK + 3, 2 * ss.CHUNK + 17, 200]
+    """T around the forward's segment and chunk, and last chunks that end
+    inside the backward's second segment (2 CHUNK + BWD_SEGMENT + 1) or
+    partway through the chunk (200)."""
+    return [1, ss.SEGMENT - 1, ss.CHUNK, ss.CHUNK + 3, 2 * ss.CHUNK + 17,
+            2 * ss.CHUNK + ss.BWD_SEGMENT + 1, 200]
 
 
 @pytest.mark.parametrize("T", _bwd_t_cases())
-@pytest.mark.parametrize("N", [1, 5, 16])
+@pytest.mark.parametrize("N", [1, 3, 5, 16])
 @pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
 @pytest.mark.parametrize("with_dhT", [False, True], ids=["dhT=0", "dhT"])
 def test_ssm_chunked_bwd_matches_references(T, N, with_h0, with_dhT):
@@ -551,17 +597,25 @@ def test_rglru_chunked_bwd_matches_references(T, with_h0, with_dhT):
 
 @pytest.mark.parametrize("module", [ss, rs], ids=["ssm_scan", "rglru_scan"])
 def test_backward_tile_constants_match_the_wrapper(module):
-    """The backward kernel walks the forward's chunks, so its ``.cu`` file
-    states the forward's tile constants, which the wrapper mirrors."""
-    fwd = (_build.CSRC / module.SOURCE).read_text()
+    """The backward kernel walks the forward's chunks in tiles of its own:
+    its ``.cu`` file states its constants, the wrapper mirrors them
+    (``BWD_SEGMENT``, ``BWD_LANES``, ``BWD_CHANNELS``, ``BWD_STAGES`` and,
+    for the selective scan, ``BWD_GROUP``), the emulations above read the
+    wrapper's, and its chunk TC = LANES * SEG is the forward's CHUNK."""
     bwd = (_build.CSRC / module.BWD_SOURCE).read_text()
-    for name in ("SEG", "LANES", "WARPS", "STAGES"):
-        pat = rf"constexpr int {name} = (\d+);"
-        assert re.search(pat, bwd).group(1) == re.search(pat, fwd).group(1), name
-    assert int(re.search(r"constexpr int SEG = (\d+);", bwd).group(1)) == module.SEGMENT
-    assert int(re.search(r"constexpr int LANES = (\d+);", bwd).group(1)) == module.LANES
-    assert int(re.search(r"constexpr int STAGES = (\d+);", bwd).group(1)) == module.STAGES
-    warps = int(re.search(r"constexpr int WARPS = (\d+);", bwd).group(1))
-    assert module.CHANNELS == warps * (32 // module.LANES)
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", bwd).group(1))
+
+    seg, lanes, warps, stages = (const(k) for k in ("SEG", "LANES", "WARPS", "STAGES"))
+    assert module.BWD_SEGMENT == seg
+    assert module.BWD_LANES == lanes
+    assert module.BWD_STAGES == stages
+    assert module.BWD_CHANNELS == warps * (32 // lanes)
+    assert lanes * seg == module.CHUNK
+    assert 32 % lanes == 0 and math.log2(lanes).is_integer()
     assert "constexpr int TC = LANES * SEG;" in bwd
     assert "constexpr int CH = WARPS * CPW;" in bwd
+    if module is ss:
+        assert const("GROUP") == ss.BWD_GROUP
+    assert _sum_slices() >= 1

@@ -1,0 +1,269 @@
+#!/usr/bin/env python3
+"""Where the scans' backward kernels spend their instructions, on one CUDA card.
+
+    python3 tools/ablate_scan_bwd.py [--src DIR] [--sass-only] [--dump DIR]
+
+For ``ssm_scan_bwd.cu`` and ``rglru_scan_bwd.cu`` of the tree at DIR
+(default: this checkout's ``src/``):
+
+1. SASS counts.  Builds the library, disassembles it (``cuobjdump -sass``)
+   and, in the bf16 kernel (the ``NMAX = 16`` one for the selective scan),
+   counts the instructions of each innermost loop that holds an
+   exponential (``MUFU.EX2``): the state loop of a chunk (two in the earlier
+   selective scan, for full chunks and for the masked last one; the chunk
+   loop, loads and stores included, in the RG-LRU).  Counts are by class (shared
+   loads and stores, shuffles, special functions, f32 arithmetic, barriers)
+   and per element, an element being one (step, state) of one lane: a
+   loop iteration covers ``SEG`` steps times ``GROUP`` states (``GROUP`` is
+   1 where the source does not state it).
+2. Ablations.  Copies the tree's ``csrc/`` under ``build/ablate/<name>/``,
+   applies the text substitutions listed in ``ABLATIONS`` for that source
+   (an ablation whose text is not in the source is reported as not
+   applicable), builds each copy, and times it at the training shape with
+   ``bench_scans``' calls, beside the unchanged source, in turns.  An
+   ablated kernel computes wrong values on purpose: its time says what the
+   removed work costs, nothing else.
+
+The copies live under ``build/`` and are never part of the repository.
+Prints the card's name and power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# name -> (source file, [(text, replacement), ...]).  Each text must occur in
+# the source; every occurrence is replaced.
+ABLATIONS = {
+    # The earlier selective-scan backward (16-step segments, one state per
+    # pass of the state loop), for --src on a tree that has it.
+    "ssm: no dB/dC reduce-scatter": ("ssm_scan_bwd.cu", [
+        ("int base = reduce_scatter(v, ch);", "int base = 0;"),
+        ("base = reduce_scatter(v, ch);", "base = 0;")]),
+    "ssm: dt, x, dy read once per chunk": ("ssm_scan_bwd.cu", [
+        ("float ddt[SEG], dxs[SEG];",
+         "float ddt[SEG], dxs[SEG];\n"
+         "  const float dt0 = *at_seg<float, CH, SEG>(dts, g, 0, c);\n"
+         "  const float x0 = to_f32(*at_seg<T, CH, SEG>(xs, g, 0, c));\n"
+         "  const float dy0 = to_f32(*at_seg<T, CH, SEG>(dys, g, 0, c));"),
+        ("*at_seg<float, CH, SEG>(dts, g, s, c)", "dt0"),
+        ("to_f32(*at_seg<T, CH, SEG>(xs, g, s, c))", "x0"),
+        ("to_f32(*at_seg<T, CH, SEG>(dys, g, s, c))", "dy0")]),
+    "ssm: no per-state barrier and block sum": ("ssm_scan_bwd.cu", [
+        ("    __syncthreads();                    // this state's warp sums are written\n"
+         "    block_sum(rb, out, n, NMAX);\n", "")]),
+    "ssm: all three": ("ssm_scan_bwd.cu", [
+        ("int base = reduce_scatter(v, ch);", "int base = 0;"),
+        ("base = reduce_scatter(v, ch);", "base = 0;"),
+        ("float ddt[SEG], dxs[SEG];",
+         "float ddt[SEG], dxs[SEG];\n"
+         "  const float dt0 = *at_seg<float, CH, SEG>(dts, g, 0, c);\n"
+         "  const float x0 = to_f32(*at_seg<T, CH, SEG>(xs, g, 0, c));\n"
+         "  const float dy0 = to_f32(*at_seg<T, CH, SEG>(dys, g, 0, c));"),
+        ("*at_seg<float, CH, SEG>(dts, g, s, c)", "dt0"),
+        ("to_f32(*at_seg<T, CH, SEG>(xs, g, s, c))", "x0"),
+        ("to_f32(*at_seg<T, CH, SEG>(dys, g, s, c))", "dy0"),
+        ("    __syncthreads();                    // this state's warp sums are written\n"
+         "    block_sum(rb, out, n, NMAX);\n", "")]),
+    # The selective-scan backward of this tree (8-step segments, states in
+    # pairs).
+    "ssm: no dB/dC channel sums": ("ssm_scan_bwd.cu", [
+        ("    channel_sums(dA, h, ch, red + (grp & 1) * RED_HALF, w, g);\n", "")]),
+    "ssm: no lane scans": ("ssm_scan_bwd.cu", [
+        ("      lane_scans(P[j], hc[j], Q[j], hin[j], qin[j], g, ch, hstart[j], q[j], "
+         "first[j]);\n",
+         "      hstart[j] = hin[j], q[j] = qin[j], first[j] = Q[j];\n")]),
+    "ssm: no per-pair barrier and block sum": ("ssm_scan_bwd.cu", [
+        ("    __syncthreads();                    // this pair's warp sums are written\n"
+         "    block_sum(red + (grp & 1) * RED_HALF, out, n0, L::OSTR);\n", "")]),
+    "ssm: B, C rows read as broadcasts": ("ssm_scan_bwd.cu", [
+        ("*bc_at<NMAX>(bcs, g, s, grp)", "*bc_at<NMAX>(bcs, 0, s, grp)")]),
+    "ssm: loads and stores only": ("ssm_scan_bwd.cu", [
+        ("    bwd_chunk<T, NMAX>(st, a2s, qc, dAs, red, out, ds, N, g, c, w, ch,\n"
+         "                       nt - g * SEG, dD);\n", "")]),
+    # The RG-LRU backward of this tree (4-step segments over 16 lanes).
+    "rglru: loads and stores only": ("rglru_scan_bwd.cu", [
+        ("    const float first = bwd_chunk<T>(st, neg_c_lam, qc, g, c, ch, nt - g * SEG, lam);\n",
+         "    const float first = qc;\n")]),
+    "rglru: 4 stages": ("rglru_scan_bwd.cu", [
+        ("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")]),
+    "rglru: 64 channels a block of 32 warps": ("rglru_scan_bwd.cu", [
+        ("constexpr int WARPS = 16;", "constexpr int WARPS = 32;"),
+        ("__launch_bounds__(THREADS, 2) rglru_scan_bwd_kernel(",
+         "__launch_bounds__(THREADS, 1) rglru_scan_bwd_kernel(")]),
+}
+
+# Instruction classes by opcode prefix, in the order they are tried.
+CLASSES = (("LDS", ("LDS", "LDSM")), ("STS", ("STS",)), ("SHFL", ("SHFL",)),
+           ("MUFU", ("MUFU",)), ("FP32", ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL",
+                                          "FSETP", "FSWZADD")),
+           ("BAR", ("BAR",)), ("global", ("LDG", "STG", "LDGSTS", "LDGDEPBAR")))
+KERNELS = {"ssm_scan_bwd.cu": r"ssm_scan_bwd_kernel<__nv_bfloat16, (\(int\))?16>",
+           "rglru_scan_bwd.cu": r"rglru_scan_bwd_kernel<__nv_bfloat16"}
+LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+
+
+def sass_functions(lib: Path, tools) -> dict:
+    """{demangled kernel name: [(address, opcode, operands)]} of a library."""
+    text = subprocess.run([tools["cuobjdump"], "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = []
+            funcs[m.group(1)] = cur
+            continue
+        m = LINE.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    names = subprocess.run([tools["cu++filt"]], input="\n".join(funcs),
+                           capture_output=True, text=True).stdout.splitlines()
+    return dict(zip(names, funcs.values()))
+
+
+def loop_counts(code, per_iteration: int) -> list:
+    """Counts by class, and per element, of each innermost loop (a backward
+    branch's span) that holds a MUFU.EX2."""
+    loops = []
+    for addr, op, rest in code:
+        m = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            body = [o for a, o, _ in code if lo <= a <= addr]
+            if any(o.startswith("MUFU.EX2") for o in body):
+                loops.append((lo, addr, body))
+    inner = [lp for lp in loops if not any(
+        o is not lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    out = []
+    for lo, hi, body in inner:
+        counts = {"all": len(body)}
+        for name, prefixes in CLASSES:
+            counts[name] = sum(1 for o in body if o.startswith(prefixes))
+        out.append({"span": [hex(lo), hex(hi)], "count": counts,
+                    "per_element": {k: round(v / per_iteration, 3)
+                                    for k, v in counts.items()}})
+    return out
+
+
+def constant(src: str, name: str, default: int) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    return int(m.group(1)) if m else default
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--sass-only", action="store_true",
+                    help="count instructions of the tree's sources; build and time no ablation")
+    ap.add_argument("--dump", default=None,
+                    help="write each counted kernel's SASS into this directory")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("ablate_scan_bwd: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, rglru_scan, ssm_scan
+
+    torch.set_grad_enabled(False)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    bindir = Path(_build.find_nvcc()).parent
+    tools = {t: str(bindir / t) for t in ("cuobjdump", "cu++filt")}
+    csrc = _build.CSRC
+    out = {"src": args.src, "sass": {}, "ablations": {}}
+
+    # Every variant's csrc: the tree's own and one copy per ablation.
+    variants = {"as is": csrc}
+    for name, (source, subs) in ({} if args.sass_only else ABLATIONS).items():
+        text = (csrc / source).read_text()
+        missing = [old for old, _ in subs if old not in text]
+        if missing:
+            out["ablations"][name] = "not applicable: text not in this source"
+            continue
+        for old, new in subs:
+            text = text.replace(old, new)
+        d = ROOT / "build" / "ablate" / re.sub(r"\W+", "-", name).strip("-") / "csrc"
+        if d.exists():
+            shutil.rmtree(d)
+        shutil.copytree(csrc, d)
+        (d / source).write_text(text)
+        variants[name] = d
+
+    def compile_one(item):
+        """Build one variant's sources with nvcc, into build/ablate/."""
+        name, d = item
+        libs = {}
+        for s in KERNELS:
+            if name != "as is" and ABLATIONS[name][0] != s:
+                continue
+            lib = ROOT / "build" / "ablate" / (
+                re.sub(r"\W+", "-", f"{name}-{Path(s).stem}").strip("-") + ".so")
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(d / s)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} {s}:\n{proc.stderr}")
+            libs[s] = lib
+        return name, libs
+
+    with ThreadPoolExecutor(max_workers=len(variants)) as pool:
+        libs = dict(pool.map(compile_one, variants.items()))
+
+    for name, by_source in libs.items():
+        for source, lib in by_source.items():
+            text = (variants[name] / source).read_text()
+            per_it = constant(text, "SEG", 1) * constant(text, "GROUP", 1)
+            funcs = sass_functions(lib, tools)
+            fn = next((f for f in funcs if re.search(KERNELS[source], f)), None)
+            out["sass"][f"{name}: {source}"] = (
+                {"kernel": fn, "elements_per_iteration": per_it,
+                 "loops": loop_counts(funcs[fn], per_it)} if fn else "kernel not found")
+            if fn and args.dump:
+                dump = Path(args.dump) / (re.sub(r"\W+", "-", f"{name}-{source}") + ".sass")
+                dump.parent.mkdir(parents=True, exist_ok=True)
+                dump.write_text("\n".join(f"{a:06x} {o}{r}" for a, o, r in funcs[fn]))
+
+    if args.sass_only:
+        print(json.dumps(out), flush=True)
+        return 0
+    # Times: each variant's library loaded in place of the wrapper's.
+    sys.path.insert(0, str(ROOT / "tools"))
+    from bench_scans import backward_calls
+    calls = {f"{name}.cu": call for name, call in
+             backward_calls(torch, cs, ssm_scan, rglru_scan).items()}
+
+    def time_with(lib: Path, source: str) -> float:
+        _build._LOADED[source] = ctypes.CDLL(str(lib))
+        ssm_scan._bwd_fns.cache_clear()
+        rglru_scan._bwd_fn.cache_clear()
+        call, iters = calls[source]
+        return cs.time_ms(torch, call, iters=iters)
+
+    times = {}
+    order = [n for n in libs if n != "as is"]
+    for rnd in range(2):                     # as is, variants, ..., in turns
+        for name in ["as is"] + (order if rnd == 0 else order[::-1]):
+            for source, lib in libs[name].items():
+                times.setdefault(f"{name}: {source}", []).append(
+                    time_with(lib, source))
+    out["ablations"].update(times)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
