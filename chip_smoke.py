@@ -21,7 +21,12 @@ without the final result line:
    less one, a chunk, a chunk plus 3 and two chunks plus 17, ragged channel
    blocks on the cp.async and the plain-load routes, N in {1, 5, 12, 16})
    and the main-path shapes, in f32 and bf16, among them recurrentgemma-9b's
-   local training shape (B=2, T=3000, head dim 256, window 2048).
+   local training shape (B=2, T=3000, head dim 256, window 2048) and the
+   MoE / encoder-decoder / vision archs' shapes: whisper-small's encoder
+   (4, 1500, 1500, 12, 12, 64) and cross-attention (4, 448, 1500, 12, 12,
+   64), both non-causal; paligemma-3b's training shape (4, 768, 768, 8, 1,
+   256), causal with no window; granite-moe (4, 1024, 1024, 16, 8, 64) and
+   phi3.5-moe (4, 1024, 1024, 32, 8, 128), forward and backward.
    Tolerances: f32 atol/rtol 1e-4, bf16 outputs 2e-2, the scans' f32 final
    states 1e-4; the flash forward's log-sum-exp (written for the backward)
    against a plain logsumexp at 1e-4, with its output bit-identical to the
@@ -31,8 +36,8 @@ without the final result line:
    quantization's int8 codes exactly equal and its
    scales within 1e-6.  The flash kernels' path queries must put the bf16
    main shapes (qwen3, llama3 (H/K 16, forward only), recurrentgemma-local
-   and starcoder2 forward, starcoder2 and recurrentgemma-local backward) on
-   the tensor cores and
+   and starcoder2 forward, starcoder2 and recurrentgemma-local backward, the
+   five new shapes forward and backward) on the tensor cores and
    f32 on the FMA kernels, and the backward's group split must be the one
    each case expects.  The scans' backward kernels, through autograd,
    against f32 autograd of the plain scans over the same cases and the
@@ -45,7 +50,10 @@ without the final result line:
    the last-position logits): qwen3-32b 2 layers, B=1, T=256;
    falcon-mamba-7b 2 layers, B=1, T=256; recurrentgemma-9b 3 layers (one
    rglru, rglru, local super-block), B=1, T=2100, past its 2048 window;
-   qwen2-72b and llama3-405b 1 layer, B=1, T=256.
+   qwen2-72b and llama3-405b 1 layer, B=1, T=256; granite-moe-1b-a400m 2
+   layers, phi3.5-moe-42b-a6.6b 1 layer, whisper-small 2 + 2 layers over
+   its 1500 frames and paligemma-3b 2 layers behind its 256 patches, B=1,
+   T=256.
    Then one starcoder2-3b train step (2 layers, B=2, T=256, AdamW lr 3e-4)
    with the flash kernels against the same step on plain attention: loss,
    grad norm and every updated parameter within 1e-3, and each leaf's
@@ -54,21 +62,38 @@ without the final result line:
    microbatches against 1 on the card, held to the same checks.  The same
    step and checks for falcon-mamba-7b (2 layers) and recurrentgemma-9b (3
    layers, so that a local layer runs), B=2, T=256: the scans' forward and
-   backward kernels against the plain scans under autograd.
+   backward kernels against the plain scans under autograd; and for
+   granite-moe (2 layers), phi3.5-moe (1), whisper (2 + 2, 1500 frames) and
+   paligemma (2, 256 patches), B=2, T=256: the flash kernels against plain
+   attention under the experts, the encoder and cross-attention, and the
+   patch prefix.
 5. Main paths, with every kernel's launch count set to 0 just before each
    run and read just after.  ``repro_torch.launch.serve`` at full width,
    bf16, batch 4, 32 greedy decode steps: qwen3-32b 8 layers, prompt 1024
    (flash 8); falcon-mamba-7b 8 layers, prompt 1024 (ssm 8);
    recurrentgemma-9b 8 layers, prompt 3000 (rglru 6, flash 2); qwen2-72b
-   8 layers and llama3-405b 4 layers, prompt 1024 (flash 8 and 4).
+   8 layers and llama3-405b 4 layers, prompt 1024 (flash 8 and 4);
+   granite-moe-1b-a400m all 24 layers and phi3.5-moe-42b-a6.6b 8, prompt
+   1024 (flash 24 and 8); whisper-small 12 + 12 layers, 1500 frames,
+   prompt 64 (flash 36: 12 encoder, 12 self, 12 cross); paligemma-3b all 18
+   layers, 256 patches + prompt 256 (flash 18; the cache holds patches,
+   prompt and decode, and decoding starts after the patches); launch counts
+   from ``serve_launches``.
    ``repro_torch.launch.train`` for falcon-mamba-7b (8 layers, B=4,
-   T=1024) and recurrentgemma-9b (8 layers, B=2, T=3000, past its window;
-   the last 64-step chunk holds 56), bf16, one microbatch, 3 steps on
-   fresh batches, then 3 more on one batch where the loss must fall; each
-   checkpointed layer (``remat``, ``remat_policy="full"``) runs its
-   forward kernel twice a step, each other layer once, and every scan or
-   attention layer its backward kernel once: falcon-mamba ssm 16 / 8 a
-   step, recurrentgemma rglru 10 / 6 and flash 4 / 2.
+   T=1024), recurrentgemma-9b (8 layers, B=2, T=3000, past its window;
+   the last 64-step chunk holds 56), granite-moe (all 24 layers, B=4,
+   T=1024), phi3.5-moe (3 layers, about 4.2 B params; B=4, T=1024),
+   whisper (12 + 12, B=4, the decoder's 448 positions over 1500 frames)
+   and paligemma (all 18, B=4, 256 patches + 512 tokens), bf16, one
+   microbatch, 3 steps on fresh batches, then 3 more on one batch where the
+   loss must fall; each checkpointed layer (``remat``,
+   ``remat_policy="full"``; every super-block and encoder layer) runs its
+   forward kernels twice a step, each other layer once, and every scan or
+   attention launch has its backward launch: falcon-mamba ssm 16 / 8 a
+   step, recurrentgemma rglru 10 / 6 and flash 4 / 2, granite flash 48 /
+   24, phi3.5 6 / 3, whisper 72 / 36, paligemma 36 / 18
+   (``train_launches``).  The two MoE archs then take the loss and
+   gradients of one step twice on one batch: bit for bit equal.
    ``repro_torch.launch.train`` for starcoder2-3b at full width, 8 layers,
    bf16, B=4, T=1024, 3 steps on fresh batches: with remat, 16 flash
    forward and 8 flash backward launches per step; the loss is finite.
@@ -119,7 +144,8 @@ without the final result line:
    replaced (one thread per channel walking all T).  The scans' backward
    kernels and the flash backward at the recurrentgemma local training
    shape (head dim 256, the tensor cores' warp-pair kernels) against
-   autograd of plain and of SDPA.
+   autograd of plain and of SDPA; the flash forward and backward at
+   whisper's encoder shape and paligemma's training shape.
 7. The ``kernels`` JSON line (the scans' entries with their tile sizes),
    then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -204,10 +230,26 @@ LOCAL_SHAPE = (4, 3000, 3000, 16, 1, 256, True, 2048)  # recurrentgemma local
 TRAIN_SHAPE = (4, 1024, 1024, 24, 2, 128, True, 0)     # starcoder2-3b train, B=4
 LLAMA3_SHAPE = (4, 1024, 1024, 128, 8, 128, True, 0)   # llama3-405b prefill
 LOCAL_TRAIN_SHAPE = (2, 3000, 3000, 16, 1, 256, True, 2048)  # its training
+# The MoE, encoder-decoder and vision archs' main shapes, each with the group
+# split of its tensor-core backward: whisper-small's encoder (non-causal,
+# 1500 frames) and cross-attention (448 decoder positions over 1500 frames),
+# head dim 64, MHA; paligemma-3b's training shape (256 patches + 512 tokens,
+# MQA 8:1, head dim 256, no window); granite-moe and phi3.5-moe prefill.
+WHISPER_ENC_SHAPE = (4, 1500, 1500, 12, 12, 64, False, 0)
+WHISPER_CROSS_SHAPE = (4, 448, 1500, 12, 12, 64, False, 0)
+PALI_TRAIN_SHAPE = (4, 768, 768, 8, 1, 256, True, 0)
+GRANITE_SHAPE = (4, 1024, 1024, 16, 8, 64, True, 0)
+PHI_SHAPE = (4, 1024, 1024, 32, 8, 128, True, 0)
+ARCH_SHAPES = {WHISPER_ENC_SHAPE: 1, WHISPER_CROSS_SHAPE: 1, PALI_TRAIN_SHAPE: 8,
+               GRANITE_SHAPE: 1, PHI_SHAPE: 1}
 ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
-            + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LOCAL_TRAIN_SHAPE])
+            + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LOCAL_TRAIN_SHAPE]
+            + list(ARCH_SHAPES))
 FWD_ONLY = [LLAMA3_SHAPE]
-BWD_TC_GROUPS.update({TRAIN_SHAPE: 4, LOCAL_SHAPE: 3, LOCAL_TRAIN_SHAPE: 6})
+BWD_TC_GROUPS.update({TRAIN_SHAPE: 4, LOCAL_SHAPE: 3, LOCAL_TRAIN_SHAPE: 6,
+                      **ARCH_SHAPES})
+# Shapes whose bf16 forward must take the tensor cores.
+TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, *ARCH_SHAPES)
 # Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
 # ties, and the largest gradient leaf of the starcoder2-3b main path (the
 # (3072, 12288) FFN matrix cut into 1024-wide rows by grad_compress._rows).
@@ -264,19 +306,37 @@ MAIN_PATHS = [("qwen3-32b", serve_args("qwen3-32b", 1024)),
               ("recurrentgemma-9b", serve_args("recurrentgemma-9b", 3000)),
               ("qwen2-72b", serve_args("qwen2-72b", 1024)),
               # 4 layers: about 34 GB of bf16 weights at llama3's widths.
-              ("llama3-405b", serve_args("llama3-405b", 1024, layers=4))]
+              ("llama3-405b", serve_args("llama3-405b", 1024, layers=4)),
+              # All 24 layers (1.39 B params); phi3.5 at 8 of 32 (10.7 B,
+              # 21 GB); whisper all 12 + 12 with 1500 frames; paligemma all
+              # 18 layers, its 256 patches in front of the prompt.
+              ("granite-moe-1b-a400m", serve_args("granite-moe-1b-a400m", 1024,
+                                                  layers=24)),
+              ("phi3.5-moe-42b-a6.6b", serve_args("phi3.5-moe-42b-a6.6b", 1024)),
+              ("whisper-small", serve_args("whisper-small", 64, layers=12)),
+              ("paligemma-3b", serve_args("paligemma-3b", 256, layers=18))]
 
 
-def train_args(arch: str, batch: int, seq: int) -> list:
-    return ["--arch", arch, "--layers", "8", "--batch", str(batch), "--seq",
-            str(seq), "--steps", "3", "--microbatches", "1", "--device",
-            "cuda", "--seed", "0"]
+def train_args(arch: str, batch: int, seq: int, layers: int = 8) -> list:
+    return ["--arch", arch, "--layers", str(layers), "--batch", str(batch),
+            "--seq", str(seq), "--steps", "3", "--microbatches", "1",
+            "--device", "cuda", "--seed", "0"]
 
 
-# The recurrent archs train at 8 layers, one microbatch (their configs'
-# microbatches size the reference's multi-chip step).
-RECURRENT_TRAIN = [("falcon-mamba-7b", train_args("falcon-mamba-7b", 4, 1024)),
-                   ("recurrentgemma-9b", train_args("recurrentgemma-9b", 2, 3000))]
+# These archs train through launch.train with one microbatch (their configs'
+# microbatches size the reference's multi-chip step): the recurrent archs at
+# 8 layers; granite-moe at all 24; phi3.5-moe at 3 (about 4.2 B params, 50 GB
+# of weights, gradients and f32 moments); whisper at 12 + 12 with the
+# decoder's published 448 positions over 1500 frames; paligemma at all 18,
+# 256 patches + 512 tokens.
+TRAIN_PATHS = [("falcon-mamba-7b", train_args("falcon-mamba-7b", 4, 1024)),
+                   ("recurrentgemma-9b", train_args("recurrentgemma-9b", 2, 3000)),
+                   ("granite-moe-1b-a400m",
+                    train_args("granite-moe-1b-a400m", 4, 1024, layers=24)),
+                   ("phi3.5-moe-42b-a6.6b",
+                    train_args("phi3.5-moe-42b-a6.6b", 4, 1024, layers=3)),
+                   ("whisper-small", train_args("whisper-small", 4, 448, layers=12)),
+                   ("paligemma-3b", train_args("paligemma-3b", 4, 512, layers=18))]
 TRAIN_ARGS = ["--arch", "starcoder2-3b", "--layers", "8", "--batch", "4",
               "--seq", "1024", "--steps", "3", "--device", "cuda", "--seed", "0"]
 MEMORIZE_STEPS = 3
@@ -307,29 +367,48 @@ def expect(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
+def layer_launches(cfg, t: str) -> dict:
+    """Forward kernel launches of one decoder layer of type ``t``: its mixer's
+    kernel, and for an encoder-decoder one flash launch more for its
+    cross-attention (every block but mamba's has one)."""
+    cross = int(cfg.kind == "encdec" and t != "mamba")
+    return {"flash_attention": int(t in ("attn", "local")) + cross,
+            "ssm_scan": int(t == "mamba"), "rglru_scan": int(t == "rglru")}
+
+
+def serve_launches(cfg) -> dict:
+    """Launches of one prefill of ``cfg``: each layer's (``layer_launches``)
+    and one flash launch per encoder layer."""
+    types = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    counts = {name: sum(layer_launches(cfg, t)[name] for t in types)
+              for name in ("flash_attention", "ssm_scan", "rglru_scan")}
+    if cfg.kind == "encdec":
+        counts["flash_attention"] += cfg.enc_layers
+    return expect(**counts)
+
+
 def train_launches(cfg, steps: int) -> dict:
     """Launches of ``steps`` train steps of ``cfg`` with one microbatch.
-    Under ``remat`` (``remat_policy="full"``) each super-block is
-    checkpointed, so its layers run their forward kernels twice a step (the
-    forward and its recomputation in the backward), the remainder layers
-    once; every layer runs its backward kernel once."""
+    Under ``remat`` (``remat_policy="full"``) each super-block and each
+    encoder layer is checkpointed, so its layers run their forward kernels
+    twice a step (the forward and its recomputation in the backward), the
+    remainder layers once; every forward launch has one backward launch."""
     check(not cfg.remat or cfg.remat_policy == "full",
           f"{cfg.name}: remat_policy {cfg.remat_policy!r}, not 'full'")
     P = len(cfg.pattern)
     ckpt = cfg.n_super * P if cfg.remat else 0
     types = [cfg.pattern[i % P] for i in range(cfg.n_layers)]
-
-    def fwd(kinds):
-        return steps * sum(2 if i < ckpt else 1
-                           for i, t in enumerate(types) if t in kinds)
-
-    def bwd(kinds):
-        return steps * sum(t in kinds for t in types)
-
-    attn = ("attn", "local")
-    return expect(flash_attention=fwd(attn), flash_attention_bwd=bwd(attn),
-                  ssm_scan=fwd(("mamba",)), ssm_scan_bwd=bwd(("mamba",)),
-                  rglru_scan=fwd(("rglru",)), rglru_scan_bwd=bwd(("rglru",)))
+    fwd = {"flash_attention": 0, "ssm_scan": 0, "rglru_scan": 0}
+    bwd = dict(fwd)
+    for i, t in enumerate(types):
+        for name, n in layer_launches(cfg, t).items():
+            fwd[name] += (2 if i < ckpt else 1) * n
+            bwd[name] += n
+    if cfg.kind == "encdec":
+        fwd["flash_attention"] += (2 if cfg.remat else 1) * cfg.enc_layers
+        bwd["flash_attention"] += cfg.enc_layers
+    return expect(**{name: steps * n for name, n in fwd.items()},
+                  **{f"{name}_bwd": steps * n for name, n in bwd.items()})
 
 
 def phase(n: int, name: str, detail: str = "") -> None:
@@ -610,6 +689,8 @@ def main() -> int:
     from repro_torch.models.transformer import init_params
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.frontends import extra_inputs
+    from repro_torch.serve.decode import prefix_len
     from repro_torch.train import grad_compress as gc_
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import (loss_fn, make_train_step,
@@ -664,7 +745,7 @@ def main() -> int:
                 path = fa.fwd_path(dtype, case[5], fa._aligned(q, k, v, got))
                 check(dtype == torch.bfloat16 or path == 0,
                       f"flash_attention_cuda {case} f32: path {path}, not the FMA kernel")
-                main = case in (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE)
+                main = case in TC_FORWARD
                 if dtype == torch.bfloat16 and main:
                     check(path == 1, f"flash_attention_cuda {case} bf16: path "
                           f"{fa.PATHS[path]}, not the tensor cores")
@@ -763,6 +844,9 @@ def main() -> int:
                 main_err["flash_attention_bwd"] = max(errs)
             if dtype == torch.bfloat16 and case == LOCAL_TRAIN_SHAPE:
                 main_err["flash_local_bwd"] = max(errs)
+            if dtype == torch.bfloat16 and case in ARCH_SHAPES:
+                main_err[("flash_attention_bwd", case)] = max(errs)
+                paths[("flash_attention_bwd", case)] = path
             n_cases += 1
             del q, k, v, qf, kf, vf, dout, got, want
             free()
@@ -867,6 +951,15 @@ def main() -> int:
             ("starcoder2 backward", paths[("flash_attention_bwd", TRAIN_SHAPE)]),
             ("recurrentgemma-local backward",
              paths[("flash_attention_bwd", LOCAL_TRAIN_SHAPE)])))
+    arch_line = "; ".join(
+        f"{name} {case}: forward {fa.PATHS[paths[('flash_attention', case)]]} "
+        f"{main_err[('flash_attention', case)]:.3e}, backward "
+        f"{fa.PATHS[paths[('flash_attention_bwd', case)]]} "
+        f"{ARCH_SHAPES[case]} groups {main_err[('flash_attention_bwd', case)]:.3e}"
+        for name, case in (("whisper encoder", WHISPER_ENC_SHAPE),
+                           ("whisper cross", WHISPER_CROSS_SHAPE),
+                           ("paligemma train", PALI_TRAIN_SHAPE),
+                           ("granite", GRANITE_SHAPE), ("phi3.5", PHI_SHAPE)))
     phase(3, "kernels against plain",
           f"{n_cases} cases; paths (bf16): {path_line}; f32 on the FMA "
           "kernels; flash backward, both scans and both scan backwards "
@@ -884,7 +977,8 @@ def main() -> int:
           f"flash backward starcoder2 bf16 {main_err['flash_attention_bwd']:.3e} "
           f"and recurrentgemma-local bf16 {main_err['flash_local_bwd']:.3e} "
           "(against f32 autograd of plain), "
-          f"quantize scales f32 {main_err['quantize']:.3e} (codes equal)")
+          f"quantize scales f32 {main_err['quantize']:.3e} (codes equal); the "
+          f"MoE / encoder-decoder / vision shapes, bf16 max abs err: {arch_line}")
 
     # -- 4. whole models at full width, kernels against plain -----------------
     plain = {"flash_attention": ref.attention_ref, "ssm_scan": ref.ssm_scan_ref,
@@ -904,16 +998,25 @@ def main() -> int:
     details = []
     for arch, layers, T in (("qwen3-32b", 2, 256), ("falcon-mamba-7b", 2, 256),
                             ("recurrentgemma-9b", 3, 2100), ("qwen2-72b", 1, 256),
-                            ("llama3-405b", 1, 256)):
+                            ("llama3-405b", 1, 256), ("granite-moe-1b-a400m", 2, 256),
+                            ("phi3.5-moe-42b-a6.6b", 1, 256), ("whisper-small", 2, 256),
+                            ("paligemma-3b", 2, 256)):
+        # whisper: 2 decoder and 2 encoder layers over its 1500 frames;
+        # paligemma: its 256 patches in front of the T tokens.
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   dtype=torch.float32)
+        if cfg.kind == "encdec":
+            cfg = dataclasses.replace(cfg, enc_layers=layers)
         model = init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
                             "cuda")
-        toks = torch.randint(0, cfg.vocab, (1, T), device="cuda",
-                             generator=torch.Generator(device="cuda").manual_seed(2))
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        toks = torch.randint(0, cfg.vocab, (1, T), device="cuda", generator=gen)
+        extras = extra_inputs(cfg, 1, gen, "cuda")
+        max_len = prefix_len(model, **extras) + T
         with torch.inference_mode():
-            with_kernel, cache_k = model.prefill(toks, T)
-            with_plain, cache_p = on_plain(lambda: model.prefill(toks, T))
+            with_kernel, cache_k = model.prefill(toks, max_len, **extras)
+            with_plain, cache_p = on_plain(lambda: model.prefill(toks, max_len,
+                                                                 **extras))
         torch.cuda.synchronize()
         V = cfg.vocab
         werr = (with_kernel[..., :V] - with_plain[..., :V]).abs().max().item()
@@ -924,9 +1027,10 @@ def main() -> int:
                     for ck, cp in zip(cache_k, cache_p) if "h" in ck], default=0.0)
         check(herr <= 1e-3, f"{arch}: recurrent state kernels vs plain max abs "
               f"err {herr:.3e} > 1e-3")
-        details.append(f"{arch} {layers}L T={T} logits {werr:.3e}"
+        details.append(f"{arch} {layers}L T={T}{' +' + str(max_len - T) if max_len > T else ''}"
+                       f" logits {werr:.3e}"
                        + (f" state {herr:.3e}" if cfg.pattern != ("attn",) else ""))
-        del model, with_kernel, with_plain, cache_k, cache_p
+        del model, with_kernel, with_plain, cache_k, cache_p, extras
         free()
 
     # One train step: with the flash kernels (forward and backward) against
@@ -975,14 +1079,19 @@ def main() -> int:
     del sk, mk, pk, runs, batch
     free()
 
-    # The same step for the recurrent archs: the scans' forward and backward
-    # kernels against the plain scans under autograd.  The kernels' updated
-    # parameters and first moments wait on the host while the plain step
-    # runs (recurrentgemma's 256000-row tables make two f32 states too many
-    # for the card).
-    for arch, layers in (("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3)):
+    # The same step for the recurrent archs (the scans' forward and backward
+    # kernels against the plain scans under autograd), the MoE archs, whisper
+    # (2 + 2 layers, 1500 frames) and paligemma (256 patches + 256 tokens).
+    # The kernels' updated parameters and first moments wait on the host
+    # while the plain step runs (recurrentgemma's 256000-row tables make two
+    # f32 states too many for the card).
+    for arch, layers in (("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3),
+                         ("granite-moe-1b-a400m", 2), ("phi3.5-moe-42b-a6.6b", 1),
+                         ("whisper-small", 2), ("paligemma-3b", 2)):
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   dtype=torch.float32)
+        if cfg.kind == "encdec":
+            cfg = dataclasses.replace(cfg, enc_layers=layers)
         batch = synthetic_batch(4, cfg, 2, 256, "cuda")
         step1 = make_train_step(cfg, opt, num_microbatches=1)
 
@@ -1029,12 +1138,10 @@ def main() -> int:
         counts = read_counts()
         launches[arch] = counts
         cfg = res.cfg
-        types = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
-        want = expect(flash_attention=sum(t in ("attn", "local") for t in types),
-                      ssm_scan=types.count("mamba"),
-                      rglru_scan=types.count("rglru"))
+        want = serve_launches(cfg)
         check(counts == want, f"{arch}: kernel launches {counts} in the main "
-              f"path, expected one per layer of its type in prefill {want}")
+              f"path, expected one per layer of its type (and per encoder and "
+              f"cross-attention layer) in prefill {want}")
         B, steps = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--steps") + 1])
         check(tuple(res.tokens.shape) == (B, steps),
               f"{arch}: tokens {tuple(res.tokens.shape)}")
@@ -1051,11 +1158,17 @@ def main() -> int:
         del res
         free()
 
-    # The recurrent archs train through launch.train's own function: their
-    # scans' forward kernels (twice in a checkpointed layer) and backward
-    # kernels, recurrentgemma's local layers through the flash kernels at
-    # head dim 256; then 3 more steps on one batch, where the loss falls.
-    for arch, argv in RECURRENT_TRAIN:
+    # These archs train through launch.train's own function: the recurrent
+    # archs' scans' forward kernels (twice in a checkpointed layer) and
+    # backward kernels, recurrentgemma's local layers through the flash
+    # kernels at head dim 256; the MoE archs' experts through sort_scatter;
+    # whisper's encoder, decoder and cross-attention and paligemma's patch
+    # prefix through the flash kernels; then 3 more steps on one batch, where
+    # the loss falls.  The MoE archs then take the loss and gradients of one
+    # more step twice, which must agree bit for bit (AdamW is elementwise on
+    # them, so the two steps would too): the dispatch and combine add in a
+    # fixed order, forward and backward.
+    for arch, argv in TRAIN_PATHS:
         reset_counts()
         tr = train_launch.run(argv)
         counts = read_counts()
@@ -1092,7 +1205,34 @@ def main() -> int:
               f"{launches[f'{arch} train']}; then {MEMORIZE_STEPS} steps on "
               f"one batch: losses {', '.join(f'{x:.4f}' for x in mem_losses)}; "
               f"launches {counts}")
-        del tr, step, one, state, metrics
+        del step, metrics
+        if cfg.is_moe:
+            reset_counts()
+            params = dict(state["params"].named_parameters())
+            runs = []
+            for _ in range(2):
+                loss, aux = loss_fn(state["params"], one, cfg)
+                grads = torch.autograd.grad(loss, list(params.values()))
+                runs.append((loss.detach().cpu(), aux["moe_aux"].detach().cpu(),
+                             [g.cpu() for g in grads]))
+                del loss, aux, grads
+            counts = read_counts()
+            launches[f"{arch} twice"] = counts
+            want = train_launches(cfg, 2)
+            check(counts == want, f"{arch} twice: kernel launches {counts}, "
+                  f"expected {want}")
+            (l1, a1, g1), (l2, a2, g2) = runs
+            differ = [n for n, x, y in zip(params, g1, g2) if not torch.equal(x, y)]
+            check(torch.equal(l1, l2) and torch.equal(a1, a2) and not differ,
+                  f"{arch}: the same step twice gives losses {float(l1)!r}, "
+                  f"{float(l2)!r}, aux {float(a1)!r}, {float(a2)!r}; gradients "
+                  f"differ in {differ}")
+            phase(5, f"main path {arch} determinism",
+                  f"the loss ({float(l1):.6f}, MoE aux {float(a1):.6f}) and all "
+                  f"{len(g1)} gradient leaves of one step, twice: bit-equal; "
+                  f"launches {counts}")
+            del params, runs, l1, a1, g1, l2, a2, g2
+        del tr, one, state
         free()
 
     # Training: launch.train's own function, then one error-feedback int8
@@ -1383,6 +1523,48 @@ def main() -> int:
             f"by {b_by} ({detail}; f32 CUDA-core bound "
             f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
 
+    def flash_bwd_times(shape, seed: int, plain_iters: int):
+        """The flash backward alone at ``shape`` (bf16, tensor cores), from
+        one forward's saved tensors, against autograd of plain and of SDPA."""
+        B, T, S, H, K, D, causal, window = shape
+        q, k, v = (x.requires_grad_() for x in
+                   attn_inputs(torch, shape, torch.bfloat16, seed=seed))
+        dout = randn(torch, torch.Generator(device="cuda").manual_seed(seed + 1),
+                     q.shape, torch.bfloat16)
+        with torch.no_grad():
+            o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
+                                       with_lse=True)
+        path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
+        check(path == "tensor cores",
+              f"flash backward {shape}: path {path}, not the tensor cores")
+        groups = fa.bwd_groups(B, S, H, K)
+        ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
+            q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo),
+            iters=10)
+        plain_out = ref.attention_ref(q, k, v, causal=causal, window=window)
+        plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+            plain_out, (q, k, v), dout, retain_graph=True), iters=plain_iters,
+            warmup=1)
+        del plain_out
+        free()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True).transpose(1, 2)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            library_out, (q, k, v), dout, retain_graph=True), iters=10)
+        flops = 10 * D * visible_pairs(T, S, causal, window) * B * H
+        b_ms, b_by, detail = bound(flops, PEAK_BF16_FLOPS, 0,
+                                   nbytes(q, k, v, o, dout, lse, q, k, v))
+        del q, k, v, dout, o, lse, o_lo, qt, kt, vt, library_out
+        free()
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=library_ms, path=path, groups=groups), (
+            f"flash_attention backward bf16 {shape} ({path}, {groups} groups): "
+            f"kernel {ms:.4f} ms ({ms / b_ms:.2f}x bound), plain (autograd) "
+            f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({detail}; f32 CUDA-core bound "
+            f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms)")
+
     times, lines = {}, []
     times["flash_attention"], line = flash_times(MAIN_SHAPE)
     lines.append(line)
@@ -1390,6 +1572,15 @@ def main() -> int:
     lines.append(line)
     times["flash_train"], line = flash_times(TRAIN_SHAPE)
     lines.append(line)
+    # whisper's encoder and paligemma's training shape, forward and backward.
+    arch_times = {}
+    for label, shape, seed in (("whisper_encoder", WHISPER_ENC_SHAPE, 87),
+                               ("paligemma_train", PALI_TRAIN_SHAPE, 85)):
+        fwd_t, line = flash_times(shape)
+        lines.append(line)
+        bwd_t, line = flash_bwd_times(shape, seed, plain_iters=3)
+        lines.append(line)
+        arch_times[label] = (shape, fwd_t, bwd_t)
 
     # The flash backward at the starcoder2 training shape: each call is the
     # backward alone, from one forward's saved tensors.
@@ -1606,6 +1797,11 @@ def main() -> int:
                  "launches": sum(by_path.values()),
                  "max_abs_err": err, **times[name],
                  "launches_by_path": by_path}
+        if name in ("flash_attention", "flash_attention_bwd"):
+            for label, (shape, fwd_t, bwd_t) in arch_times.items():
+                entry[f"at_{label}"] = dict(
+                    shape=list(shape), max_abs_err=main_err[(name, shape)],
+                    **(fwd_t if name == "flash_attention" else bwd_t))
         if name == "flash_attention":
             entry["at_recurrentgemma_local"] = dict(
                 shape=list(LOCAL_SHAPE),

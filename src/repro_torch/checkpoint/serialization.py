@@ -3,7 +3,8 @@
 Ported from ``repro.checkpoint.serialization``.  The port's train state
 ``{"opt": {"m", "step", "v"}, "params": Transformer, "step"}`` holds one
 tensor per layer; a checkpoint holds the reference's tree, whose
-``blocks/b{i}`` leaves stack the layers along ``n_super``
+``blocks/b{i}`` leaves stack the layers along ``n_super`` (and
+``enc_blocks`` the encoder layers along ``enc_layers``)
 (:func:`repro_torch.convert.reference_layout`).  Leaves come in jax's
 order: dict keys sorted at every level (``"b10" < "b2"``), joined with
 :data:`SEP`.  So the leaf list, its order, each leaf's bytes and the
@@ -57,8 +58,10 @@ def _find_cfg(tree) -> Optional[ModelConfig]:
 
 
 def _port_names(node: Mapping) -> bool:
-    """A mapping keyed by the port's parameter names (the moments)."""
-    return bool(node) and all("." in k for k in node)
+    """A mapping keyed by the port's parameter names (the moments): the
+    reference's keys never hold a dot, and all but a top-level leaf such as
+    ``patch_proj`` of the port's do."""
+    return any("." in k for k in node)
 
 
 def _walk(node, prefix: Tuple[str, ...], cfg: Optional[ModelConfig],
@@ -121,7 +124,7 @@ def deserialize_tree(template, arrays: Dict[str, torch.Tensor]):
 
     Every leaf is a fresh tensor on the template leaf's device, in its dtype;
     a ``Transformer`` is a new module whose parameters take the template's
-    ``requires_grad``.  Only the leading ``n_super`` axis is unstacked.  The
+    ``requires_grad``.  Only the leading stacked axis is unstacked.  The
     template is not touched."""
     return _build(template, (), arrays, _find_cfg(template))
 

@@ -6,7 +6,12 @@ a leading ``n_super`` axis, and unstacked ``rem{i}`` blocks for the pattern
 remainder.  Given that tree as nested dicts of numpy arrays
 (``jax.device_get`` of it), this module builds the port's ``state_dict``:
 with ``P = len(cfg.pattern)``, port layer ``s*P + i`` takes index ``s`` of
-``blocks.b{i}`` and layer ``n_super*P + i`` takes ``rem{i}``.  bf16 arrays
+``blocks.b{i}`` and layer ``n_super*P + i`` takes ``rem{i}``; an
+encoder-decoder's encoder layer ``j`` takes index ``j`` of ``enc_blocks``
+(stacked along ``enc_layers``).  Every other leaf (``embed``,
+``final_norm``, ``enc_final_norm``, ``patch_proj``) maps to itself, and
+within a block the names are the reference's (``mixer``, ``cross``,
+``norm_c``, ``ffn.router`` and the ``(E, ...)`` experts).  bf16 arrays
 (an ``ml_dtypes`` dtype) are reinterpreted bit for bit, so this package
 never imports ``ml_dtypes``.  :func:`reference_path` gives that map for
 one port parameter name, so gradients and updates compare leaf by leaf.
@@ -56,11 +61,14 @@ def opt_state_from_reference(opt: Mapping[str, Any],
 def reference_path(name: str, cfg: ModelConfig
                    ) -> Tuple[Tuple[str, ...], Optional[int]]:
     """(path of keys into the reference tree, index along its stacked
-    ``n_super`` axis or None) of the port parameter ``name``:
+    axis or None) of the port parameter ``name``:
     ``layers.{s*P+i}.<group>.<leaf>`` -> (("blocks", "b{i}", group, leaf), s),
-    a remainder layer -> (("rem{i}", group, leaf), None), and
-    ``embed`` / ``final_norm`` leaves to themselves."""
+    a remainder layer -> (("rem{i}", group, leaf), None),
+    ``enc_layers.{j}.<group>.<leaf>`` -> (("enc_blocks", group, leaf), j),
+    and every other leaf to itself."""
     parts = tuple(name.split("."))
+    if parts[0] == "enc_layers":
+        return ("enc_blocks",) + parts[2:], int(parts[1])
     if parts[0] != "layers":
         return parts, None
     layer, rest = int(parts[1]), parts[2:]
@@ -86,8 +94,9 @@ def reference_layout(params: Mapping[str, torch.Tensor], cfg: ModelConfig
                      ) -> Dict[str, Any]:
     """The reference's nested tree for the port parameters ``params`` (a
     ``named_parameters`` mapping, or the moments keyed the same way): a
-    stacked leaf holds the list of its ``n_super`` port tensors in order,
-    an unstacked leaf its one tensor."""
+    stacked leaf holds the list of its port tensors in order (``n_super``
+    of them under ``blocks``, ``enc_layers`` under ``enc_blocks``), an
+    unstacked leaf its one tensor."""
     tree: Dict[str, Any] = {}
     for name, t in params.items():
         path, index = reference_path(name, cfg)
@@ -97,7 +106,8 @@ def reference_layout(params: Mapping[str, torch.Tensor], cfg: ModelConfig
         if index is None:
             node[path[-1]] = t
         else:
-            node.setdefault(path[-1], [None] * cfg.n_super)[index] = t
+            depth = cfg.enc_layers if path[0] == "enc_blocks" else cfg.n_super
+            node.setdefault(path[-1], [None] * depth)[index] = t
     return tree
 
 

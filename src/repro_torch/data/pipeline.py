@@ -12,8 +12,10 @@ makes the corpus from an int seed (the reference derives that int from a
 :func:`synthetic_batch` gives random batches for smoke runs and the
 launcher.  The reference draws them from a ``jax.random`` key; here they
 come from an int seed or a ``torch.Generator``, so the numbers differ and
-tests feed both packages one numpy batch.  Audio and vision inputs wait
-for the encoder-decoder and vision slice.
+tests feed both packages one numpy batch.  An audio or vision arch's batch
+also holds its stub ``frames`` or ``patches``
+(:func:`repro_torch.models.frontends.extra_inputs`), drawn from the same
+generator after the tokens.
 """
 
 from __future__ import annotations
@@ -25,24 +27,23 @@ import torch
 
 from repro_torch.data.dlio import PreloadedStore
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import extra_inputs
 
 
 def synthetic_batch(seed: Union[int, torch.Generator], cfg: ModelConfig,
                     batch: int, seq: int, device="cuda"
                     ) -> Dict[str, torch.Tensor]:
     """{"tokens", "labels"}: (batch, seq) int64 on ``device`` (the card
-    unless the caller asks for the CPU), tokens uniform in [0, vocab).  An
-    int seed makes a generator on ``device``; a given generator must live
-    there."""
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.frontend} frontend inputs are not yet ported "
-            "(encoder-decoder and vision slice)")
+    unless the caller asks for the CPU), tokens uniform in [0, vocab); plus
+    ``frames`` (batch, enc_len, D) for an audio arch or ``patches`` (batch,
+    vision_patches, D) for a vision arch, in ``cfg.dtype``.  An int seed
+    makes a generator on ``device``; a given generator must live there."""
     gen = (torch.Generator(device=device).manual_seed(seed)
            if isinstance(seed, int) else seed)
     toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                          device=device)
-    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1),
+            **extra_inputs(cfg, batch, gen, device)}
 
 
 def make_token_samples(seed: int, n: int, seq: int, vocab: int

@@ -4,8 +4,10 @@
 * :mod:`repro_torch.examples.train_checkpoint` — ingest -> train -> checkpoint,
   a host failure and an elastic restart
 * :mod:`repro_torch.examples.quickstart`       — train, generate, checkpoint
+* :mod:`repro_torch.examples.consistency_litmus` — seeded litmus programs on
+  the four consistency layers against the race checker (no device)
 
 Each runs as ``python -m repro_torch.examples.<name>`` with the reference
-example's flags and defaults, plus ``--device`` (the card unless the caller
-asks for the CPU).
+example's flags and defaults, plus, for the three that train, ``--device``
+(the card unless the caller asks for the CPU).
 """

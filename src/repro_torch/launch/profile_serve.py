@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen3-32b \\
         --layers 8 --batch 4 --prompt-len 1024 --steps 32
 
-Takes the arguments of ``repro_torch.launch.serve``.  Runs the batch once to
+Takes the arguments of ``repro_torch.launch.serve`` (every arch, with its
+frames or patches).  Runs the batch once to
 warm up (kernel build, cuBLAS plans, allocator), then once more with a
 profiler window around prefill and another around the decode steps.  For
 each window it prints the wall time (after a device synchronize), the
@@ -19,7 +20,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch.serve import parse_args, serve_batch, setup, sync
-from repro_torch.serve.decode import make_prefill, make_serve_step
+from repro_torch.serve.decode import make_prefill, make_serve_step, prefix_len
 
 
 def report(prof, name: str, wall_s: float, device: torch.device,
@@ -46,12 +47,12 @@ def report(prof, name: str, wall_s: float, device: torch.device,
 @torch.inference_mode()
 def main(argv=None) -> int:
     args = parse_args(argv)
-    model, prompt = setup(args)
+    model, prompt, extras = setup(args)
     device = prompt.device
-    serve_batch(model, prompt, args.steps)            # warm-up run
+    serve_batch(model, prompt, args.steps, extras)    # warm-up run
 
-    B, Tp = prompt.shape
-    prefill = make_prefill(model, Tp + args.steps)
+    start = prefix_len(model, **extras) + prompt.shape[1]
+    prefill = make_prefill(model, start + args.steps)
     step = make_serve_step(model)
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -60,13 +61,13 @@ def main(argv=None) -> int:
     sync(device)
     with profile(activities=activities) as p_pre:
         t0 = time.perf_counter()
-        tok, _, cache = prefill(prompt)
+        tok, _, cache = prefill(prompt, **extras)
         sync(device)
         t_pre = time.perf_counter() - t0
     with profile(activities=activities) as p_dec:
         t0 = time.perf_counter()
         for i in range(args.steps - 1):
-            tok, _, cache = step(cache, tok[:, None], Tp + i)
+            tok, _, cache = step(cache, tok[:, None], start + i)
         sync(device)
         t_dec = time.perf_counter() - t0
     report(p_pre, "prefill", t_pre, device)

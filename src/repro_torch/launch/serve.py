@@ -6,12 +6,21 @@
         --layers 8 --batch 4 --prompt-len 1024 --steps 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
         --layers 8 --batch 4 --prompt-len 3000 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \\
+        --batch 4 --prompt-len 256 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+        --tiny --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is given; ``--device cuda``
 without a card raises.  Weights are random, drawn from ``--seed`` on the
 device; ``--layers`` cuts the depth, every width stays the architecture's.
 ``--tiny`` selects the architecture's tiny test config in f32, as the
-reference launcher does.  Prints prefill ms, decode ms/step and tok/s, with
+reference launcher does.  An audio or vision arch also gets its stub frames
+or patches (``models.frontends.extra_inputs``, from the same seed); a
+vision arch's cache holds its patches in front of the prompt, so decoding
+starts at position patches + prompt (``serve.decode.prefix_len``).  An
+MoE arch routes through ``sort_scatter`` (``moe_impl="a2a"`` too, until the
+distribution slice).  Prints prefill ms, decode ms/step and tok/s, with
 the clocks read after a device synchronize.  The first prefill in a
 process also loads the CUDA kernels it runs, and in a fresh checkout
 builds them (``repro_torch.kernels._build``); ``launch.profile_serve``
@@ -29,8 +38,9 @@ import torch
 
 from repro_torch.configs.registry import ARCHS, get_config, tiny_config
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import extra_inputs
 from repro_torch.models.transformer import Transformer, init_params
-from repro_torch.serve.decode import make_prefill, make_serve_step
+from repro_torch.serve.decode import make_prefill, make_serve_step, prefix_len
 
 
 class ServeRun(NamedTuple):
@@ -73,8 +83,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def setup(args: argparse.Namespace):
-    """(model, prompt) for parsed arguments; weights and prompt are drawn
-    from ``args.seed`` on ``args.device``."""
+    """(model, prompt, extras) for parsed arguments; weights, prompt and the
+    arch's frames / patches are drawn from ``args.seed`` on
+    ``args.device``."""
     device = resolve_device(args.device)
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     if args.tiny:
@@ -92,20 +103,23 @@ def setup(args: argparse.Namespace):
     model = init_params(cfg, gen, device)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=device)
-    return model, prompt
+    return model, prompt, extra_inputs(cfg, args.batch, gen, device)
 
 
 @torch.inference_mode()
-def serve_batch(model: Transformer, prompt: torch.Tensor,
-                steps: int) -> ServeRun:
-    """Prefill ``prompt`` and decode ``steps`` greedy tokens, timed."""
+def serve_batch(model: Transformer, prompt: torch.Tensor, steps: int,
+                extras: Optional[dict] = None) -> ServeRun:
+    """Prefill ``prompt`` (with the arch's ``extras``) and decode ``steps``
+    greedy tokens, timed."""
+    extras = extras or {}
     B, Tp = prompt.shape
-    prefill = make_prefill(model, Tp + steps)
+    start = prefix_len(model, **extras) + Tp
+    prefill = make_prefill(model, start + steps)
     step = make_serve_step(model)
 
     sync(prompt.device)
     t0 = time.perf_counter()
-    tok, logits, cache = prefill(prompt)
+    tok, logits, cache = prefill(prompt, **extras)
     sync(prompt.device)
     t_pre = time.perf_counter() - t0
     print(f"prefill: {t_pre * 1e3:.3f} ms ({B * Tp / t_pre:.1f} tok/s)",
@@ -114,7 +128,7 @@ def serve_batch(model: Transformer, prompt: torch.Tensor,
     toks, all_logits = [tok], [logits]
     t1 = time.perf_counter()
     for i in range(steps - 1):
-        tok, logits, cache = step(cache, tok[:, None], Tp + i)
+        tok, logits, cache = step(cache, tok[:, None], start + i)
         toks.append(tok)
         all_logits.append(logits)
     sync(prompt.device)
@@ -130,8 +144,8 @@ def serve_batch(model: Transformer, prompt: torch.Tensor,
 
 def run(argv=None) -> ServeRun:
     args = parse_args(argv)
-    model, prompt = setup(args)
-    return serve_batch(model, prompt, args.steps)
+    model, prompt, extras = setup(args)
+    return serve_batch(model, prompt, args.steps, extras)
 
 
 def main(argv: Optional[list] = None) -> int:

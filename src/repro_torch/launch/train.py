@@ -7,6 +7,10 @@ checkpoints through the paper's consistency layers.
         --tiny --device cpu --steps 20 --batch 8 --seq 64
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --layers 8 --batch 4 --seq 1024 --steps 3 --microbatches 1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b \\
+        --layers 3 --batch 4 --seq 1024 --steps 3 --microbatches 1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+        --tiny --device cpu --steps 3 --batch 4 --seq 16
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --tiny --device cpu --steps 5 --ckpt-every 2 --fail-at 3 \\
         --consistency session --ckpt-hosts 4
@@ -32,12 +36,17 @@ and training resumes from that step (from a fresh state at step 0 if no
 checkpoint exists yet).  Each save and the restore print their host wall
 time.
 
-Every ported architecture trains on the card: attention through the flash
-kernels' forward and backward, and the mamba and RG-LRU blocks through the
-scans' forward kernels and their CUDA backward kernels
-(``csrc/ssm_scan_bwd.cu``, ``csrc/rglru_scan_bwd.cu``); on the CPU all of
-them differentiate through the plain versions.  ``--mesh`` raises
-``NotImplementedError`` until the distribution slice brings it.
+Every architecture trains on the card: attention (self, encoder and
+cross) through the flash kernels' forward and backward, and the mamba and
+RG-LRU blocks through the scans' forward kernels and their CUDA backward
+kernels (``csrc/ssm_scan_bwd.cu``, ``csrc/rglru_scan_bwd.cu``); on the CPU
+all of them differentiate through the plain versions.  An audio or vision
+arch's batches carry its stub frames or patches (``synthetic_batch``); an
+MoE arch adds 0.01 times its load-balance loss and routes through
+``sort_scatter``.  The configs' ``microbatches`` (8, 16) size the
+reference's multi-chip step; on one card pass ``--microbatches 1``.
+``--mesh`` raises ``NotImplementedError`` until the distribution slice
+brings it.
 """
 
 from __future__ import annotations
@@ -105,13 +114,9 @@ def batch_seed(seed: int, step: int) -> int:
     return int(np.random.SeedSequence((seed, step)).generate_state(1)[0])
 
 
-def run(argv=None) -> TrainRun:
-    args = parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training comes with the distribution "
-            "slice (ROADMAP.md §1); run with --mesh none")
-    device = resolve_device(args.device)
+def config_from_args(args: argparse.Namespace) -> ModelConfig:
+    """The arch's config (``--tiny``: its tiny config in f32), cut to
+    ``--layers``."""
     cfg = tiny_config(args.arch) if args.tiny else get_config(args.arch)
     if args.tiny:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
@@ -119,6 +124,17 @@ def run(argv=None) -> TrainRun:
         if not 0 < args.layers <= cfg.n_layers:
             raise ValueError(f"--layers must be in 1..{cfg.n_layers}")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
+def run(argv=None) -> TrainRun:
+    args = parse_args(argv)
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: sharded training comes with the distribution "
+            "slice (ROADMAP.md §1); run with --mesh none")
+    device = resolve_device(args.device)
+    cfg = config_from_args(args)
     if min(args.steps, args.batch, args.seq, args.ckpt_hosts) < 1:
         raise ValueError("--steps, --batch, --seq and --ckpt-hosts must be >= 1")
     if min(args.ckpt_every, args.fail_at) < 0:

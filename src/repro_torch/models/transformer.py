@@ -1,22 +1,31 @@
-"""Model assembly for decoder LMs built from a block pattern.
+"""Model assembly: decoder LMs and encoder-decoders from block patterns.
 
 Ported from ``repro.models.transformer``.  Block types: ``attn`` (global
 causal attention), ``local`` (sliding-window attention with a ring KV
 cache), ``rglru`` (RecurrentGemma's recurrent block) and ``mamba`` (mamba1,
 mixer only).  Layer ``i`` has type ``cfg.pattern[i % len(cfg.pattern)]``.
+With ``cfg.is_moe`` a block's FFN is the mixture of experts of
+:mod:`repro_torch.models.moe`, and ``forward`` returns its load-balance
+loss summed over the layers.  An encoder-decoder (``kind="encdec"``,
+whisper) adds ``cfg.enc_layers`` bidirectional MHA encoder layers over the
+stub audio frames and, in each decoder block, cross-attention to their
+output after the mixer; its serving cache holds each layer's cross K/V
+(``ck``, ``cv``).  A vision arch (``frontend="vision"``, paligemma)
+projects the stub patch embeddings and prepends them to the tokens, so a
+sequence of T tokens runs as P + T positions.
 The reference scans stacked parameters over super-blocks (one period of the
 pattern) and unrolls the remainder; here the layers are an
 ``nn.ModuleList`` in the same order, so port layer ``s*P + i`` holds index
 ``s`` of the reference's ``blocks.b{i}`` and layer ``n_super*P + i`` its
-``rem{i}`` (see :func:`repro_torch.convert.params_from_reference`).  The
-reference's sharding constraints and block-boundary optimization barrier do
-nothing on one card and are dropped.  MoE, encoder-decoders and multimodal
-frontends raise ``NotImplementedError``.
+``rem{i}``; encoder layer ``j`` holds index ``j`` of ``enc_blocks`` (see
+:func:`repro_torch.convert.params_from_reference`).  The reference's
+sharding constraints and block-boundary optimization barrier do nothing on
+one card and are dropped.
 
 Entry points, as in the reference:
 * :meth:`Transformer.forward`     -- full-sequence logits; differentiable,
-  with ``cfg.remat`` checkpointing each super-block as the reference's
-  ``jax.checkpoint`` of its scan body does.
+  with ``cfg.remat`` checkpointing each super-block (and each encoder
+  layer) as the reference's ``jax.checkpoint`` of its scan bodies does.
 * :meth:`Transformer.prefill`     -- runs the prompt, builds the KV / state
   cache, returns last-position logits.
 * :meth:`Transformer.decode_step` -- one token against the cache.
@@ -24,6 +33,7 @@ Entry points, as in the reference:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple
 
@@ -33,6 +43,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
@@ -79,18 +90,32 @@ def _pdict(shapes: L.Shapes, device) -> nn.ParameterDict:
     })
 
 
-class Block(nn.Module):
-    """One block of type ``btype``: norm1 -> mixer, then norm2 -> FFN except
-    for ``mamba``, whose block is norm + mixer only."""
+_FRONTENDS = ("", "audio", "vision")
 
-    def __init__(self, btype: str, cfg: ModelConfig, device):
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """Whisper encoder: same width, bidirectional MHA (kv == heads)."""
+    return dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
+
+
+class Block(nn.Module):
+    """One block of type ``btype``: norm1 -> mixer, with ``cross`` norm_c ->
+    cross-attention, then norm2 -> FFN (the experts when ``cfg.is_moe``);
+    a ``mamba`` block is norm + mixer only."""
+
+    def __init__(self, btype: str, cfg: ModelConfig, device,
+                 cross: bool = False):
         super().__init__()
         self.btype = btype
         self.norm1 = _pdict(L.norm_params(cfg), device)
         self.mixer = _pdict(_MIXERS[btype][0](cfg), device)
         if btype != "mamba":
+            if cross:
+                self.norm_c = _pdict(L.norm_params(cfg), device)
+                self.cross = _pdict(L.attn_params(cfg), device)
             self.norm2 = _pdict(L.norm_params(cfg), device)
-            self.ffn = _pdict(L.ffn_params(cfg), device)
+            self.ffn = _pdict(M.moe_params(cfg) if cfg.is_moe
+                              else L.ffn_params(cfg), device)
 
 
 def _fill_kv(c: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
@@ -110,7 +135,8 @@ def _fill_kv(c: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
 
 
 class Transformer(nn.Module):
-    """Decoder LM; parameters are allocated uninitialized on ``device``.
+    """Decoder LM or encoder-decoder; parameters are allocated uninitialized
+    on ``device``.
 
     Fill them with :func:`init_params` or ``load_state_dict`` (see
     :func:`repro_torch.convert.params_from_reference`).  Parameters do not
@@ -120,20 +146,31 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if (cfg.kind != "decoder" or cfg.is_moe or cfg.frontend
+        if (cfg.kind not in ("decoder", "encdec") or cfg.frontend not in _FRONTENDS
                 or any(b not in _MIXERS for b in cfg.pattern)):
             raise NotImplementedError(
-                f"{cfg.name}: only decoders made of {sorted(_MIXERS)} blocks "
-                f"are ported (kind={cfg.kind}, pattern={cfg.pattern}, "
-                f"moe_experts={cfg.moe_experts}, frontend={cfg.frontend!r})")
+                f"{cfg.name}: the port builds decoders and encoder-decoders "
+                f"of {sorted(_MIXERS)} blocks with frontends {_FRONTENDS} "
+                f"(kind={cfg.kind}, pattern={cfg.pattern}, "
+                f"frontend={cfg.frontend!r})")
         self.cfg = cfg
         Vp, D = cfg.vocab_padded, cfg.d_model
         self.embed = _pdict({"table": ((Vp, D), cfg.dtype),
                              "head": ((D, Vp), cfg.dtype)}, device)
         P = len(cfg.pattern)
-        self.layers = nn.ModuleList(Block(cfg.pattern[i % P], cfg, device)
+        cross = cfg.kind == "encdec"
+        self.layers = nn.ModuleList(Block(cfg.pattern[i % P], cfg, device, cross)
                                     for i in range(cfg.n_layers))
         self.final_norm = _pdict(L.norm_params(cfg), device)
+        if cross:
+            self.enc_cfg = _enc_cfg(cfg)
+            self.enc_layers = nn.ModuleList(Block("attn", self.enc_cfg, device)
+                                            for _ in range(cfg.enc_layers))
+            self.enc_final_norm = _pdict(L.norm_params(cfg), device)
+        if cfg.frontend == "vision":
+            self.patch_proj = nn.Parameter(
+                torch.empty((D, D), dtype=cfg.dtype, device=device),
+                requires_grad=False)
 
     @property
     def device(self) -> torch.device:
@@ -141,16 +178,21 @@ class Transformer(nn.Module):
 
     # -- full sequence --------------------------------------------------------
     def _block(self, blk: Block, x: torch.Tensor, positions: torch.Tensor,
-               cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        """One block over the whole sequence; fills ``cache`` in place when
-        given (prefill)."""
-        cfg = self.cfg
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               enc_out: Optional[torch.Tensor] = None,
+               cfg: Optional[ModelConfig] = None, causal: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One block over the whole sequence: (x, the MoE's aux loss or
+        None).  Fills ``cache`` in place when given (prefill); ``enc_out``
+        adds cross-attention to it; ``cfg`` and ``causal`` default to the
+        decoder's."""
+        cfg = cfg or self.cfg
         h = L.apply_norm(blk.norm1, x, cfg)
         if blk.btype == "mamba":
             mix, st = _mamba_prefill(blk.mixer, h, cfg)
             if cache is not None:
                 cache.update(st)
-            return x + mix
+            return x + mix, None
         if blk.btype == "rglru":
             mix, rec, hT = R.rglru_mix(blk.mixer, h, cfg)
             if cache is not None:
@@ -159,25 +201,85 @@ class Transformer(nn.Module):
             window = cfg.local_window if blk.btype == "local" else 0
             q, k, v = L.attn_qkv(blk.mixer, h, cfg, positions)
             mix = L.attn_out(blk.mixer, ops.flash_attention(
-                q, k, v, causal=True, window=window))
+                q, k, v, causal=causal, window=window))
             if cfg.remat_policy == "save_attn" and torch.is_grad_enabled():
                 mix = _saved_mixer_out(mix)
             if cache is not None:
                 _fill_kv(cache, k, v, ring=blk.btype == "local")
         x = x + mix
+        if enc_out is not None:
+            # Cross-attention: queries from the decoder, K/V from the
+            # encoder output, no RoPE, no mask.
+            hc = L.apply_norm(blk.norm_c, x, cfg)
+            q, k, v = L.attn_qkv(blk.cross, hc, cfg, None, kv_from=enc_out)
+            x = x + L.attn_out(blk.cross, ops.flash_attention(q, k, v,
+                                                              causal=False))
+            if cache is not None:
+                cache["ck"], cache["cv"] = k, v
         h2 = L.apply_norm(blk.norm2, x, cfg)
-        return x + L.ffn_forward(blk.ffn, h2, cfg)
+        if cfg.is_moe:
+            y, aux = M.moe_forward(blk.ffn, h2, cfg)
+            return x + y, aux
+        return x + L.ffn_forward(blk.ffn, h2, cfg), None
 
-    def _super_block(self, s: int, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+    def _super_block(self, s: int, x: torch.Tensor, positions: torch.Tensor,
+                     enc_out: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         P = len(self.cfg.pattern)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers[s * P:(s + 1) * P]:
-            x = self._block(blk, x, positions)
-        return x
+            x, a = self._block(blk, x, positions, enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
-    def forward(self, tokens: torch.Tensor
+    def _enc_block(self, j: int, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        return self._block(self.enc_layers[j], x, positions, cfg=self.enc_cfg,
+                           causal=False)[0]
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over (B, S, D) frames: bidirectional attention with
+        RoPE positions 0..S-1, as the reference's ``attn_forward`` gives
+        them; each layer checkpointed under grad with ``cfg.remat``."""
+        x = frames
+        positions = torch.arange(x.shape[1], device=x.device)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for j in range(len(self.enc_layers)):
+            if remat:
+                x = ckpt.checkpoint(self._enc_block, j, x, positions,
+                                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._enc_block(j, x, positions)
+        return L.apply_norm(self.enc_final_norm, x, self.cfg)
+
+    def _inputs(self, tokens: torch.Tensor, frames: Optional[torch.Tensor],
+                patches: Optional[torch.Tensor]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the embedded sequence, with the projected patches in front for a
+        vision arch; the encoder output for an encoder-decoder given
+        frames, else None)."""
+        cfg = self.cfg
+        x = L.embed(self.embed, tokens, cfg)
+        if cfg.frontend == "vision" and patches is not None:
+            pe = torch.einsum("bpd,de->bpe", patches.to(cfg.dtype),
+                              self.patch_proj)
+            x = torch.cat([pe, x], dim=1)
+        enc_out = (self._encode(frames) if cfg.kind == "encdec"
+                   and frames is not None else None)
+        return x, enc_out
+
+    def forward(self, tokens: torch.Tensor,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens: (B,T) integer.  Returns (logits (B,T,Vp), moe_aux = 0).
+        """tokens: (B,T) integer.  Returns (logits (B,T',Vp), moe_aux f32).
+
+        ``frames``: (B, enc_len, D) stub audio embeddings (whisper);
+        ``patches``: (B, P, D) stub vision embeddings (paligemma), projected
+        and prepended, so T' = P + T.  ``moe_aux`` sums each layer's
+        load-balance loss in the reference's order (super-blocks, then the
+        remainder); 0 without experts.
 
         Under grad with ``cfg.remat``, each super-block (one period of the
         pattern) is a non-reentrant ``torch.utils.checkpoint``: only its
@@ -185,57 +287,70 @@ class Transformer(nn.Module):
         "save_attn"`` also keeps each mixer output).  The remainder layers
         are not checkpointed, as in the reference."""
         cfg = self.cfg
-        x = L.embed(self.embed, tokens, cfg)
+        x, enc_out = self._inputs(tokens, frames, patches)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
         context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts,
                                         _save_attn_policy)
                       if cfg.remat_policy == "save_attn" else ckpt.noop_context_fn)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for s in range(cfg.n_super):
             if remat:
-                x = ckpt.checkpoint(self._super_block, s, x, positions,
-                                    use_reentrant=False, context_fn=context_fn,
-                                    preserve_rng_state=False)
+                x, a = ckpt.checkpoint(self._super_block, s, x, positions, enc_out,
+                                       use_reentrant=False, context_fn=context_fn,
+                                       preserve_rng_state=False)
             else:
-                x = self._super_block(s, x, positions)
+                x, a = self._super_block(s, x, positions, enc_out)
+            aux = aux + a
         P = len(cfg.pattern)
         for blk in self.layers[cfg.n_super * P:]:
-            x = self._block(blk, x, positions)
+            x, a = self._block(blk, x, positions, enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
         x = L.apply_norm(self.final_norm, x, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return L.unembed(self.embed, x, cfg), aux
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:
         """Per layer: ``{"k", "v"}`` for attention (a ring of
         ``min(max_len, local_window)`` slots for ``local``), ``{"conv", "h"}``
-        for ``rglru`` and ``mamba``."""
+        for ``rglru`` and ``mamba``; an encoder-decoder's also hold the
+        cross K/V ``{"ck", "cv"}`` (B, enc_len, n_heads, head_dim), zero
+        until prefill fills them."""
         cfg, dev = self.cfg, self.device
         cache: Cache = []
         for blk in self.layers:
             if blk.btype == "rglru":
-                cache.append(R.rglru_cache_init(cfg, batch, cfg.dtype, dev))
+                c = R.rglru_cache_init(cfg, batch, cfg.dtype, dev)
             elif blk.btype == "mamba":
-                cache.append(S.mamba_cache_init(cfg, batch, cfg.dtype, dev))
+                c = S.mamba_cache_init(cfg, batch, cfg.dtype, dev)
             else:
                 S_ = (min(max_len, cfg.local_window) if blk.btype == "local"
                       else max_len)
                 shape = (batch, S_, cfg.n_kv_heads, cfg.head_dim)
-                cache.append({"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                              "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)})
+                c = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            if cfg.kind == "encdec":
+                shape = (batch, cfg.enc_len, cfg.n_heads, cfg.head_dim)
+                c["ck"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+                c["cv"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+            cache.append(c)
         return cache
 
-    def prefill(self, tokens: torch.Tensor, max_len: int
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Run the prompt, build the cache, return last-position logits
-        (B,1,Vp)."""
+        """Run the prompt (after the projected patches of a vision arch),
+        build the cache, return last-position logits (B,1,Vp).  The cache
+        holds positions 0..max_len-1: a vision arch's P patches take the
+        first P, so decoding starts at index P + T."""
         cfg = self.cfg
-        B, T = tokens.shape
-        x = L.embed(self.embed, tokens, cfg)
-        positions = torch.arange(T, device=x.device)
-        cache = self.init_cache(B, max_len)
+        x, enc_out = self._inputs(tokens, frames, patches)
+        positions = torch.arange(x.shape[1], device=x.device)
+        cache = self.init_cache(tokens.shape[0], max_len)
         for blk, c in zip(self.layers, cache):
-            x = self._block(blk, x, positions, c)
+            x, _ = self._block(blk, x, positions, c, enc_out=enc_out)
         x = L.apply_norm(self.final_norm, x[:, -1:], cfg)
         return L.unembed(self.embed, x, cfg), cache
 
@@ -261,10 +376,28 @@ class Transformer(nn.Module):
                     blk.mixer, h, cfg, c["k"], c["v"], index,
                     window=cfg.local_window if local else 0, ring=local)
             x = x + mix
+            if "ck" in c:      # cross-attention against the encoder's K/V
+                hc = L.apply_norm(blk.norm_c, x, cfg)
+                x = x + L.attn_out(blk.cross, _cross_decode(
+                    blk.cross, hc, cfg, c["ck"], c["cv"]))
             h2 = L.apply_norm(blk.norm2, x, cfg)
-            x = x + L.ffn_forward(blk.ffn, h2, cfg)
+            if cfg.is_moe:
+                x = x + M.moe_forward(blk.ffn, h2, cfg)[0]
+            else:
+                x = x + L.ffn_forward(blk.ffn, h2, cfg)
         x = L.apply_norm(self.final_norm, x, cfg)
         return L.unembed(self.embed, x, cfg), cache
+
+
+def _cross_decode(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
+                  ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One query per sequence against the whole cross cache.  As the
+    reference's ``_cross_decode``: the query projection and qk-norm, without
+    the q bias."""
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    if cfg.qk_norm:
+        q = L._qk_normalize(q, p["q_norm"])
+    return ops.decode_attention(q, ck, cv, ck.shape[1])
 
 
 def _mamba_prefill(p: L.Params, x: torch.Tensor, cfg: ModelConfig
@@ -280,8 +413,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """A model with the reference's initialization scheme: dense weights
     N(0,1)/sqrt(fan_in) drawn in f32 and cast to ``cfg.dtype``; norm and
     qk-norm scales 1, biases 0; the recurrent mixers' constants as in
-    ``repro.models.ssm.mamba_init`` and ``repro.models.rglru.rglru_init``.
-    ``generator`` must live on ``device``.
+    ``repro.models.ssm.mamba_init`` and ``repro.models.rglru.rglru_init``;
+    the experts and router as ``repro.models.moe.moe_init``; the patch
+    projection with fan-in d_model.  ``generator`` must live on ``device``.
     """
     model = Transformer(cfg, device=device)
     D = cfg.d_model
@@ -289,10 +423,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         L.dense_(model.embed["table"], D, generator)
         L.dense_(model.embed["head"], D, generator)
         L.norm_init_(model.final_norm)
-        for blk in model.layers:
+        blocks = [(blk, cfg) for blk in model.layers]
+        if cfg.kind == "encdec":
+            blocks += [(blk, model.enc_cfg) for blk in model.enc_layers]
+            L.norm_init_(model.enc_final_norm)
+        for blk, bcfg in blocks:
             L.norm_init_(blk.norm1)
-            _MIXERS[blk.btype][1](blk.mixer, cfg, generator)
-            if blk.btype != "mamba":
-                L.norm_init_(blk.norm2)
-                L.ffn_init_(blk.ffn, cfg, generator)
+            _MIXERS[blk.btype][1](blk.mixer, bcfg, generator)
+            if blk.btype == "mamba":
+                continue
+            if hasattr(blk, "cross"):
+                L.norm_init_(blk.norm_c)
+                L.attn_init_(blk.cross, bcfg, generator)
+            L.norm_init_(blk.norm2)
+            if bcfg.is_moe:
+                M.moe_init_(blk.ffn, bcfg, generator)
+            else:
+                L.ffn_init_(blk.ffn, bcfg, generator)
+        if cfg.frontend == "vision":
+            L.dense_(model.patch_proj, D, generator)
     return model

@@ -3,6 +3,13 @@
 Ported from ``repro.serve.decode``.  The model object carries its config and
 parameters, so the factories take it in place of the reference's
 ``(cfg, params)`` pair.  Argmax is taken on f32 logits, as in the reference.
+
+A vision arch's prefill prepends its P projected patches, so the prompt's
+tokens sit at positions P..P+Tp-1 and the first decoded token at P+Tp:
+:func:`generate` sizes the cache ``P + Tp + steps`` and starts decoding at
+index ``P + Tp`` (:func:`prefix_len`).  The reference's ``generate`` sizes
+it ``Tp + steps`` and starts at ``Tp``, so there the first decoded token
+overwrites a prompt position's K/V and takes its RoPE position.
 """
 
 from __future__ import annotations
@@ -14,9 +21,19 @@ import torch
 from repro_torch.models.transformer import Transformer
 
 
+def prefix_len(model: Transformer, **extras) -> int:
+    """Positions that the prefill puts in front of the prompt's tokens: the
+    patches of a vision arch given ``patches``, else 0."""
+    patches = extras.get("patches")
+    if model.cfg.frontend == "vision" and patches is not None:
+        return patches.shape[1]
+    return 0
+
+
 def make_prefill(model: Transformer, max_len: int):
-    def prefill(tokens: torch.Tensor):
-        logits, cache = model.prefill(tokens, max_len)
+    def prefill(tokens: torch.Tensor, **extras):
+        """tokens: (B,Tp); extras: ``frames`` / ``patches``."""
+        logits, cache = model.prefill(tokens, max_len, **extras)
         next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
         return next_tok, logits, cache
     return prefill
@@ -33,15 +50,17 @@ def make_serve_step(model: Transformer):
 
 @torch.inference_mode()
 def generate(model: Transformer, prompt: torch.Tensor, steps: int,
-             max_len: Optional[int] = None) -> torch.Tensor:
-    """Greedy generation: (B,Tp) prompt -> (B,steps) tokens."""
+             max_len: Optional[int] = None, **extras) -> torch.Tensor:
+    """Greedy generation: (B,Tp) prompt -> (B,steps) tokens; ``extras``
+    are the arch's ``frames`` / ``patches``."""
     B, Tp = prompt.shape
-    max_len = max_len or (Tp + steps)
+    start = prefix_len(model, **extras) + Tp
+    max_len = max_len or (start + steps)
     prefill = make_prefill(model, max_len)
     step = make_serve_step(model)
-    tok, _, cache = prefill(prompt)
+    tok, _, cache = prefill(prompt, **extras)
     out = [tok]
     for i in range(steps - 1):
-        tok, _, cache = step(cache, tok[:, None], Tp + i)
+        tok, _, cache = step(cache, tok[:, None], start + i)
         out.append(tok)
     return torch.stack(out, dim=1)

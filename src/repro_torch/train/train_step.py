@@ -17,6 +17,8 @@ objects.
   keeps one microbatch's activations alive at a time without it.
 * The step does not compress gradients, as the reference's does not
   (:mod:`repro_torch.train.grad_compress` is a library).
+* With M > 1 the MoE aux loss is reported as 0, as in the reference (each
+  microbatch's aux still enters its loss and gradients).
 """
 
 from __future__ import annotations
@@ -46,10 +48,12 @@ def train_state_init(generator: torch.Generator, cfg: ModelConfig,
 def loss_fn(model: Transformer, batch: Batch, cfg: ModelConfig,
             aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal-LM cross entropy in f32 over ``logits[:, -Tl:]``, masked to
-    ``labels >= 0`` and averaged over the unmasked tokens.  batch: tokens,
-    labels."""
-    logits, aux = model(batch["tokens"])
+    """Causal-LM cross entropy in f32 over ``logits[:, -Tl:]`` (a vision
+    prefix is cut off), masked to ``labels >= 0`` and averaged over the
+    unmasked tokens, plus ``aux_weight`` times the MoE load-balance loss.
+    batch: tokens, labels (+ frames / patches)."""
+    extras = {k: batch[k] for k in ("frames", "patches") if k in batch}
+    logits, aux = model(batch["tokens"], **extras)
     labels = batch["labels"]
     Tl = labels.shape[1]
     logits = logits[:, -Tl:].float()

@@ -129,12 +129,15 @@ def _close(got, want):
 
 # B, T, S, H, K, D, causal, window: head dim 256 at recurrentgemma's GQA
 # (16:1) with a window that empties tiles, rows that see no key (T > S),
-# non-causal with T != S, and ragged tiles.
+# non-causal with T != S, and ragged tiles; paligemma's MQA (8:1) with no
+# window; head dim 64 non-causal with T != S, whisper's MHA cross-attention.
 FWD_CASES = [
     (1, 256, 256, 16, 1, 256, True, 0),
     (1, 256, 256, 16, 1, 256, True, 48),
     (1, 100, 60, 4, 2, 256, True, 0),
     (2, 70, 130, 4, 1, 256, False, 0),
+    (1, 256, 256, 8, 1, 256, True, 0),
+    (2, 70, 130, 12, 12, 64, False, 0),
 ]
 
 
@@ -159,13 +162,20 @@ def test_tc_forward_rounding_within_bf16_tolerance_of_reference(case):
 # one group per head (12).  Head dim 256 (the warp-pair kernels) at
 # recurrentgemma's GQA 16:1: T = S = 256, causal, windowed, G = 6 (its
 # training shape's split) and 16; T > S, so some rows see no key; and a
-# non-causal case with T != S.
+# non-causal case with T != S.  Head dim 64, non-causal, T != S: whisper's
+# MHA encoder and cross-attention (one group per KV head, T < S and T > S)
+# and a GQA 2:1 case split in 2.  Head dim 256 at paligemma's MQA 8:1,
+# causal with no window: G = 8 (its training shape's split) and 4.
 BWD_CASES = ([(1, 256, 256, 12, 1, D, True, window, groups)
               for D in (64, 128) for window in (0, 48) for groups in (4, 12)]
              + [(1, 256, 256, 16, 1, 256, True, window, groups)
                 for window in (0, 48) for groups in (6, 16)]
              + [(1, 100, 60, 16, 1, 256, True, 0, 6),
-                (2, 70, 130, 16, 1, 256, False, 0, 6)])
+                (2, 70, 130, 16, 1, 256, False, 0, 6)]
+             + [(2, 70, 130, 12, 12, 64, False, 0, 1),
+                (1, 150, 90, 4, 4, 64, False, 0, 1),
+                (1, 96, 200, 4, 2, 64, False, 0, 2)]
+             + [(1, 256, 256, 8, 1, 256, True, 0, groups) for groups in (8, 4)])
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=str)

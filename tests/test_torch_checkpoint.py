@@ -10,8 +10,11 @@ phases must be equal, and an elastic restore on 3 hosts with host 1 failed
 (its rows read from the partner copy) must give the saved tensors bit for bit
 and the reference restore's ledger.  States: starcoder2-3b TINY in f32 and in
 its own bf16 (bf16 leaves are raw ``uint16`` bits on the port's side),
-recurrentgemma-9b TINY (``rem{i}`` blocks beside a 1-deep stack) and a
-7-layer recurrentgemma (a 2-deep stack and a remainder).
+recurrentgemma-9b TINY (``rem{i}`` blocks beside a 1-deep stack), a
+7-layer recurrentgemma (a 2-deep stack and a remainder), granite-moe TINY
+(the f32 router and the ``(E, ...)`` experts), whisper TINY in f32 (the
+``enc_blocks`` stack, ``cross``, ``norm_c``, ``enc_final_norm``) and
+paligemma TINY (``patch_proj``, a top-level leaf).
 """
 
 import dataclasses
@@ -48,7 +51,10 @@ MODELS = ("commit", "session", "posix", "mpiio")
 STATES = {"starcoder2-f32": ("starcoder2-3b", True, None),
           "starcoder2-bf16": ("starcoder2-3b", False, None),
           "recurrentgemma-bf16": ("recurrentgemma-9b", False, None),
-          "recurrentgemma-7L": ("recurrentgemma-9b", False, 7)}
+          "recurrentgemma-7L": ("recurrentgemma-9b", False, 7),
+          "granite-bf16": ("granite-moe-1b-a400m", False, None),
+          "whisper-f32": ("whisper-small", True, None),
+          "paligemma-bf16": ("paligemma-3b", False, None)}
 _CACHE = {}
 
 

@@ -75,6 +75,41 @@ def test_flash_attention_cuda_vs_plain(case, dtype):
                                want.float().cpu().numpy(), atol=tol, rtol=tol)
 
 
+# The flash shapes of the MoE, encoder-decoder and vision archs' main paths:
+# whisper-small's encoder (non-causal, T = S = 1500) and cross-attention
+# (non-causal, 448 queries over 1500 keys), paligemma-3b's training shape
+# (MQA 8:1, head dim 256, 256 patches + 512 tokens, no window), granite's
+# and phi3.5's prefill.
+ARCH_SHAPES = [
+    (4, 1500, 1500, 12, 12, 64, False, 0),
+    (4, 448, 1500, 12, 12, 64, False, 0),
+    (4, 768, 768, 8, 1, 256, True, 0),
+    (4, 1024, 1024, 16, 8, 64, True, 0),
+    (4, 1024, 1024, 32, 8, 128, True, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ARCH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_attention_at_the_new_arch_shapes(case, dtype):
+    """Forward against plain; bf16 on the tensor cores, f32 on the FMA
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, S, H, K, D, causal, window = case
+    assert fa.fwd_path(dtype, D) == (1 if dtype == torch.bfloat16 else 0)
+    rng = np.random.default_rng(5)
+    q, k, v = (_cuda(rng, shape, dtype)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    before = fa.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    _close(got, ref.attention_ref(q, k, v, causal=causal, window=window),
+           TOL[dtype])
+
+
 # B, T, I, N -- tests/test_kernels.py SSM_CASES, then T past one tile, I not
 # a multiple of a channel block, and the full state size; then the
 # chunked kernel's edges (ss.CHUNK = 64 steps, ss.SEGMENT = 16, ss.CHANNELS
@@ -242,6 +277,17 @@ BWD_TC_CASES = [
     ((1, 130, 200, 4, 2, 256, True, 48), 2),
     ((4, 700, 700, 16, 1, 256, True, 0), 12),
     (LOCAL_TRAIN_CASE, 6),
+    # Head dim 64 non-causal with T != S (whisper's MHA, one group a KV
+    # head), head dim 256 at MQA 8:1 with no window (paligemma), and the
+    # new archs' main shapes with their splits.
+    ((2, 70, 130, 12, 12, 64, False, 0), 1),
+    ((1, 150, 90, 4, 2, 64, False, 0), 2),
+    ((1, 256, 256, 8, 1, 256, True, 0), 8),
+    ((4, 1500, 1500, 12, 12, 64, False, 0), 1),
+    ((4, 448, 1500, 12, 12, 64, False, 0), 1),
+    ((4, 768, 768, 8, 1, 256, True, 0), 8),
+    ((4, 1024, 1024, 16, 8, 64, True, 0), 1),
+    ((4, 1024, 1024, 32, 8, 128, True, 0), 1),
 ]
 
 

@@ -1,5 +1,8 @@
 """The port's example twins (``repro_torch.examples``) against the
-reference's examples, on the CPU.
+reference's examples, on the CPU.  ``consistency_litmus`` is
+framework-free: its twin must print the reference's lines exactly, and its
+source must be the reference's line for line but for its imports and
+docstring.
 
 Each pair runs at the same flags (``train_checkpoint`` at its quick flags
 ``--steps 12 --d-model 256 --layers 4``) and must print the same lines.
@@ -35,6 +38,7 @@ from repro.train import optimizer as JO  # noqa: E402
 from repro.train import train_step as JTS  # noqa: E402
 from repro_torch.convert import (opt_state_from_reference,  # noqa: E402
                                  params_from_reference, to_tensor)
+from repro_torch.examples import consistency_litmus  # noqa: E402
 from repro_torch.examples import dl_ingest, quickstart  # noqa: E402
 from repro_torch.examples import train_checkpoint  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -138,6 +142,36 @@ def test_quickstart_prints_the_reference_example(monkeypatch, capsys):
     got = capsys.readouterr().out
     _same_lines(got, want)
     assert "checkpoint roundtrip exact: True" in got
+
+
+@pytest.mark.parametrize("argv", [[], ["--fuzz", "30", "--seed", "3", "--zoo"],
+                                  ["--fuzz", "12", "--minimize"]],
+                         ids=["default", "zoo", "minimize"])
+def test_consistency_litmus_prints_the_reference_example(argv, monkeypatch,
+                                                          capsys):
+    ref = _reference_example("consistency_litmus")
+    monkeypatch.setattr(sys, "argv", ["consistency_litmus.py", *argv])
+    want_rc = ref.main(argv)
+    want = capsys.readouterr().out
+    rc = consistency_litmus.main(argv)
+    got = capsys.readouterr().out
+    assert (rc, got) == (want_rc, want)
+    assert "seeded litmus fuzz" in got
+
+
+def test_consistency_litmus_is_the_reference_line_for_line():
+    """Past the module docstring, the twin's lines are the reference's but
+    for ``repro`` -> ``repro_torch`` in its imports."""
+    def body(path):
+        text = path.read_text()
+        end = text.index('"""', 3) + 3
+        return text[end:].splitlines()
+
+    want = body(ROOT / "examples" / "consistency_litmus.py")
+    got = body(Path(consistency_litmus.__file__))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g == w.replace("from repro.", "from repro_torch."), (g, w)
 
 
 @pytest.mark.parametrize("main", [dl_ingest.main, quickstart.main,

@@ -66,8 +66,8 @@ def test_registry_ports_qwen3_and_names_the_rest():
     assert get_config("qwen3-32b") is tqwen.CONFIG
     assert tiny_config("qwen3-32b") is tqwen.TINY
     assert tqwen.CONFIG.vocab_padded == 152064
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("whisper-small")
+    # The rest resolve to their own configs (tests/test_torch_archs.py).
+    assert get_config("whisper-small").kind == "encdec"
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("no-such-arch")
 

@@ -111,13 +111,16 @@ def test_bf16_conversion_is_bit_exact():
 
 
 def test_unported_patterns_raise():
-    for kw in (dict(pattern=("attn", "moe")), dict(kind="encdec"),
-               dict(frontend="vision")):
+    # Block types, kinds and frontends the reference does not have.
+    for kw in (dict(pattern=("attn", "moe")), dict(kind="bogus"),
+               dict(frontend="lidar")):
         with pytest.raises(NotImplementedError):
             TT.Transformer(dataclasses.replace(ttiny(ARCH), **kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TT.Transformer(dataclasses.replace(ttiny(ARCH), moe_experts=4,
-                                           moe_topk=2), device="cpu")
+    # Encoder-decoders, the vision frontend and experts build since the
+    # MoE / encoder-decoder / vision slice.
+    for kw in (dict(kind="encdec", enc_layers=1), dict(frontend="vision"),
+               dict(moe_experts=4, moe_topk=2)):
+        TT.Transformer(dataclasses.replace(ttiny(ARCH), **kw), device="meta")
 
 
 def test_launch_serve_cpu_runs(capsys):

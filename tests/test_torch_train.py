@@ -301,9 +301,12 @@ def test_synthetic_batch_deterministic_with_next_token_labels():
     assert not torch.equal(a["tokens"], _batch(4, B=3, S=10)["tokens"])
     assert torch.equal(a["labels"], torch.roll(a["tokens"], -1, dims=1))
     assert int(a["tokens"].min()) >= 0 and int(a["tokens"].max()) < CFG.vocab
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        synthetic_batch(0, dataclasses.replace(CFG, frontend="audio"), 2, 4,
-                        "cpu")
+    # An audio arch's batch also holds its stub frames, from the same seed.
+    audio = dataclasses.replace(CFG, frontend="audio")
+    a = synthetic_batch(0, audio, 2, 4, "cpu")
+    assert a["frames"].shape == (2, audio.enc_len, audio.d_model)
+    assert torch.equal(a["frames"], synthetic_batch(0, audio, 2, 4, "cpu")["frames"])
+    assert torch.equal(a["tokens"], _batch(0, B=2, S=4)["tokens"])
 
 
 def test_launch_train_tiny_on_cpu(capsys):
