@@ -136,6 +136,27 @@ without the final result line:
    --ckpt-every 10``: 40 steps with a host failure after step 20 and an
    elastic restart from its checkpoint, flash 960 / 480, finite and falling
    losses, and step 40's checkpoint restored bit-equal.
+   Then the mesh phase: 4 ranks (``torch.multiprocessing.spawn``) on the
+   one card over gloo (NCCL refuses two ranks on one device), a (data=2,
+   model=2) DeviceMesh, every rank computing on cuda:0, each run's launch
+   counts zeroed just before it and read just after, per rank.  granite-moe
+   at full width under its own config (policy tp, fsdp, moe_impl a2a): in
+   f32 at 4 layers with no-drop capacity (4.0), B=4, T=256, one sharded
+   step against the unsharded step on rank 0 from the same parameters and
+   batch: loss within 1e-4, every parameter within 5e-4 (the loss without
+   the aux term, since the a2a aux is the mean of per-shard estimators; the
+   aux itself within 0.5 of the global one), 2 all-to-alls per MoE layer
+   forward, flash 8 / 4 per rank.  ``compressed_psum`` over the data axis,
+   twice, on each rank's shard of every gradient leaf of one more loss:
+   codes equal the plain ``quantize_ref`` exactly, scales within 1e-6, the
+   sum within 1e-6 of the sum of the per-rank decompressions, the two calls
+   bit-equal, quantize 2 per leaf.  recurrentgemma-9b at full width, 3
+   layers, f32, B=2, T=2100: the sharded forward's logits at the last 64
+   positions within 5e-4 of the unsharded forward's on rank 0 (rglru 2,
+   flash 1 per rank).  granite bf16 at all 24 layers, B=4, T=1024, 2 steps:
+   every rank the same finite losses, flash 96 / 48 and 192 all-to-alls per
+   rank.  Printed: per-rank step ms and peak GB beside the card's name and
+   power limit, labelled as time-shared ranks.
 6. Times at the main-path shapes: kernel, plain version, the least time
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
@@ -146,7 +167,9 @@ without the final result line:
    shape (head dim 256, the tensor cores' warp-pair kernels) against
    autograd of plain and of SDPA; the flash forward and backward at
    whisper's encoder shape and paligemma's training shape.
-7. The ``kernels`` JSON line (the scans' entries with their tile sizes),
+7. The ``kernels`` JSON line (the scans' entries with their tile sizes;
+   ``launches`` sums the main paths' runs, the mesh phase's summed over its
+   ranks),
    then the result line
    ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -360,6 +383,33 @@ EXAMPLE_ARGS = ["--steps", "40", "--ckpt-every", "10", "--device", "cuda"]
 # Every kernel's launch counter, in the order of the kernels line.
 KERNELS = ("flash_attention", "flash_attention_bwd", "ssm_scan", "ssm_scan_bwd",
            "rglru_scan", "rglru_scan_bwd", "quantize")
+
+
+def kernel_table() -> dict:
+    """name -> (module, its source attribute, its launch counter), in the
+    order of KERNELS."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import ssm_scan as ss
+    kernels = {"flash_attention": (fa, "SOURCE", "LAUNCHES"),
+               "flash_attention_bwd": (fa, "BWD_SOURCE", "BWD_LAUNCHES"),
+               "ssm_scan": (ss, "SOURCE", "LAUNCHES"),
+               "ssm_scan_bwd": (ss, "BWD_SOURCE", "BWD_LAUNCHES"),
+               "rglru_scan": (rs, "SOURCE", "LAUNCHES"),
+               "rglru_scan_bwd": (rs, "BWD_SOURCE", "BWD_LAUNCHES"),
+               "quantize": (qz, "SOURCE", "LAUNCHES")}
+    check(tuple(kernels) == KERNELS, "kernel table out of step with KERNELS")
+    return kernels
+
+
+def reset_launches(kernels) -> None:
+    for m, _, counter in kernels.values():
+        setattr(m, counter, 0)
+
+
+def read_launches(kernels) -> dict:
+    return {name: getattr(m, counter) for name, (m, _, counter) in kernels.items()}
 
 
 def expect(**counts) -> dict:
@@ -662,6 +712,319 @@ def ingest_run(torch, cfg, opt, model_name: str, samples, device,
     return out
 
 
+# The mesh phase: 4 ranks time-share the one card on a (data=2, model=2) mesh
+# over gloo (NCCL refuses two ranks on one device); every rank computes on
+# cuda:0.  granite-moe-1b-a400m at full width under its own config (policy
+# tp, fsdp, moe_impl a2a): in f32 at 4 layers with no-drop capacity, one
+# sharded step against the unsharded step on the same card (B=4, T=256);
+# in bf16 at all 24 layers, B=4, T=1024, 2 steps at the config's capacity.
+# recurrentgemma-9b at full width, 3 layers (one period of its pattern), f32,
+# B=2, T=2100 (past its 2048 window): the sharded forward's logits at the
+# last 64 positions against the unsharded forward's.
+MESH_SHAPE = (2, 2)
+MESH_RANKS = MESH_SHAPE[0] * MESH_SHAPE[1]
+MESH_F32 = dict(layers=4, batch=4, seq=256, capacity=4.0)
+MESH_BF16 = dict(batch=4, seq=1024, steps=2)
+MESH_RG = dict(layers=3, batch=2, seq=2100, last=64)
+
+
+def mesh_rank(rank: int, workdir: str) -> None:
+    """One rank of the mesh phase.  Writes what it measured and checked to
+    ``workdir/rank{rank}.json``; any failure raises, which fails the phase."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous",
+                            rank=rank, world_size=MESH_RANKS,
+                            timeout=datetime.timedelta(seconds=600))
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels import ref
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.train import grad_compress as gc_
+    from repro_torch.train.train_step import (loss_fn, make_train_step,
+                                              train_state_init)
+
+    kernels = kernel_table()
+    mesh = MS.make_mesh(MESH_SHAPE, ("data", "model"), "cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank}
+
+    def reset():
+        reset_launches(kernels)
+        moe.A2A_CALLS = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        torch.cuda.synchronize()
+        return read_launches(kernels)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def in_turn(build):
+        """``build()`` on one rank at a time: each builds its whole model
+        before slicing it, and one whole copy at a time fits beside the
+        shards."""
+        res = None
+        for r in range(MESH_RANKS):
+            if r == rank:
+                res = build()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return res
+
+    def max_diff(model, plain):
+        """Max |sharded - unsharded| over every parameter (rank 0's
+        unsharded copy), and the leaf where it is."""
+        worst = (0.0, "")
+        for n, p in model.named_parameters():
+            full = p.full_tensor().detach()
+            if plain is not None:
+                worst = max(worst, (float((full.float() - plain[n].float()).abs().max()), n))
+            del full
+        return worst
+
+    # granite f32, 4 layers, no-drop capacity: one sharded step against the
+    # unsharded one.  The loss leaves out the aux term: the a2a aux is the
+    # mean of per-shard estimators (the reference's pmean), another function
+    # than the unsharded global one; its value is bounded apart.
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"), dtype=torch.float32,
+                              n_layers=MESH_F32["layers"],
+                              moe_capacity=MESH_F32["capacity"])
+    rules = MS.arch_rules(cfg, multi_pod=False)
+    opt = MS.opt_for(cfg)
+    step = make_train_step(cfg, opt, num_microbatches=1, aux_weight=0.0)
+    batch = synthetic_batch(31, cfg, MESH_F32["batch"], MESH_F32["seq"], dev)
+    plain = None
+    if rank == 0:
+        st, pm = step(train_state_init(gen(0), cfg, opt, dev), batch)
+        plain = {n: p.detach() for n, p in st["params"].named_parameters()}
+        out["f32_plain"] = {"loss": float(pm["loss"]), "aux": float(pm["moe_aux"])}
+        del st, pm
+    dist.barrier()
+    state = in_turn(lambda: MS.sharded_train_state(init_params(cfg, gen(0), dev),
+                                                   cfg, opt, mesh, rules))
+    dbatch = MS.distribute_batch(batch, mesh, rules)
+    reset()
+    t0 = time.perf_counter()
+    with sh.active_rules(rules, mesh):
+        state, met = step(state, dbatch)
+    loss = float(met["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    out["f32"] = {"counts": counts(), "a2a": moe.A2A_CALLS, "loss": loss,
+                  "aux": float(met["moe_aux"]), "ms": ms}
+    out["f32"]["param_err"], out["f32"]["param_err_leaf"] = max_diff(state["params"], plain)
+    del plain
+
+    # compressed_psum over the data axis on each rank's shard of every
+    # gradient leaf of one more loss: twice per leaf inside the count window.
+    with sh.active_rules(rules, mesh):
+        loss, _ = loss_fn(state["params"], dbatch, cfg, 0.0)
+        named = dict(state["params"].named_parameters())
+        grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        grads = sh.shard_tree(grads, param_specs(cfg))
+    local = {n: g.to_local().detach() for n, g in grads.items()}
+    del grads, loss, state, met, named
+    reset()
+    sums = {n: (gc_.compressed_psum(x, mesh, "data"), gc_.compressed_psum(x, mesh, "data"))
+            for n, x in local.items()}
+    cp = {"counts": counts(), "leaves": len(local), "code_bad": [], "twice_bad": [],
+          "sum_err": 0.0, "scale_err": 0.0}
+    group = sh.mesh_group(mesh, "data")
+    for n, x in local.items():
+        t1, t2 = sums[n]
+        if not torch.equal(t1, t2):
+            cp["twice_bad"].append(n)
+        q, s = gc_.compress(x)
+        q_ref, s_ref = ref.quantize_ref(gc_._rows(x))
+        if not torch.equal(q, q_ref):
+            cp["code_bad"].append(n)
+        cp["scale_err"] = max(cp["scale_err"], float(((s - s_ref).abs()
+                                                      / s_ref.abs().clamp(min=1e-30)).max()))
+        deq = gc_.decompress(q, s, x.shape, torch.float32)
+        parts = [torch.empty_like(deq) for _ in range(MESH_SHAPE[0])]
+        dist.all_gather(parts, deq, group=group)
+        want = parts[0]
+        for part in parts[1:]:
+            want = want + part
+        err = (t1.float() - want).abs() / (1.0 + want.abs())
+        cp["sum_err"] = max(cp["sum_err"], float(err.max()))
+    out["compressed_psum"] = cp
+    del local, sums
+    torch.cuda.empty_cache()
+
+    # recurrentgemma f32, 3 layers: the sharded forward against the
+    # unsharded one (rank 0), the RG-LRU and the windowed flash kernel on
+    # each rank's shard.
+    rcfg = dataclasses.replace(get_config("recurrentgemma-9b"), dtype=torch.float32,
+                               n_layers=MESH_RG["layers"])
+    rrules = MS.arch_rules(rcfg, multi_pod=False)
+    toks = torch.randint(0, rcfg.vocab, (MESH_RG["batch"], MESH_RG["seq"]),
+                         generator=gen(41), device=dev)
+    last = MESH_RG["last"]
+
+    def build_rg():
+        m = init_params(rcfg, gen(0), dev)
+        plain = None
+        if rank == 0:
+            with torch.no_grad():
+                plain = m(toks)[0][:, -last:].clone()
+        sh.distribute_model(m, param_specs(rcfg), rrules, mesh)
+        return m, plain
+
+    model, rplain = in_turn(build_rg)
+    reset()
+    t0 = time.perf_counter()
+    with sh.active_rules(rrules, mesh), torch.no_grad():
+        logits, _ = model(MS.distribute_batch({"t": toks}, mesh, rrules)["t"])
+        got = logits[:, -last:].full_tensor()
+    ms = (time.perf_counter() - t0) * 1e3
+    out["rg"] = {"counts": counts(), "ms": ms, "finite": bool(torch.isfinite(got).all())}
+    if rank == 0:
+        out["rg"]["err"] = float(((got - rplain).abs() / (1.0 + rplain.abs())).max())
+    del model, rplain, logits, got
+    torch.cuda.empty_cache()
+
+    # granite bf16, all 24 layers, 2 steps on fresh batches.
+    gcfg = get_config("granite-moe-1b-a400m")
+    grules = MS.arch_rules(gcfg, multi_pod=False)
+    gopt = MS.opt_for(gcfg)
+    gstep = make_train_step(gcfg, gopt, num_microbatches=1)
+    state = in_turn(lambda: MS.sharded_train_state(init_params(gcfg, gen(0), dev),
+                                                   gcfg, gopt, mesh, grules))
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_ms = [], []
+    reset()
+    for i in range(MESH_BF16["steps"]):
+        b = MS.distribute_batch(synthetic_batch(50 + i, gcfg, MESH_BF16["batch"],
+                                                MESH_BF16["seq"], dev), mesh, grules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sh.active_rules(grules, mesh):
+            state, met = gstep(state, b)
+        losses.append(float(met["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["bf16"] = {"counts": counts(), "a2a": moe.A2A_CALLS, "losses": losses,
+                   "step_ms": step_ms,
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    with open(f"{workdir}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
+    """The mesh phase: spawn the ranks (:func:`mesh_rank`), check what they
+    report, print it, and add their launch counts, summed over the ranks, to
+    ``launches``."""
+    from repro_torch.configs.registry import get_config
+    # Spawned after every other main path has freed its memory.  Each rank's
+    # launch counts are read around each of its runs; a rank that fails
+    # raises here.
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(workdir,), nprocs=MESH_RANKS)
+        mesh_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(f"{workdir}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    f32cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                                 dtype=torch.float32, n_layers=MESH_F32["layers"],
+                                 moe_capacity=MESH_F32["capacity"])
+    gcfg = get_config("granite-moe-1b-a400m")
+
+    def a2a_calls(cfg, steps):
+        """Two all-to-alls per MoE layer forward; a checkpointed layer runs
+        its forward twice a step."""
+        return 2 * steps * cfg.n_layers * (2 if cfg.remat else 1)
+
+    runs = {"f32": (train_launches(f32cfg, 1), a2a_calls(f32cfg, 1)),
+            "bf16": (train_launches(gcfg, MESH_BF16["steps"]),
+                     a2a_calls(gcfg, MESH_BF16["steps"])),
+            "rg": (expect(flash_attention=1, rglru_scan=2), None)}
+    for r in ranks:
+        leaves = r["compressed_psum"]["leaves"]
+        runs_r = dict(runs, compressed_psum=(expect(quantize=2 * leaves), None))
+        for run, (want, a2a) in runs_r.items():
+            check(r[run]["counts"] == want, f"mesh rank {r['rank']} {run}: kernel "
+                  f"launches {r[run]['counts']}, expected {want}")
+            if a2a is not None:
+                check(r[run]["a2a"] == a2a, f"mesh rank {r['rank']} {run}: "
+                      f"{r[run]['a2a']} all-to-alls, expected {a2a}")
+        cp = r["compressed_psum"]
+        check(not cp["code_bad"] and not cp["twice_bad"] and cp["sum_err"] <= 1e-6
+              and cp["scale_err"] <= 1e-6, f"mesh rank {r['rank']} compressed_psum: "
+              f"codes differ from plain in {cp['code_bad']}, two calls differ in "
+              f"{cp['twice_bad']}, sum err {cp['sum_err']}, scale err {cp['scale_err']}")
+        check(r["f32"]["loss"] == ranks[0]["f32"]["loss"]
+              and r["bf16"]["losses"] == ranks[0]["bf16"]["losses"]
+              and all(math.isfinite(x) for x in r["bf16"]["losses"])
+              and r["rg"]["finite"], f"mesh rank {r['rank']}: losses "
+              f"{r['f32']['loss']}, {r['bf16']['losses']} differ from rank 0's or "
+              "are not finite, or non-finite logits")
+    r0 = ranks[0]
+    check(abs(r0["f32"]["loss"] - r0["f32_plain"]["loss"]) <= 1e-4
+          and r0["f32"]["param_err"] <= 5e-4,
+          f"mesh granite f32: sharded loss {r0['f32']['loss']!r} against "
+          f"unsharded {r0['f32_plain']['loss']!r}; max parameter error "
+          f"{r0['f32']['param_err']} at {r0['f32']['param_err_leaf']}")
+    check(abs(r0["f32"]["aux"] - r0["f32_plain"]["aux"]) < 0.5,
+          f"mesh granite f32: a2a aux {r0['f32']['aux']} against the global "
+          f"{r0['f32_plain']['aux']}")
+    check(r0["rg"]["err"] <= 5e-4, f"mesh recurrentgemma: sharded logits off "
+          f"the unsharded by {r0['rg']['err']}")
+    for run in ("f32", "compressed_psum", "rg", "bf16"):
+        launches[f"mesh {run}"] = {k: sum(r[run]["counts"][k] for r in ranks)
+                                   for k in KERNELS}
+    phase(5, "main path mesh granite-moe-1b-a400m f32",
+          f"{MESH_RANKS} ranks, mesh (data={MESH_SHAPE[0]}, model={MESH_SHAPE[1]}) "
+          f"over gloo on one card, {f32cfg.n_layers} layers, B={MESH_F32['batch']} "
+          f"T={MESH_F32['seq']}, capacity {f32cfg.moe_capacity}: sharded step loss "
+          f"{r0['f32']['loss']:.6f} against unsharded {r0['f32_plain']['loss']:.6f}; "
+          f"max parameter error {r0['f32']['param_err']:.3e} "
+          f"({r0['f32']['param_err_leaf']}); a2a aux {r0['f32']['aux']:.6f}, "
+          f"global {r0['f32_plain']['aux']:.6f}; all-to-alls per rank "
+          f"{r0['f32']['a2a']}; launches per rank {r0['f32']['counts']}")
+    cp = r0["compressed_psum"]
+    phase(5, "main path mesh compressed_psum",
+          f"{cp['leaves']} gradient leaves, twice each over the data axis: codes "
+          "equal plain, sums within 1e-6 of the per-rank decompressions "
+          f"(worst {max(r['compressed_psum']['sum_err'] for r in ranks):.3e}), two "
+          f"calls bit-equal; launches per rank {cp['counts']}")
+    phase(5, "main path mesh recurrentgemma-9b f32",
+          f"{MESH_RG['layers']} layers, B={MESH_RG['batch']} T={MESH_RG['seq']}: "
+          f"sharded logits at the last {MESH_RG['last']} positions within "
+          f"{r0['rg']['err']:.3e} of the unsharded; launches per rank "
+          f"{r0['rg']['counts']}")
+    phase(5, "main path mesh granite-moe-1b-a400m bf16",
+          f"{gcfg.n_layers} layers, B={MESH_BF16['batch']} T={MESH_BF16['seq']}, "
+          f"{MESH_BF16['steps']} steps: losses "
+          f"{', '.join(f'{x:.4f}' for x in r0['bf16']['losses'])} on every rank; "
+          f"all-to-alls per rank {r0['bf16']['a2a']}; launches per rank "
+          f"{r0['bf16']['counts']}")
+    print(f"mesh times, {MESH_RANKS} ranks time-sharing one card over gloo (not a "
+          f"multi-card number), {smi_line}: granite bf16 {gcfg.n_layers} layers step "
+          f"ms per rank {[[round(x, 3) for x in r['bf16']['step_ms']] for r in ranks]}, "
+          f"peak GB per rank {[round(r['bf16']['peak_gb'], 3) for r in ranks]}; "
+          f"granite f32 {f32cfg.n_layers}-layer step ms per rank "
+          f"{[round(r['f32']['ms'], 3) for r in ranks]}; recurrentgemma "
+          f"{MESH_RG['layers']}-layer forward ms per rank "
+          f"{[round(r['rg']['ms'], 3) for r in ranks]}; phase wall {mesh_s:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -696,24 +1059,14 @@ def main() -> int:
     from repro_torch.train.train_step import (loss_fn, make_train_step,
                                               train_state_init)
 
-    # name -> (module, its source attribute, its launch counter)
-    kernels = {"flash_attention": (fa, "SOURCE", "LAUNCHES"),
-               "flash_attention_bwd": (fa, "BWD_SOURCE", "BWD_LAUNCHES"),
-               "ssm_scan": (ss, "SOURCE", "LAUNCHES"),
-               "ssm_scan_bwd": (ss, "BWD_SOURCE", "BWD_LAUNCHES"),
-               "rglru_scan": (rs, "SOURCE", "LAUNCHES"),
-               "rglru_scan_bwd": (rs, "BWD_SOURCE", "BWD_LAUNCHES"),
-               "quantize": (qz, "SOURCE", "LAUNCHES")}
-    check(tuple(kernels) == KERNELS, "kernel table out of step with KERNELS")
+    kernels = kernel_table()
     sources = [getattr(m, src) for m, src, _ in kernels.values()]
 
     def reset_counts():
-        for m, _, counter in kernels.values():
-            setattr(m, counter, 0)
+        reset_launches(kernels)
 
     def read_counts():
-        return {name: getattr(m, counter)
-                for name, (m, _, counter) in kernels.items()}
+        return read_launches(kernels)
 
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1490,6 +1843,9 @@ def main() -> int:
           f"{ex.ckpt_bandwidth / 1e9:.4f} GB/s (the DES, not the card); "
           f"launches {counts}")
     del ex, again
+    free()
+
+    run_mesh_phase(torch, launches, smi_line)
     free()
 
     # -- 6. times at the main-path shapes ---------------------------------------

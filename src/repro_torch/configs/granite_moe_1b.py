@@ -1,9 +1,11 @@
 """granite-moe-1b-a400m [moe]: 24L d_model=1024 16H (kv=8) d_ff=512/expert,
 vocab=49155, 32 experts top-8 [hf:ibm-granite/granite-3.0-1b-a400m-base].
 
-Field-equal to ``repro.configs.granite_moe_1b``.  ``moe_impl="a2a"`` takes
-``sort_scatter`` in the port until the distribution slice brings a mesh
-(:mod:`repro_torch.models.moe`).
+Field-equal to ``repro.configs.granite_moe_1b``.  ``moe_impl="a2a"``: under a
+mesh the experts split over the model axis with two all-to-alls per layer;
+without one it takes ``sort_scatter`` (:mod:`repro_torch.models.moe`).  The
+vocab is padded to 49664 (``pad_vocab_to``), which a 2- or 16-way model axis
+divides, so the embedding and the logits split over it.
 """
 
 from repro_torch.models.config import ModelConfig

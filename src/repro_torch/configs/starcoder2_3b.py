@@ -1,9 +1,10 @@
 """starcoder2-3b [dense]: 30L d_model=3072 24H (kv=2) d_ff=12288
 vocab=49152, RoPE, layernorm + gelu FFN [arXiv:2402.19173].
 
-Field-equal to ``repro.configs.starcoder2_3b``.  The reference's
-``policy="fsdp"`` names its sharding rules, which wait for the distribution
-slice; on one card the field is carried but unused.
+Field-equal to ``repro.configs.starcoder2_3b``.  ``policy="fsdp"`` names
+its sharding rules (:func:`repro_torch.models.sharding.rules_for`): under a
+mesh every activation shards its batch over both axes and the weights are
+stored sharded over both; on one card the field is unused.
 """
 
 from repro_torch.models.config import ModelConfig

@@ -10,6 +10,16 @@ plain versions.  The one-token decode
 functions ``decode_attention``, ``ssm_step`` and ``rglru_step`` and
 ``dequantize`` are plain torch, as the reference's are plain jnp
 (``repro.kernels.ops``).
+
+Under a mesh (:mod:`repro_torch.models.sharding`) the model hands these four
+DTensors.  Each rank then runs its own shard through the same kernel (the
+CUDA kernel for a CUDA shard, the plain version only for a CPU one): the
+batch and head (or channel) dims keep their shards, and any other sharded
+dim (sequence, head_dim, a quantized row's columns) is first gathered to
+``Replicate``.  Each result is a DTensor on the same shards.  An input held
+whole while another is sharded (the scans' B and C over channel shards, a
+KV head shared by query heads of several ranks) gets a ``Partial`` gradient
+on those mesh dims, since each rank's backward sees part of its uses.
 """
 
 from __future__ import annotations
@@ -18,14 +28,56 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
+from repro_torch.models.sharding import (from_local_even, keep_shards,
+                                         local_offset, partial_where,
+                                         to_local_at)
 
 _NEG_INF = -1e30
+
+
+def _flash_on_shards(q: DTensor, k, v, causal: bool, window: int,
+                     scale: Optional[float]) -> DTensor:
+    """Each rank's batch and query-head shard through ``flash_attention``.
+
+    K/V keep the same batch shards, and their head shards where the KV
+    heads divide the query heads' split; otherwise (``model_kv`` dropped for
+    a KV count the axis does not divide) they are gathered whole and each
+    rank takes the KV heads its query heads read: global query head h reads
+    KV head h // (H // K), which on a rank holding heads off..off+H_loc-1 is
+    not local head j // (H_loc // K_loc)."""
+    mesh = q.device_mesh
+    qpl = keep_shards(q, (0, 2))
+    H, K = q.shape[2], k.shape[2]
+    head_split = 1
+    for m, pl in enumerate(qpl):
+        if pl == Shard(2):
+            head_split *= mesh.size(m)
+    kv_split = K % head_split == 0
+    kpl = tuple(pl if pl == Shard(0) or (pl == Shard(2) and kv_split)
+                else Replicate() for pl in qpl)
+    gpl = partial_where(qpl, kpl)
+    qd = q.redistribute(mesh, qpl)
+    ql = qd.to_local()
+    kl, vl = to_local_at(k, mesh, kpl, gpl), to_local_at(v, mesh, kpl, gpl)
+    if head_split > 1 and not kv_split:
+        H_loc, rep = ql.shape[2], H // K
+        off = local_offset(qd, 2)
+        if H_loc % rep == 0 or rep % H_loc == 0:    # a contiguous run of KV heads
+            lo = off // rep
+            kl = kl[:, :, lo:lo + max(H_loc // rep, 1)]
+            vl = vl[:, :, lo:lo + max(H_loc // rep, 1)]
+        else:                                       # a KV head per query head
+            idx = (off + torch.arange(H_loc, device=kl.device)) // rep
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+    o = flash_attention(ql, kl, vl, causal=causal, window=window, scale=scale)
+    return from_local_even(o, mesh, qpl)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -33,6 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,T,H,D); k,v: (B,S,K,D), H%K==0.  The last query is aligned
     with the last key; ``window > 0`` keeps the ``window`` most recent keys."""
+    if isinstance(q, DTensor):
+        return _flash_on_shards(q, k, v, causal, window, scale)
     if q.is_cuda:
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
@@ -72,6 +126,16 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba1 selective scan.  Shapes as :func:`ref.ssm_scan_ref`."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        xpl = keep_shards(x, (0, 2))                   # batch, channels
+        chan = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xpl)
+        bat = tuple(p if p == Shard(0) else Replicate() for p in xpl)
+        state = tuple(Shard(1) if p == Shard(2) else p for p in xpl)
+        y, hT = ssm_scan(*(to_local_at(t, mesh, pl, partial_where(xpl, pl)) for t, pl in (
+            (x, xpl), (dt, xpl), (A, chan), (B, bat), (C, bat), (D, chan))),
+            to_local_at(h0, mesh, state))
+        return from_local_even(y, mesh, xpl), from_local_even(hT, mesh, state)
     if x.is_cuda:
         return ssm_scan_cuda(x.contiguous(), dt, A, B, C, D, h0)
     return _ref.ssm_scan_ref(x, dt, A, B, C, D, h0)
@@ -93,6 +157,15 @@ def rglru(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
           log_lam: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
           c: float = 8.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU over a sequence.  Shapes as :func:`ref.rglru_ref`."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        xpl = keep_shards(x, (0, 2))                   # batch, channels
+        chan = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xpl)
+        state = tuple(Shard(1) if p == Shard(2) else p for p in xpl)
+        hs, hT = rglru(*(to_local_at(t, mesh, pl, partial_where(xpl, pl)) for t, pl in (
+            (x, xpl), (a_gate, xpl), (i_gate, xpl), (log_lam, chan))),
+            to_local_at(h0, mesh, state), c=c)
+        return from_local_even(hs, mesh, xpl), from_local_even(hT, mesh, state)
     if x.is_cuda:
         return rglru_scan_cuda(x.contiguous(), a_gate.contiguous(),
                                i_gate.contiguous(), log_lam, h0, c=c)
@@ -114,7 +187,12 @@ def rglru_step(xt: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
 
 def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization of x (R,C): (int8 (R,C), f32
-    scales (R,1))."""
+    scales (R,1)).  A DTensor keeps its row shards."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        pl = keep_shards(x, (0,))
+        q, s = quantize(to_local_at(x, mesh, pl))
+        return from_local_even(q, mesh, pl), from_local_even(s, mesh, pl)
     if x.is_cuda:
         return quantize_cuda(x)
     return _ref.quantize_ref(x)

@@ -19,8 +19,8 @@ reference launcher does.  An audio or vision arch also gets its stub frames
 or patches (``models.frontends.extra_inputs``, from the same seed); a
 vision arch's cache holds its patches in front of the prompt, so decoding
 starts at position patches + prompt (``serve.decode.prefix_len``).  An
-MoE arch routes through ``sort_scatter`` (``moe_impl="a2a"`` too, until the
-distribution slice).  Prints prefill ms, decode ms/step and tok/s, with
+MoE arch routes through ``sort_scatter`` (``moe_impl="a2a"`` too: it needs
+a mesh, which serving does not bind).  Prints prefill ms, decode ms/step and tok/s, with
 the clocks read after a device synchronize.  The first prefill in a
 process also loads the CUDA kernels it runs, and in a fresh checkout
 builds them (``repro_torch.kernels._build``); ``launch.profile_serve``

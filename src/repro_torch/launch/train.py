@@ -43,16 +43,27 @@ kernels (``csrc/ssm_scan_bwd.cu``, ``csrc/rglru_scan_bwd.cu``); on the CPU
 all of them differentiate through the plain versions.  An audio or vision
 arch's batches carry its stub frames or patches (``synthetic_batch``); an
 MoE arch adds 0.01 times its load-balance loss and routes through
-``sort_scatter``.  The configs' ``microbatches`` (8, 16) size the
-reference's multi-chip step; on one card pass ``--microbatches 1``.
-``--mesh`` raises ``NotImplementedError`` until the distribution slice
-brings it.
+``sort_scatter`` (``a2a`` with a bound mesh, for granite).  The configs'
+``microbatches`` (8, 16) size the reference's multi-chip step; on one card
+pass ``--microbatches 1``.
+
+``--mesh single|multi`` does what the reference's does: with fewer ranks
+than the production mesh needs (256 single, 512 multi; the world size of the
+torchrun environment, 1 without one) it prints the reference's message and
+trains unsharded, with the same numerics.  With enough ranks it starts the
+process group from the torchrun environment (``env://``; NCCL on the card,
+gloo on the CPU), binds :func:`repro_torch.launch.mesh.make_production_mesh`
+and the arch's rules, places the state and each batch on the mesh and runs
+the same steps under :func:`repro_torch.models.sharding.active_rules`.
+Checkpointing a sharded state is not ported yet: ``--ckpt-every`` with a
+bound mesh raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -62,8 +73,11 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import ARCHS, get_config, tiny_config
 from repro_torch.data.pipeline import synthetic_batch
+from repro_torch.launch import mesh as MS
 from repro_torch.launch.serve import resolve_device, sync
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import active_rules
+from repro_torch.models.transformer import init_params
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import make_train_step, train_state_init
 
@@ -127,12 +141,31 @@ def config_from_args(args: argparse.Namespace) -> ModelConfig:
     return cfg
 
 
+def bind_mesh(args: argparse.Namespace, cfg: ModelConfig, device: torch.device):
+    """(mesh, rules) for ``--mesh``, or (None, None): unsharded, with the
+    reference's message when the world is smaller than the mesh."""
+    if args.mesh == "none":
+        return None, None
+    need = 512 if args.mesh == "multi" else 256
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world < need:
+        print(f"[launch] {need} devices required for --mesh {args.mesh}, "
+              f"have {world}; running unsharded (same numerics).", flush=True)
+        return None, None
+    if args.ckpt_every:
+        raise NotImplementedError(
+            "--ckpt-every with a bound mesh: checkpointing a sharded state is "
+            "the sharded-checkpoint slice (ROADMAP.md §1), not ported yet")
+    if not torch.distributed.is_initialized():
+        torch.distributed.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo", init_method="env://")
+    multi = args.mesh == "multi"
+    return (MS.make_production_mesh(multi_pod=multi, device_type=device.type),
+            MS.arch_rules(cfg, multi))
+
+
 def run(argv=None) -> TrainRun:
     args = parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: sharded training comes with the distribution "
-            "slice (ROADMAP.md §1); run with --mesh none")
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     if min(args.steps, args.batch, args.seq, args.ckpt_hosts) < 1:
@@ -144,14 +177,24 @@ def run(argv=None) -> TrainRun:
           f"params={cfg.params_total():,} batch={args.batch} seq={args.seq} "
           f"microbatches={mb} device={device}", flush=True)
 
+    mesh, rules = bind_mesh(args, cfg, device)
     opt = AdamWConfig(lr=args.lr, state_dtype=cfg.opt_state_dtype)
     step_fn = make_train_step(cfg, opt, num_microbatches=mb)
+    if mesh is not None:
+        unsharded_step = step_fn
+
+        def step_fn(state, batch):
+            with active_rules(rules, mesh):
+                return unsharded_step(state, MS.distribute_batch(batch, mesh, rules))
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
     def fresh_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        return train_state_init(gen, cfg, opt, device)
+        if mesh is None:
+            return train_state_init(gen, cfg, opt, device)
+        return MS.sharded_train_state(init_params(cfg, gen, device), cfg, opt,
+                                      mesh, rules)
 
     mgr = (CheckpointManager(model=args.consistency, num_hosts=args.ckpt_hosts,
                              partner=True) if args.ckpt_every else None)

@@ -9,7 +9,9 @@ RoPE angles, the FFN gate's activation and attention scores.
 
 ``*_params(cfg)`` give each parameter group's ``{name: (shape, dtype)}`` and
 ``*_init_`` fill such a group in place with the reference's initialization
-(``repro.models.layers.*_init``), drawn from a ``torch.Generator``.
+(``repro.models.layers.*_init``), drawn from a ``torch.Generator``;
+``*_spec(cfg)`` give the group's logical sharding specs (the reference's),
+which :mod:`repro_torch.models.sharding` binds to a mesh.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import P
 
 Params = Mapping[str, torch.Tensor]
 Shapes = Dict[str, Tuple[tuple, torch.dtype]]
@@ -39,6 +44,13 @@ def norm_params(cfg: ModelConfig) -> Shapes:
     return {n: ((cfg.d_model,), torch.float32) for n in names}
 
 
+def norm_spec(cfg: ModelConfig) -> Dict[str, P]:
+    p = {"scale": P(None)}
+    if cfg.norm == "layernorm":
+        p["bias"] = P(None)
+    return p
+
+
 def norm_init_(p: Params) -> None:
     p["scale"].fill_(1.0)
     if "bias" in p:
@@ -54,6 +66,19 @@ def attn_params(cfg: ModelConfig) -> Shapes:
                  bv=((K, hd), torch.float32))
     if cfg.qk_norm:
         p.update(q_norm=((hd,), torch.float32), k_norm=((hd,), torch.float32))
+    return p
+
+
+def attn_spec(cfg: ModelConfig) -> Dict[str, P]:
+    # Head dims shard over "model" only when divisible; resolve_spec drops
+    # the axis otherwise.
+    p = {"wq": P("fsdp", "model", None), "wk": P("fsdp", "model_kv", None),
+         "wv": P("fsdp", "model_kv", None), "wo": P("model", None, "fsdp")}
+    if cfg.qkv_bias:
+        p.update(bq=P("model", None), bk=P("model_kv", None),
+                 bv=P("model_kv", None))
+    if cfg.qk_norm:
+        p.update(q_norm=P(None), k_norm=P(None))
     return p
 
 
@@ -78,6 +103,17 @@ def ffn_params(cfg: ModelConfig) -> Shapes:
     return p
 
 
+def ffn_spec(cfg: ModelConfig) -> Dict[str, P]:
+    p = {"wo": P("model", "fsdp"), "wi": P("fsdp", "model")}
+    if cfg.ffn in ("swiglu", "geglu"):
+        p["wg"] = P("fsdp", "model")
+    return p
+
+
+def embed_spec(cfg: ModelConfig) -> Dict[str, P]:
+    return {"table": P("vocab", None), "head": P("fsdp", "vocab")}
+
+
 def ffn_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:
     for name, fan_in in (("wi", cfg.d_model), ("wg", cfg.d_model),
                          ("wo", cfg.d_ff)):
@@ -88,7 +124,18 @@ def ffn_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:
 def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time.  u: (B,T,C); w: (W,C); b: (C,).
 
-    Summed tap by tap in u's dtype, as the reference's mixers do."""
+    Summed tap by tap in u's dtype, as the reference's mixers do.  A DTensor
+    u runs on each rank's batch and channel shard (DTensor cannot plan the
+    padding's redistribution, torch 2.11)."""
+    if isinstance(u, DTensor):
+        mesh = u.device_mesh
+        upl = sh.keep_shards(u, (0, 2))
+        wpl = tuple(Shard(1) if p == Shard(2) else Replicate() for p in upl)
+        bpl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in upl)
+        out = causal_conv(sh.to_local_at(u, mesh, upl),
+                          sh.to_local_at(w, mesh, wpl, sh.partial_where(upl, wpl)),
+                          sh.to_local_at(b, mesh, bpl, sh.partial_where(upl, bpl)))
+        return sh.from_local_even(out, mesh, upl)
     W, T = w.shape[0], u.shape[1]
     upad = F.pad(u, (0, 0, W - 1, 0))
     return sum(upad[:, k:k + T] * w[k] for k in range(W)) + b.to(u.dtype)
@@ -215,7 +262,13 @@ def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["table"][tokens] * math.sqrt(cfg.d_model)
+    table = p["table"]
+    if isinstance(table, DTensor):
+        # DTensor has a sharding rule for embedding and its backward; it
+        # cannot propagate one for the index_put of the indexing's backward
+        # (torch 2.11).  The same rows either way.
+        return F.embedding(tokens, table) * math.sqrt(cfg.d_model)
+    return table[tokens] * math.sqrt(cfg.d_model)
 
 
 def unembed(p: Params, x: torch.Tensor,

@@ -1,11 +1,26 @@
 """Mixture-of-Experts FFN: top-k router + capacity-bounded sorted dispatch.
 
-Ported from ``repro.models.moe``, its ``sort_scatter`` path only.  The
-reference's ``a2a`` dispatch (a ``shard_map`` with two all-to-alls over the
-mesh's expert axis) runs only under a mesh context and falls back to
-``sort_scatter`` without one; the port has no mesh until the distribution
-slice, so every config, ``moe_impl="a2a"`` (granite) included, takes
-``sort_scatter``.
+Ported from ``repro.models.moe``.  Two dispatch implementations share the
+same routing math:
+
+* ``sort_scatter``: the call's tokens are sorted by expert into an
+  (E*C, D) slab, every expert runs on it, and the outputs are combined back.
+  Under a mesh (:func:`repro_torch.models.sharding.active_rules`) the tokens
+  and the weights are gathered to every rank and each rank runs it whole,
+  which is what the reference's GSPMD does with its data-dependent
+  scatters; DTensor has no sharding rule for them, so it is done here
+  explicitly.
+* ``a2a`` (``cfg.moe_impl="a2a"``, granite) under a mesh whose expert axis
+  divides the expert count: GShard-style expert parallelism, the
+  reference's ``shard_map`` as explicit per-rank code.  Each rank routes its
+  own shard of the tokens into an (E, C_local, D) slab, an all-to-all over
+  the expert axis delivers each expert's rows to the rank that holds it,
+  the local experts run, and a second all-to-all returns their outputs for
+  the local combine: two all-to-alls per layer forward (``A2A_CALLS``
+  counts them).  The aux loss is the mean of the ranks' local losses, as
+  the reference's ``pmean``.  Without a mesh, or where the reference gives
+  way (no expert axis, or one that does not divide E), it takes
+  ``sort_scatter``.
 
 Routing is the reference's: f32 router logits, top-k, the k weights
 renormalized by a softmax over their logits, and each (token, choice) slot
@@ -37,13 +52,20 @@ has no CUDA kernel of its own.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed._functional_collectives import all_to_all_single_autograd
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, Shapes, dense_
+from repro_torch.models.sharding import P
+
+# All-to-alls launched by the a2a dispatch, forward only (2 per layer call).
+A2A_CALLS = 0
 
 
 def moe_params(cfg: ModelConfig) -> Shapes:
@@ -54,6 +76,14 @@ def moe_params(cfg: ModelConfig) -> Shapes:
          "wo": ((E, Fd, D), cfg.dtype)}
     if cfg.ffn in ("swiglu", "geglu"):
         p["wg"] = ((E, D, Fd), cfg.dtype)
+    return p
+
+
+def moe_spec(cfg: ModelConfig) -> Dict[str, P]:
+    p = {"router": P(None, None), "wo": P("model", None, "fsdp"),
+         "wi": P("model", "fsdp", None)}
+    if cfg.ffn in ("swiglu", "geglu"):
+        p["wg"] = P("model", "fsdp", None)
     return p
 
 
@@ -129,36 +159,152 @@ def _aux_loss(counts: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor
     return E * torch.sum(me * ce)
 
 
-def _moe_local(xf: torch.Tensor, p: Params, cfg: ModelConfig, C: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The sort-scatter data path on a flat (S, D) token array."""
+def _dispatch(xf: torch.Tensor, r: Routing, E: int, C: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(slab (E, C, D), the slot that fills each slab row, each slot's
+    combine weight) of the flat (S, D) tokens routed by ``r``."""
     S, D = xf.shape
-    E, k = cfg.moe_experts, cfg.moe_topk
-    r = _route(xf, p["router"], E, k, C)
+    n = r.dest.shape[0]
+    k = n // S
     # Each slot's slab row and weight, in slot order (s*k + j), and the slot
-    # that fills each slab row (S*k, a trash slot, where none does).
-    n = S * k
+    # that fills each slab row (n, a trash slot, where none does).
     dest = torch.empty_like(r.dest).index_put_((r.order,), r.dest)
     keep = torch.empty_like(r.keep).index_put_((r.order,), r.keep)
     w = r.weights.reshape(-1) * keep
     filler = torch.full((E * C + 1,), n, dtype=dest.dtype, device=dest.device)
     filler = filler.index_put_((dest,), torch.arange(n, device=dest.device))[:E * C]
-    # Dispatch: slot s*k + j carries token s; dropped slots land in the
-    # trash row E*C.
+    # Slot s*k + j carries token s; dropped slots land in the trash row E*C.
     slots = xf[:, None, :].expand(S, k, D).reshape(n, D)
     slab = xf.new_zeros((E * C + 1, D)).index_put((dest,), slots)
-    ye = _expert_ffn(slab[:E * C].reshape(E, C, D), p, cfg).reshape(E * C, D)
-    # Combine: each row back to its slot, then each token's k slots summed.
+    return slab[:E * C].reshape(E, C, D), filler, w
+
+
+def _combine(ye: torch.Tensor, filler: torch.Tensor, w: torch.Tensor,
+             S: int) -> torch.Tensor:
+    """Each (E*C, D) output row back to its slot, then each token's k slots
+    summed in order: (S, D)."""
+    n, D = w.shape[0], ye.shape[-1]
     out = ye.new_zeros((n + 1, D)).index_put((filler,), ye)[:n]
-    y = (out * w.to(xf.dtype)[:, None]).reshape(S, k, D).sum(dim=1)
-    return y, _aux_loss(r.counts, r.probs, E)
+    return (out * w.to(ye.dtype)[:, None]).reshape(S, n // S, D).sum(dim=1)
+
+
+def _moe_local(xf: torch.Tensor, p: Params, cfg: ModelConfig, C: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sort-scatter data path on a flat (S, D) token array."""
+    S, D = xf.shape
+    E = cfg.moe_experts
+    r = _route(xf, p["router"], E, cfg.moe_topk, C)
+    slab, filler, w = _dispatch(xf, r, E, C)
+    ye = _expert_ffn(slab, p, cfg).reshape(E * C, D)
+    return _combine(ye, filler, w, S), _aux_loss(r.counts, r.probs, E)
 
 
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,T,D) -> (y (B,T,D), aux_loss f32 scalar).  ``sort_scatter`` on
-    the call's B*T tokens, whatever ``cfg.moe_impl`` says (see the module
-    docstring)."""
+    """x: (B,T,D) -> (y (B,T,D), aux_loss f32 scalar).  ``a2a`` under a mesh
+    that allows it, else ``sort_scatter`` (see the module docstring)."""
+    ctx = sh.current_context()
+    if cfg.moe_impl == "a2a" and ctx is not None:
+        out = _moe_forward_a2a(p, x, cfg, *ctx)
+        if out is not None:
+            return out
+    if isinstance(x, DTensor):
+        return _moe_replicated(p, x, cfg)
     B, T, D = x.shape
     y, aux = _moe_local(x.reshape(B * T, D), p, cfg, capacity(cfg, B * T))
     return y.reshape(B, T, D), aux
+
+
+def _moe_replicated(p: Params, x: DTensor, cfg: ModelConfig
+                    ) -> Tuple[DTensor, DTensor]:
+    """``sort_scatter`` under a mesh: every rank gathers all the tokens and
+    weights and runs the whole layer; outputs and gradients are replicated."""
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    B, T, D = x.shape
+    xl = x.redistribute(mesh, rep).to_local()
+    pl = {n: t.redistribute(mesh, rep).to_local() for n, t in p.items()}
+    y, aux = _moe_local(xl.reshape(B * T, D), pl, cfg, capacity(cfg, B * T))
+    return (DTensor.from_local(y.reshape(B, T, D), mesh, rep),
+            DTensor.from_local(aux, mesh, rep))
+
+
+def _rule_axes(rules, key) -> Tuple[str, ...]:
+    v = rules.get(key)
+    if v is None:
+        return ()
+    return v if isinstance(v, tuple) else (v,)
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Chunk g of ``t`` along dim 0 to rank g of ``group``; chunk g of the
+    result from rank g.  Differentiable (its gradient is the reverse
+    all-to-all)."""
+    global A2A_CALLS
+    A2A_CALLS += 1
+    return all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+
+def _moe_forward_a2a(p: Params, x: DTensor, cfg: ModelConfig, rules, mesh
+                     ) -> Optional[Tuple[DTensor, DTensor]]:
+    """GShard-style expert parallelism over the mesh's expert axis.
+
+    Returns None (the caller falls back to sort_scatter) when the expert
+    count does not divide the expert axis or no expert axis is mapped."""
+    B, T, D = x.shape
+    E, k = cfg.moe_experts, cfg.moe_topk
+    sizes = sh.axis_sizes(mesh)
+    ex = [a for a in _rule_axes(rules, "expert")
+          if a in sizes and E % sizes[a] == 0 and sizes[a] > 1]
+    if not ex:
+        return None
+    ex_ax = ex[0]
+    G = sizes[ex_ax]
+
+    # Token sharding inside the MoE region: batch over the data axes AND over
+    # the expert axis itself (else every rank of an expert-axis row routes
+    # the same tokens).  Batch first; if B does not divide, shard the
+    # sequence over the expert axis instead.
+    dp, cur = [], 1
+    for a in (*_rule_axes(rules, "batch"), ex_ax):
+        if a in dp or a not in sizes:
+            continue
+        if B % (cur * sizes[a]) == 0:
+            dp.append(a)
+            cur *= sizes[a]
+    seq_ax = ex_ax if ex_ax not in dp and T % G == 0 else None
+    S_loc = (B // cur) * (T // (G if seq_ax else 1))
+    C = capacity(cfg, S_loc)
+    names = mesh.mesh_dim_names
+    x_pl = tuple(Shard(0) if a in dp else Shard(1) if a == seq_ax
+                 else Replicate() for a in names)
+    w_pl = tuple(Shard(0) if a == ex_ax else Replicate() for a in names)
+    rep = (Replicate(),) * len(names)
+
+    xl = x.redistribute(mesh, x_pl).to_local()
+    # A weight's local gradient sums over this rank's tokens only: Partial
+    # over the mesh dims that split the tokens.
+    router = p["router"].redistribute(mesh, rep).to_local(
+        grad_placements=sh.partial_where(x_pl, rep))
+    pl = {n: p[n].redistribute(mesh, w_pl).to_local(
+        grad_placements=sh.partial_where(x_pl, w_pl))
+        for n in ("wi", "wg", "wo") if n in p}
+    Bl, Tl, _ = xl.shape
+    xf = xl.reshape(Bl * Tl, D)
+    r = _route(xf, router, E, k, C)
+    slab, filler, w = _dispatch(xf, r, E, C)
+    group = sh.mesh_group(mesh, ex_ax)
+    El = E // G
+    # To the experts' owners: (E, C, D) -> (E/G, G*C, D), source rank major.
+    recv = _all_to_all(slab, group)
+    ye = _expert_ffn(recv.reshape(G, El, C, D).transpose(0, 1)
+                     .reshape(El, G * C, D), pl, cfg)
+    # Back to the tokens' owners: (E/G, G*C, D) -> (E, C, D).
+    ye = _all_to_all(ye.reshape(El, G, C, D).transpose(0, 1), group)
+    y = _combine(ye.reshape(E * C, D), filler, w, Bl * Tl).reshape(Bl, Tl, D)
+    aux = _aux_loss(r.counts, r.probs, E).reshape(1)
+    world = mesh.size()
+    aux = DTensor.from_local(aux, mesh, (Shard(0),) * len(names),
+                             shape=(world,), stride=(1,)).mean()
+    return (DTensor.from_local(y, mesh, x_pl, shape=x.shape,
+                               stride=x.stride()), aux)

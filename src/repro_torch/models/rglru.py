@@ -4,8 +4,10 @@ Ported from ``repro.models.rglru``.  Griffin-style: x -> two branches;
 branch 1: linear -> GeLU (gate); branch 2: linear -> causal conv (width 4)
 -> RG-LRU (:func:`repro_torch.kernels.ops.rglru`, the CUDA kernel on the
 card); merge by product -> out projection.  Decode state is (conv window,
-lru hidden), O(1) in context.  The reference's sharding specs do nothing on
-one card and are dropped.
+lru hidden), O(1) in context.  :func:`rglru_spec` and :func:`rglru_cache_spec`
+are the reference's logical sharding specs; under a mesh the RG-LRU runs on
+each rank's shard of batch and channels (:func:`repro_torch.kernels.ops.rglru`
+on DTensors).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import P
 
 Params = L.Params
 CONV_W = 4
@@ -36,6 +39,23 @@ def rglru_params(cfg: ModelConfig) -> L.Shapes:
         "log_lam": ((Lw,), f32),
         "w_out": ((Lw, D), cfg.dtype),
     }
+
+
+def rglru_spec(cfg: ModelConfig) -> Dict[str, P]:
+    return {
+        "w_gate": P("fsdp", "model"),
+        "w_rec": P("fsdp", "model"),
+        "conv_w": P(None, "model"),
+        "conv_b": P("model"),
+        "w_a": P(None, "model"),
+        "w_i": P(None, "model"),
+        "log_lam": P("model"),
+        "w_out": P("model", "fsdp"),
+    }
+
+
+def rglru_cache_spec(cfg: ModelConfig) -> Dict[str, P]:
+    return {"conv": P("batch", None, "model"), "h": P("batch", "model")}
 
 
 def rglru_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:

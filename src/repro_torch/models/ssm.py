@@ -4,8 +4,10 @@ Ported from ``repro.models.ssm``.  x -> in_proj -> (u, z); u -> causal
 depthwise conv -> silu -> selective scan (:func:`repro_torch.kernels.ops.ssm_scan`,
 the CUDA kernel on the card) -> gate by silu(z) -> out_proj.  Decode keeps
 (conv window of pre-conv inputs u, ssm state) as the recurrent cache, O(1)
-in context length.  The reference's sharding specs do nothing on one card
-and are dropped.
+in context length.  :func:`mamba_spec` and :func:`mamba_cache_spec` are the
+reference's logical sharding specs; under a mesh the scan runs on each
+rank's shard of batch and channels (:func:`repro_torch.kernels.ops.ssm_scan`
+on DTensors).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import P
 
 Params = L.Params
 
@@ -36,6 +39,24 @@ def mamba_params(cfg: ModelConfig) -> L.Shapes:
         "D": ((I,), f32),
         "out_proj": ((I, D), cfg.dtype),
     }
+
+
+def mamba_spec(cfg: ModelConfig) -> Dict[str, P]:
+    return {
+        "in_proj": P("fsdp", "model"),
+        "conv_w": P(None, "model"),
+        "conv_b": P("model"),
+        "x_proj": P("model", None),
+        "dt_proj": P(None, "model"),
+        "dt_bias": P("model"),
+        "A_log": P("model", None),
+        "D": P("model"),
+        "out_proj": P("model", "fsdp"),
+    }
+
+
+def mamba_cache_spec(cfg: ModelConfig) -> Dict[str, P]:
+    return {"conv": P("batch", None, "model"), "h": P("batch", "model", None)}
 
 
 def mamba_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None:

@@ -18,9 +18,18 @@ pattern) and unrolls the remainder; here the layers are an
 ``nn.ModuleList`` in the same order, so port layer ``s*P + i`` holds index
 ``s`` of the reference's ``blocks.b{i}`` and layer ``n_super*P + i`` its
 ``rem{i}``; encoder layer ``j`` holds index ``j`` of ``enc_blocks`` (see
-:func:`repro_torch.convert.params_from_reference`).  The reference's
-sharding constraints and block-boundary optimization barrier do nothing on
-one card and are dropped.
+:func:`repro_torch.convert.params_from_reference`).
+:func:`param_specs` and :func:`cache_specs` give the reference's logical
+sharding specs on that layout: layer ``s*P + i`` takes the spec of
+``blocks.b{i}`` without its stacked leading ``None``.  Under a mesh
+(:func:`repro_torch.models.sharding.active_rules`, with the parameters and
+inputs DTensors placed by :mod:`repro_torch.launch.mesh`) the reference's
+activation constraints apply where it applies them: the residual stream at
+the input and at each super-block boundary (over the sequence too with
+``cfg.seq_parallel``), each encoder layer, and the logits (vocab over the
+model axis).  Without a mesh they are no-ops.  The reference's
+optimization barrier at the boundary only pins XLA's fusion and has no
+counterpart.
 
 Entry points, as in the reference:
 * :meth:`Transformer.forward`     -- full-sequence logits; differentiable,
@@ -47,6 +56,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import P, shard, under_rules
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -91,6 +101,69 @@ def _pdict(shapes: L.Shapes, device) -> nn.ParameterDict:
 
 
 _FRONTENDS = ("", "audio", "vision")
+
+_MIXER_SPECS = {"attn": L.attn_spec, "local": L.attn_spec,
+                "rglru": R.rglru_spec, "mamba": S.mamba_spec}
+
+
+def _block_spec(btype: str, cfg: ModelConfig, cross: bool) -> Dict[str, Dict[str, P]]:
+    p = {"norm1": L.norm_spec(cfg), "mixer": _MIXER_SPECS[btype](cfg)}
+    if btype != "mamba":
+        if cross:
+            p["norm_c"] = L.norm_spec(cfg)
+            p["cross"] = L.attn_spec(cfg)
+        p["norm2"] = L.norm_spec(cfg)
+        p["ffn"] = M.moe_spec(cfg) if cfg.is_moe else L.ffn_spec(cfg)
+    return p
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, P]:
+    """The logical sharding spec of every parameter, keyed as
+    ``Transformer.named_parameters`` names it."""
+    cross = cfg.kind == "encdec"
+    groups = {"embed": L.embed_spec(cfg), "final_norm": L.norm_spec(cfg)}
+    Pn = len(cfg.pattern)
+    for i in range(cfg.n_layers):
+        for g, spec in _block_spec(cfg.pattern[i % Pn], cfg, cross).items():
+            groups[f"layers.{i}.{g}"] = spec
+    if cross:
+        for j in range(cfg.enc_layers):
+            for g, spec in _block_spec("attn", _enc_cfg(cfg), False).items():
+                groups[f"enc_layers.{j}.{g}"] = spec
+        groups["enc_final_norm"] = L.norm_spec(cfg)
+    out = {f"{g}.{n}": s for g, spec in groups.items() for n, s in spec.items()}
+    if cfg.frontend == "vision":
+        out["patch_proj"] = P("fsdp", "model")
+    return out
+
+
+def cache_specs(cfg: ModelConfig) -> List[Dict[str, P]]:
+    """The logical sharding spec of each layer's serving cache, in the
+    layout of ``Transformer.init_cache``."""
+    out = []
+    for i in range(cfg.n_layers):
+        btype = cfg.pattern[i % len(cfg.pattern)]
+        if btype == "rglru":
+            c = R.rglru_cache_spec(cfg)
+        elif btype == "mamba":
+            c = S.mamba_cache_spec(cfg)
+        else:
+            c = {"k": P("batch", "seq", "model_kv", None),
+                 "v": P("batch", "seq", "model_kv", None)}
+        if cfg.kind == "encdec":
+            c["ck"] = P("batch", "seq", "model", None)
+            c["cv"] = P("batch", "seq", "model", None)
+        out.append(c)
+    return out
+
+
+def _boundary(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual stream's constraint at the input and at each super-block
+    boundary: batch-sharded, and over the sequence too with
+    ``cfg.seq_parallel``."""
+    if cfg.seq_parallel and x.shape[1] > 1:
+        return shard(x, "batch", "seq", None)
+    return shard(x, "batch", None, None)
 
 
 def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -222,6 +295,7 @@ class Transformer(nn.Module):
             return x + y, aux
         return x + L.ffn_forward(blk.ffn, h2, cfg), None
 
+    @under_rules
     def _super_block(self, s: int, x: torch.Tensor, positions: torch.Tensor,
                      enc_out: Optional[torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -231,18 +305,20 @@ class Transformer(nn.Module):
             x, a = self._block(blk, x, positions, enc_out=enc_out)
             if a is not None:
                 aux = aux + a
-        return x, aux
+        return _boundary(x, self.cfg), aux
 
+    @under_rules
     def _enc_block(self, j: int, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
-        return self._block(self.enc_layers[j], x, positions, cfg=self.enc_cfg,
-                           causal=False)[0]
+        x = self._block(self.enc_layers[j], x, positions, cfg=self.enc_cfg,
+                        causal=False)[0]
+        return shard(x, "batch", None, None)
 
     def _encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The encoder over (B, S, D) frames: bidirectional attention with
         RoPE positions 0..S-1, as the reference's ``attn_forward`` gives
         them; each layer checkpointed under grad with ``cfg.remat``."""
-        x = frames
+        x = shard(frames, "batch", None, None)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for j in range(len(self.enc_layers)):
@@ -288,6 +364,7 @@ class Transformer(nn.Module):
         are not checkpointed, as in the reference."""
         cfg = self.cfg
         x, enc_out = self._inputs(tokens, frames, patches)
+        x = _boundary(x, cfg)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
         context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts,
@@ -308,7 +385,7 @@ class Transformer(nn.Module):
             if a is not None:
                 aux = aux + a
         x = L.apply_norm(self.final_norm, x, cfg)
-        return L.unembed(self.embed, x, cfg), aux
+        return shard(L.unembed(self.embed, x, cfg), "batch", None, "vocab"), aux
 
     # -- serving --------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:
@@ -347,46 +424,63 @@ class Transformer(nn.Module):
         first P, so decoding starts at index P + T."""
         cfg = self.cfg
         x, enc_out = self._inputs(tokens, frames, patches)
+        x = shard(x, "batch", None, None)
         positions = torch.arange(x.shape[1], device=x.device)
         cache = self.init_cache(tokens.shape[0], max_len)
-        for blk, c in zip(self.layers, cache):
+        ends = _super_block_ends(cfg)
+        for i, (blk, c) in enumerate(zip(self.layers, cache)):
             x, _ = self._block(blk, x, positions, c, enc_out=enc_out)
+            if i in ends:
+                x = _boundary(x, cfg)
         x = L.apply_norm(self.final_norm, x[:, -1:], cfg)
-        return L.unembed(self.embed, x, cfg), cache
+        return shard(L.unembed(self.embed, x, cfg), "batch", None, "vocab"), cache
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor, index: int
                     ) -> Tuple[torch.Tensor, Cache]:
         """tokens: (B,1); index: their position.  Returns (logits (B,1,Vp),
         cache); the cache is updated in place."""
         cfg = self.cfg
-        x = L.embed(self.embed, tokens, cfg)
-        for blk, c in zip(self.layers, cache):
-            h = L.apply_norm(blk.norm1, x, cfg)
-            if blk.btype == "mamba":
-                mix, st = S.mamba_decode(blk.mixer, h, cfg, c)
-                c.update(st)
-                x = x + mix
-                continue
-            if blk.btype == "rglru":
-                mix, st = R.rglru_decode(blk.mixer, h, cfg, c)
-                c.update(st)
-            else:
-                local = blk.btype == "local"
-                mix, c["k"], c["v"] = L.attn_decode(
-                    blk.mixer, h, cfg, c["k"], c["v"], index,
-                    window=cfg.local_window if local else 0, ring=local)
-            x = x + mix
-            if "ck" in c:      # cross-attention against the encoder's K/V
-                hc = L.apply_norm(blk.norm_c, x, cfg)
-                x = x + L.attn_out(blk.cross, _cross_decode(
-                    blk.cross, hc, cfg, c["ck"], c["cv"]))
-            h2 = L.apply_norm(blk.norm2, x, cfg)
-            if cfg.is_moe:
-                x = x + M.moe_forward(blk.ffn, h2, cfg)[0]
-            else:
-                x = x + L.ffn_forward(blk.ffn, h2, cfg)
+        x = shard(L.embed(self.embed, tokens, cfg), "batch", None, None)
+        ends = _super_block_ends(cfg)
+        for i, (blk, c) in enumerate(zip(self.layers, cache)):
+            x = self._decode_block(blk, x, c, index)
+            if i in ends:
+                x = shard(x, "batch", None, None)
         x = L.apply_norm(self.final_norm, x, cfg)
-        return L.unembed(self.embed, x, cfg), cache
+        return shard(L.unembed(self.embed, x, cfg), "batch", None, "vocab"), cache
+
+    def _decode_block(self, blk: Block, x: torch.Tensor,
+                      c: Dict[str, torch.Tensor], index: int) -> torch.Tensor:
+        """One block for one token, updating its cache ``c`` in place."""
+        cfg = self.cfg
+        h = L.apply_norm(blk.norm1, x, cfg)
+        if blk.btype == "mamba":
+            mix, st = S.mamba_decode(blk.mixer, h, cfg, c)
+            c.update(st)
+            return x + mix
+        if blk.btype == "rglru":
+            mix, st = R.rglru_decode(blk.mixer, h, cfg, c)
+            c.update(st)
+        else:
+            local = blk.btype == "local"
+            mix, c["k"], c["v"] = L.attn_decode(
+                blk.mixer, h, cfg, c["k"], c["v"], index,
+                window=cfg.local_window if local else 0, ring=local)
+        x = x + mix
+        if "ck" in c:      # cross-attention against the encoder's K/V
+            hc = L.apply_norm(blk.norm_c, x, cfg)
+            x = x + L.attn_out(blk.cross, _cross_decode(
+                blk.cross, hc, cfg, c["ck"], c["cv"]))
+        h2 = L.apply_norm(blk.norm2, x, cfg)
+        if cfg.is_moe:
+            return x + M.moe_forward(blk.ffn, h2, cfg)[0]
+        return x + L.ffn_forward(blk.ffn, h2, cfg)
+
+
+def _super_block_ends(cfg: ModelConfig) -> set:
+    """Indices of the layers that end a super-block (not the remainder)."""
+    Pn = len(cfg.pattern)
+    return {s * Pn + Pn - 1 for s in range(cfg.n_super)}
 
 
 def _cross_decode(p: L.Params, x: torch.Tensor, cfg: ModelConfig,

@@ -5,7 +5,11 @@ are mappings from the port's parameter names (``Transformer``'s
 ``named_parameters``) to tensors.  Unlike the reference's pure functions,
 :func:`adamw_update` writes the new parameters and moments in place, which
 saves a copy of the model and of both moments on the card.
-``opt_state_specs`` (sharding) waits for the distribution slice.
+:func:`opt_state_specs` shards the moments exactly like the parameters.
+Under a mesh, parameters, gradients and moments are DTensors on the same
+placements (the train step pins the gradients there); the update runs on
+each rank's local shards and the global norm sums the shards' squares over
+the mesh.
 
 Weight decay is decoupled and applied to leaves with ``ndim >= 2``, the
 reference's "matrices only".  The port's leaves are per layer, so its norm
@@ -21,6 +25,10 @@ from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.models.sharding import P
 
 Tree = Mapping[str, torch.Tensor]
 
@@ -41,21 +49,44 @@ SLICE = 1 << 26
 
 
 def adamw_init(params: Tree, opt: AdamWConfig) -> Dict[str, Any]:
-    """Zero moments in ``opt.state_dtype`` and a step count of 0 (int32),
-    on the parameters' device."""
+    """Zero moments in ``opt.state_dtype`` (DTensors on a DTensor
+    parameter's shards) and a step count of 0 (int32), on the parameters'
+    device."""
     device = next(iter(params.values())).device
     return {
-        "m": {n: torch.zeros(p.shape, dtype=opt.state_dtype, device=p.device)
-              for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=opt.state_dtype, device=p.device)
-              for n, p in params.items()},
+        "m": {n: torch.zeros_like(p, dtype=opt.state_dtype) for n, p in params.items()},
+        "v": {n: torch.zeros_like(p, dtype=opt.state_dtype) for n, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
+def opt_state_specs(param_specs: Mapping[str, P]) -> Dict[str, Any]:
+    """The moments shard like the parameters; the step is replicated."""
+    return {"m": param_specs, "v": param_specs, "step": P()}
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of the f32 sum of squares."""
-    return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in tree.values()))
+    """sqrt of the sum over leaves of the f32 sum of squares.  DTensor
+    leaves: each rank sums the squares of its shards, each divided by the
+    number of ranks that hold the same shard, and an all-reduce over each
+    mesh dim in turn adds them up; the result is a plain tensor, the same
+    on every rank."""
+    leaves = list(tree.values())
+    if not isinstance(leaves[0], DTensor):
+        return torch.sqrt(sum(torch.sum(x.float() ** 2) for x in leaves))
+    mesh = leaves[0].device_mesh
+    total = 0
+    for x in leaves:
+        copies = 1
+        for m, pl in enumerate(x.placements):
+            if not pl.is_shard():
+                if not isinstance(pl, Replicate):
+                    raise ValueError(f"global_norm: a leaf at {x.placements}")
+                copies *= mesh.size(m)
+        total = total + torch.sum(x.to_local().float() ** 2) / copies
+    for m in range(mesh.ndim):
+        dist.all_reduce(total, group=mesh.get_group(m))
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -81,9 +112,16 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
     bc2 = 1 - torch.tensor(opt.b2, **f32) ** stepf
     for name, leaf in params.items():
         decay = leaf.ndim >= 2           # decoupled weight decay, matrices only
-        flat = (leaf.view(-1), grads[name].reshape(-1),
-                state["m"][name].view(-1), state["v"][name].view(-1))
-        for lo in range(0, leaf.numel(), SLICE):
+        quad = (leaf, grads[name], state["m"][name], state["v"][name])
+        if isinstance(leaf, DTensor):
+            if len({tuple(t.placements) for t in quad}) != 1:
+                raise ValueError(f"adamw_update: {name}: parameter, gradient "
+                                 "and moments on different placements "
+                                 f"{[tuple(t.placements) for t in quad]}")
+            quad = tuple(t.to_local() for t in quad)
+        flat = (quad[0].view(-1), quad[1].reshape(-1), quad[2].view(-1),
+                quad[3].view(-1))
+        for lo in range(0, flat[0].numel(), SLICE):
             p, g, m, v = (t[lo:lo + SLICE] for t in flat)
             gf = g.float() * clip
             mf = opt.b1 * m.float() + (1 - opt.b1) * gf

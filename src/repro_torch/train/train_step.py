@@ -19,6 +19,13 @@ objects.
   (:mod:`repro_torch.train.grad_compress` is a library).
 * With M > 1 the MoE aux loss is reported as 0, as in the reference (each
   microbatch's aux still enters its loss and gradients).
+* Under a mesh (:func:`repro_torch.models.sharding.active_rules`, the model's
+  parameters, the moments and the batch DTensors, see
+  :mod:`repro_torch.launch.mesh`) each microbatch's gradients are pinned to
+  the parameter sharding as the reference pins them (``shard_tree``):
+  ``Partial -> Shard`` is the reduce-scatter into the fsdp shard.  The loss
+  and metrics are read through ``full_tensor()``: a DTensor scalar's local
+  value can be one rank's partial sum.
 """
 
 from __future__ import annotations
@@ -26,9 +33,11 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.models.sharding import shard, shard_tree
+from repro_torch.models.transformer import Transformer, init_params, param_specs
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
 TrainState = Dict[str, Any]   # {"params": Transformer, "opt": ..., "step": int32}
@@ -56,7 +65,9 @@ def loss_fn(model: Transformer, batch: Batch, cfg: ModelConfig,
     logits, aux = model(batch["tokens"], **extras)
     labels = batch["labels"]
     Tl = labels.shape[1]
-    logits = logits[:, -Tl:].float()
+    # Under a mesh the vocab shards are gathered first: DTensor cannot
+    # reduce a gather over a vocab shard (no-op without a mesh).
+    logits = shard(logits[:, -Tl:].float(), "batch", None, None)
     logz = torch.logsumexp(logits, dim=-1)
     # A masked label (< 0) gathers slot 0; the mask zeroes its term.
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
@@ -64,13 +75,20 @@ def loss_fn(model: Transformer, batch: Batch, cfg: ModelConfig,
     ntok = torch.clamp(mask.sum(), min=1.0)
     ce = torch.sum((logz - gold) * mask) / ntok
     loss = ce + aux_weight * aux
-    return loss, {"ce": ce, "moe_aux": aux}
+    return _whole(loss), {"ce": _whole(ce), "moe_aux": _whole(aux)}
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor as the plain tensor it stands for (differentiably), the
+    same on every rank; a plain tensor as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                     num_microbatches: int = 1, aux_weight: float = 0.01):
     """Build the train step for this arch."""
     M = num_microbatches
+    pspecs = param_specs(cfg)
 
     def grad_fn(model: Transformer, batch: Batch):
         params = dict(model.named_parameters())
@@ -84,14 +102,14 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
         model = state["params"]
         if M == 1:
             loss, aux, grads = grad_fn(model, batch)
+            grads = shard_tree(grads, pspecs)
         else:
             B = next(iter(batch.values())).shape[0]
             if B % M:
                 raise ValueError(f"batch {B} is not a multiple of "
                                  f"{M} microbatches")
             mb = B // M
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=torch.float32)
                      for n, p in model.named_parameters()}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             ce = torch.zeros_like(loss)
@@ -99,7 +117,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
                 part = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
                 lval, a, g = grad_fn(model, part)
                 for n, gi in g.items():
-                    grads[n].add_(gi.float() / M)
+                    grads[n].add_(shard(gi.float() / M, *pspecs[n]))
                 loss = loss + lval / M
                 ce = ce + a["ce"] / M
             aux = {"ce": ce, "moe_aux": torch.zeros_like(loss)}

@@ -1,0 +1,364 @@
+"""The port's sharded paths on a (data=2, model=4) mesh of 8 gloo ranks on
+the CPU, against the reference's sharded results.
+
+The reference runs in a subprocess with 8 forced host devices and a mesh of
+``Auto`` axes (jax 0.9 makes ``jax.make_mesh`` axes ``Explicit`` by default,
+which its ``with_sharding_constraint`` refuses; ``tests/test_multidevice.py``
+fails for that reason alone).  Parameters and inputs come from the
+reference's initializers in this process, through ``repro_torch.convert``;
+the port's 8 ranks (``mp.spawn``, ``torch.set_num_threads(1)``, a
+``file://`` rendezvous under the test's tmp dir) run every case once and
+write their results, which the tests below hold against the reference's at
+the reference test's tolerances:
+
+1. MoE ``a2a`` (granite tiny, no-drop capacity): equal to ``sort_scatter``
+   (1e-4), |aux - aux_ref| < 0.5, and equal to the reference's ``a2a``
+   (output 1e-4, its per-shard aux 1e-5); two all-to-alls per call.  Its
+   train step without the aux term equals the unsharded step (loss 1e-4,
+   parameters 5e-4): the a2a backward.
+2. qwen3 TINY, f32, 2 microbatches: the sharded train step equals the
+   reference's sharded step (loss 1e-4, parameters 5e-4; weight decay 0,
+   see ``tests/test_torch_train.py`` for why).
+3. recurrentgemma TINY, f32: the sharded forward (5e-4).
+4. GQA with 4 query heads over a model axis of 4 and 2 KV heads (qwen3
+   TINY): each rank reads the KV head of its own query head (5e-4).
+5. ``seq_parallel=True`` (qwen3 TINY): the residual stream sharded over
+   the sequence at the block boundaries (5e-4); and granite TINY with its
+   ``sort_scatter`` dispatch, which under a mesh gathers the tokens and
+   runs whole on every rank (5e-4).
+6. ``compressed_psum`` / ``compressed_psum_ef`` over the data axis: each
+   rank's codes equal the reference's under ``shard_map`` exactly, the sums
+   within 1e-6, two calls bit-equal.
+"""
+
+import dataclasses
+import datetime
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import tiny_config as jtiny  # noqa: E402
+from repro.data.pipeline import synthetic_batch as jbatch  # noqa: E402
+from repro.models import moe as JM  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch.configs.registry import tiny_config  # noqa: E402
+
+SHAPE = (2, 4)
+WORLD = SHAPE[0] * SHAPE[1]
+CAP = 8.0            # no-drop capacity for the a2a cases
+TOL = dict(atol=1e-4, rtol=1e-4)
+FWD_TOL = dict(atol=5e-4, rtol=5e-4)
+
+REFERENCE = textwrap.dedent("""
+    import os, sys, pickle
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    import dataclasses
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import PartitionSpec as P
+    from repro.configs.registry import tiny_config
+    from repro.launch.mesh import batch_shardings, state_shardings
+    from repro.models import moe as M, transformer as T
+    from repro.models.config import ShapeCell
+    from repro.models.sharding import active_rules, rules_for
+    from repro.train import grad_compress as G
+    from repro.train.optimizer import AdamWConfig
+    from repro.train.train_step import make_train_step
+
+    inp = pickle.load(open(sys.argv[1], "rb"))
+    mesh = jax.make_mesh((2, 4), ("data", "model"),
+                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    rules = rules_for("tp", multi_pod=False)
+    f32 = jnp.float32
+    out = {}
+
+    cfg = dataclasses.replace(tiny_config("granite-moe-1b-a400m"), dtype=f32,
+                              moe_capacity=%(cap)r, moe_impl="a2a")
+    with mesh, active_rules(rules, mesh):
+        y, aux = jax.jit(lambda p, x: M.moe_forward(p, x, cfg))(
+            inp["moe_p"], inp["moe_x"])
+    out["a2a_y"], out["a2a_aux"] = np.asarray(y), float(aux)
+
+    cfg = dataclasses.replace(tiny_config("qwen3-32b"), dtype=f32)
+    opt = AdamWConfig(weight_decay=0.0)
+    step = make_train_step(cfg, opt, num_microbatches=2)
+    state = {"params": inp["qwen_p"],
+             "opt": {"m": jax.tree.map(jnp.zeros_like, inp["qwen_p"]),
+                     "v": jax.tree.map(jnp.zeros_like, inp["qwen_p"]),
+                     "step": jnp.zeros((), jnp.int32)},
+             "step": jnp.zeros((), jnp.int32)}
+    with mesh, active_rules(rules, mesh):
+        ss = state_shardings(cfg, mesh, rules)
+        bs = batch_shardings(cfg, ShapeCell("t", 16, 8, "train"), mesh, rules)
+        s, m = jax.jit(step, in_shardings=(ss, bs), out_shardings=(ss, None))(
+            state, inp["qwen_batch"])
+    out["train_loss"] = float(m["loss"])
+    out["train_params"] = jax.device_get(s["params"])
+
+    def fwd(cfg, params, toks):
+        with mesh, active_rules(rules, mesh):
+            lg, _ = jax.jit(lambda p, t: T.forward(p, t, cfg))(params, toks)
+        return np.asarray(lg)
+
+    out["rg_logits"] = fwd(dataclasses.replace(tiny_config("recurrentgemma-9b"),
+                                               dtype=f32), inp["rg_p"], inp["toks"])
+    out["gqa_logits"] = fwd(cfg, inp["qwen_p"], inp["toks"])
+    out["sp_logits"] = fwd(dataclasses.replace(cfg, seq_parallel=True),
+                           inp["qwen_p"], inp["sp_toks"])
+    out["moe_logits"] = fwd(dataclasses.replace(tiny_config("granite-moe-1b-a400m"),
+                                                dtype=f32), inp["granite_p"], inp["toks"])
+
+    try:
+        shard_map = jax.shard_map
+    except AttributeError:
+        from jax.experimental.shard_map import shard_map
+
+    def local(x, err):
+        q, s = G.compress(x)
+        tot = G.compressed_psum(x, "data")
+        tot_ef, new_err = G.compressed_psum_ef(x, err, "data")
+        return q[None], s[None], tot[None], tot_ef[None], new_err[None]
+
+    spec = P("data")
+    fn = shard_map(local, mesh=mesh, in_specs=(spec, spec), out_specs=(spec,) * 5,
+                   check_vma=False)
+    q, s, tot, tot_ef, new_err = jax.jit(fn)(inp["cp_x"], inp["cp_err"])
+    out["cp"] = [np.asarray(a) for a in (q, s, tot, tot_ef, new_err)]
+    pickle.dump(out, open(sys.argv[2], "wb"))
+""") % {"cap": CAP}
+
+
+def _ranks(rank: int, inputs: str, rendezvous: str, outdir: str) -> None:
+    """One rank of the port: every case on the (2, 4) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.convert import params_from_reference, to_tensor
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import moe as TM
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step, train_state_init
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=300))
+    inp = pickle.load(open(inputs, "rb"))
+    mesh = MS.make_mesh(SHAPE, ("data", "model"), "cpu")
+    f32 = torch.float32
+    out = {}
+
+    def model(cfg, tree):
+        m = Transformer(cfg, device="cpu")
+        m.load_state_dict(params_from_reference(tree, cfg))
+        return m
+
+    def sharded_forward(cfg, tree, toks):
+        m = model(cfg, tree)
+        rules = MS.arch_rules(cfg, False)
+        sh.distribute_model(m, MS.T.param_specs(cfg), rules, mesh)
+        with sh.active_rules(rules, mesh), torch.no_grad():
+            t = MS.distribute_batch({"t": torch.from_numpy(toks).long()}, mesh, rules)
+            return m(t["t"])[0].full_tensor().numpy()
+
+    # 1. MoE a2a against sort_scatter, and its step without the aux term.
+    cfg = dataclasses.replace(tiny_config("granite-moe-1b-a400m"), dtype=f32,
+                              moe_capacity=CAP, moe_impl="a2a")
+    rules = MS.arch_rules(cfg, False)
+    p = {k: to_tensor(v) for k, v in inp["moe_p"].items()}
+    x = to_tensor(inp["moe_x"])
+    B, T, D = x.shape
+    y_ss, aux_ss = TM._moe_local(x.reshape(-1, D), p, cfg, TM.capacity(cfg, B * T))
+    out["ss_y"], out["ss_aux"] = y_ss.reshape(x.shape).numpy(), float(aux_ss)
+    TM.A2A_CALLS = 0
+    with sh.active_rules(rules, mesh):
+        pd = sh.distribute_tree(p, TM.moe_spec(cfg), rules, mesh)
+        xd = sh.distribute(x, sh.P("batch", None, None), rules, mesh)
+        y, aux = TM.moe_forward(pd, xd, cfg)
+        out["a2a_y"], out["a2a_aux"] = y.full_tensor().numpy(), float(aux.full_tensor())
+    out["a2a_calls"] = TM.A2A_CALLS
+    opt = AdamWConfig(weight_decay=0.0)
+    step = make_train_step(cfg, opt, num_microbatches=1, aux_weight=0.0)
+    batch = {k: torch.from_numpy(v).long() for k, v in inp["moe_batch"].items()}
+    plain, pm = step(train_state_init(torch.Generator().manual_seed(0), cfg, opt,
+                                      "cpu"), batch)
+    st = MS.sharded_train_state(init_params(cfg, torch.Generator().manual_seed(0),
+                                            "cpu"), cfg, opt, mesh, rules)
+    with sh.active_rules(rules, mesh):
+        shd, sm = step(st, MS.distribute_batch(batch, mesh, rules))
+    out["a2a_step"] = (float(pm["loss"]), float(sm["loss"]), max(
+        float((a - b.full_tensor()).detach().abs().max())
+        for (_, a), (_, b) in zip(plain["params"].named_parameters(),
+                                  shd["params"].named_parameters())))
+
+    # 2. qwen3 TINY, M=2: the sharded train step.
+    cfg = dataclasses.replace(tiny_config("qwen3-32b"), dtype=f32)
+    rules = MS.arch_rules(cfg, False)
+    state = MS.sharded_train_state(model(cfg, inp["qwen_p"]), cfg, opt, mesh, rules)
+    batch = {k: torch.from_numpy(v).long() for k, v in inp["qwen_batch"].items()}
+    with sh.active_rules(rules, mesh):
+        new, met = make_train_step(cfg, opt, num_microbatches=2)(
+            state, MS.distribute_batch(batch, mesh, rules))
+    out["train_loss"] = float(met["loss"])
+    out["train_params"] = {n: t.full_tensor().detach().numpy()
+                           for n, t in new["params"].named_parameters()}
+
+    # 3.-5. Sharded forwards.
+    out["rg_logits"] = sharded_forward(
+        dataclasses.replace(tiny_config("recurrentgemma-9b"), dtype=f32),
+        inp["rg_p"], inp["toks"])
+    out["gqa_logits"] = sharded_forward(cfg, inp["qwen_p"], inp["toks"])
+    out["sp_logits"] = sharded_forward(dataclasses.replace(cfg, seq_parallel=True),
+                                       inp["qwen_p"], inp["sp_toks"])
+    out["moe_logits"] = sharded_forward(
+        dataclasses.replace(tiny_config("granite-moe-1b-a400m"), dtype=f32),
+        inp["granite_p"], inp["toks"])
+
+    # 6. compressed_psum over the data axis.
+    d = mesh.get_coordinate()[0]
+    n = inp["cp_x"].shape[0] // SHAPE[0]
+    xl = torch.from_numpy(inp["cp_x"][d * n:(d + 1) * n])
+    el = torch.from_numpy(inp["cp_err"][d * n:(d + 1) * n])
+    q, s = gc.compress(xl)
+    tot = gc.compressed_psum(xl, mesh, "data")
+    tot_ef, new_err = gc.compressed_psum_ef(xl, el, mesh, "data")
+    out["cp"] = [t.numpy() for t in (q, s, tot, tot_ef, new_err)]
+    out["cp_twice"] = bool(torch.equal(tot, gc.compressed_psum(xl, mesh, "data")))
+    out["cp_data"] = d
+    with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _inputs():
+    """Reference parameters and seeded inputs, as numpy trees."""
+    get = jax.device_get
+    f32 = jnp.float32
+    cfg = dataclasses.replace(jtiny("granite-moe-1b-a400m"), dtype=f32,
+                              moe_capacity=CAP, moe_impl="a2a")
+    moe_p = get(JM.moe_init(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(0)
+    qcfg = dataclasses.replace(jtiny("qwen3-32b"), dtype=f32)
+    qp = get(JT.init_params(jax.random.PRNGKey(0), qcfg))
+    rcfg = dataclasses.replace(jtiny("recurrentgemma-9b"), dtype=f32)
+    return {
+        "moe_p": moe_p,
+        "moe_x": rng.standard_normal((8, 4, cfg.d_model)).astype(np.float32),
+        "moe_batch": {k: np.asarray(v) for k, v in get(jbatch(
+            jax.random.PRNGKey(3), cfg, 8, 8)).items()},
+        "qwen_p": qp,
+        "qwen_batch": {k: np.asarray(v) for k, v in get(jbatch(
+            jax.random.PRNGKey(1), qcfg, 8, 16)).items()},
+        "rg_p": get(JT.init_params(jax.random.PRNGKey(0), rcfg)),
+        "granite_p": get(JT.init_params(jax.random.PRNGKey(0), dataclasses.replace(
+            jtiny("granite-moe-1b-a400m"), dtype=f32))),
+        "toks": rng.integers(0, 128, (8, 12)).astype(np.int32),
+        "sp_toks": rng.integers(0, 128, (8, 16)).astype(np.int32),
+        "cp_x": rng.standard_normal((4, 1500)).astype(np.float32),
+        "cp_err": (0.01 * rng.standard_normal((4, 1500))).astype(np.float32),
+    }
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(inputs, the reference's results, each port rank's results)."""
+    import torch.multiprocessing as mp
+
+    tmp = tmp_path_factory.mktemp("dist")
+    inp = _inputs()
+    with open(tmp / "inputs.pkl", "wb") as f:
+        pickle.dump(inp, f)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    ref = subprocess.Popen([sys.executable, "-c", REFERENCE, str(tmp / "inputs.pkl"),
+                            str(tmp / "ref.pkl")], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        mp.spawn(_ranks, args=(str(tmp / "inputs.pkl"), str(tmp / "rendezvous"),
+                               str(tmp)), nprocs=WORLD)
+        _, err = ref.communicate(timeout=600)
+    finally:
+        ref.kill()
+    assert ref.returncode == 0, err[-3000:]
+    with open(tmp / "ref.pkl", "rb") as f:
+        want = pickle.load(f)
+    ranks = []
+    for r in range(WORLD):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    return inp, want, ranks
+
+
+def test_a2a_equals_sort_scatter_and_the_reference_a2a(runs):
+    _, want, ranks = runs
+    for got in ranks:
+        np.testing.assert_allclose(got["a2a_y"], got["ss_y"], **TOL)
+        assert abs(got["a2a_aux"] - got["ss_aux"]) < 0.5
+        np.testing.assert_allclose(got["a2a_y"], want["a2a_y"], **TOL)
+        assert abs(got["a2a_aux"] - want["a2a_aux"]) < 1e-5
+        assert got["a2a_calls"] == 2
+
+
+def test_a2a_train_step_without_aux_equals_unsharded(runs):
+    """The aux term is left out: the a2a aux is the mean of per-shard
+    estimators (the reference's ``pmean``), another function than the
+    unsharded step's global one."""
+    for got in runs[2]:
+        plain, shd, dparam = got["a2a_step"]
+        assert abs(plain - shd) < 1e-4 and dparam < 5e-4
+
+
+def test_sharded_train_step_equals_reference(runs):
+    from repro_torch.convert import reference_leaf
+    _, want, ranks = runs
+    cfg = tiny_config("qwen3-32b")
+    for got in ranks:
+        np.testing.assert_allclose(got["train_loss"], want["train_loss"], **TOL)
+        for n, a in got["train_params"].items():
+            np.testing.assert_allclose(a, reference_leaf(want["train_params"], n, cfg),
+                                       atol=5e-4, rtol=5e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("case", ["rg_logits", "gqa_logits", "sp_logits",
+                                  "moe_logits"])
+def test_sharded_forward_equals_reference(runs, case):
+    _, want, ranks = runs
+    for got in ranks:
+        np.testing.assert_allclose(got[case], want[case], **FWD_TOL)
+
+
+def test_compressed_psum_equals_reference(runs):
+    _, want, ranks = runs
+    for got in ranks:
+        d = got["cp_data"]
+        q, s, tot, tot_ef, new_err = got["cp"]
+        wq, ws, wtot, wtot_ef, wnew_err = (a[d] for a in want["cp"])
+        np.testing.assert_array_equal(q, wq)
+        np.testing.assert_allclose(s, ws, atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(tot, wtot, atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(tot_ef, wtot_ef, atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(new_err, wnew_err, atol=1e-6, rtol=1e-6)
+        assert got["cp_twice"]
+
+
+def test_launch_train_mesh_single_runs_unsharded_below_256_ranks(capsys):
+    from repro_torch.launch import train
+    argv = ["--arch", "qwen3-32b", "--tiny", "--device", "cpu", "--steps", "2",
+            "--batch", "4", "--seq", "16"]
+    base = train.run(argv + ["--mesh", "none"])
+    for mesh, need in (("single", 256), ("multi", 512)):
+        capsys.readouterr()
+        got = train.run(argv + ["--mesh", mesh])
+        assert (f"[launch] {need} devices required for --mesh {mesh}, have 1; "
+                "running unsharded (same numerics).") in capsys.readouterr().out
+        assert got.losses == base.losses

@@ -321,14 +321,18 @@ def test_launch_train_tiny_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--ckpt-every", "2"], ["--fail-at", "1"],
                                   ["--mesh", "single"]])
-def test_launch_train_refuses_unported_options(flag):
-    # --mesh waits for the distribution slice; --ckpt-every and --fail-at
-    # run since the checkpoint slice.
+def test_launch_train_refuses_unported_options(flag, monkeypatch):
+    # --mesh runs since the distribution slice (unsharded below 256 ranks);
+    # what it refuses is --ckpt-every with a bound mesh, before it starts a
+    # process group.  --ckpt-every and --fail-at run since the checkpoint
+    # slice.
     argv = ["--arch", ARCH, "--tiny", "--device", "cpu", "--steps", "2",
             "--batch", "2", "--seq", "8", *flag]
     if flag[0] == "--mesh":
-        with pytest.raises(NotImplementedError, match="slice"):
-            tlaunch.run(argv)
+        assert len(tlaunch.run(argv).losses) == 2
+        monkeypatch.setenv("WORLD_SIZE", "256")
+        with pytest.raises(NotImplementedError, match="sharded-checkpoint slice"):
+            tlaunch.run(argv + ["--ckpt-every", "2"])
         return
     res = tlaunch.run(argv)
     if flag[0] == "--ckpt-every":
