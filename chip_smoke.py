@@ -153,10 +153,27 @@ without the final result line:
    bit-equal, quantize 2 per leaf.  recurrentgemma-9b at full width, 3
    layers, f32, B=2, T=2100: the sharded forward's logits at the last 64
    positions within 5e-4 of the unsharded forward's on rank 0 (rglru 2,
-   flash 1 per rank).  granite bf16 at all 24 layers, B=4, T=1024, 2 steps:
+   flash 1 per rank); then served with its caches sharded on their
+   ``cache_specs`` (the local layer's ring over the sequence): a prefill of
+   B=2, 2100 tokens and 8 greedy decode steps against the unsharded serve
+   on rank 0, greedy tokens equal and every step's logits within 5e-4,
+   rglru 2 and flash 1 per rank (the decode steps run no kernel).  The
+   granite f32 sharded state, after its step, saved through
+   ``CheckpointManager`` under commit and under session (4 hosts, partner
+   copies; every rank gathers, rank 0 writes) and restored on 3 hosts with
+   host 1 failed: every shard file and the manifest byte-equal to rank 0's
+   save of the same state gathered whole (under commit: a save's bytes do
+   not depend on the model), and the restored shards bit-equal on the
+   same placements.  granite bf16 at all 24 layers, B=4, T=1024, 2 steps:
    every rank the same finite losses, flash 96 / 48 and 192 all-to-alls per
    rank.  Printed: per-rank step ms and peak GB beside the card's name and
    power limit, labelled as time-shared ranks.
+   Then the dry run: ``python -m repro_torch.launch.dryrun`` for qwen3-32b
+   decode_32k and falcon-mamba-7b train_4k on the single-pod mesh, as
+   subprocesses on the host (a fake group of 256 ranks,
+   meta tensors; started after the build, run beside the phases on the
+   card): each cell's artifact must say ``status: ok``; printed: wall
+   times and the per-device numbers.
 6. Times at the main-path shapes: kernel, plain version, the least time
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
@@ -176,6 +193,7 @@ without the final result line:
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -725,7 +743,27 @@ MESH_SHAPE = (2, 2)
 MESH_RANKS = MESH_SHAPE[0] * MESH_SHAPE[1]
 MESH_F32 = dict(layers=4, batch=4, seq=256, capacity=4.0)
 MESH_BF16 = dict(batch=4, seq=1024, steps=2)
-MESH_RG = dict(layers=3, batch=2, seq=2100, last=64)
+MESH_RG = dict(layers=3, batch=2, seq=2100, last=64, steps=8)
+MESH_CKPT_HOSTS = 4
+# The dry run's cells: (arch, shape), single-pod mesh.
+DRYRUN_CELLS = (("qwen3-32b", "decode_32k"), ("falcon-mamba-7b", "train_4k"))
+
+
+def file_bytes(mgr, path: str, node: int) -> bytes:
+    """A BaseFS file's bytes, read through ``mgr``'s consistency layer."""
+    fh = mgr.layer.open(990_000, path, node=node)
+    mgr._open_session(fh)
+    size = mgr.layer.stat_size(fh)
+    mgr.layer.seek(fh, 0)
+    return bytes(mgr.layer.read(fh, size))
+
+
+def ckpt_paths(step: int) -> list:
+    """(path, node) of every file a save at ``step`` writes."""
+    H = MESH_CKPT_HOSTS
+    return [(f"/ckpt/step_{step}/shard_{h}.bin{sfx}", (h + p) % H)
+            for h in range(H) for sfx, p in (("", 0), (".partner", 1))] + [
+        (f"/ckpt/step_{step}/MANIFEST", 0)]
 
 
 def mesh_rank(rank: int, workdir: str) -> None:
@@ -741,13 +779,15 @@ def mesh_rank(rank: int, workdir: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{workdir}/rendezvous",
                             rank=rank, world_size=MESH_RANKS,
                             timeout=datetime.timedelta(seconds=600))
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels import ref
     from repro_torch.launch import mesh as MS
     from repro_torch.models import moe
     from repro_torch.models import sharding as sh
-    from repro_torch.models.transformer import init_params, param_specs
+    from repro_torch.models.transformer import Transformer, init_params, param_specs
+    from repro_torch.serve.decode import make_prefill, make_serve_step
     from repro_torch.train import grad_compress as gc_
     from repro_torch.train.train_step import (loss_fn, make_train_step,
                                               train_state_init)
@@ -824,6 +864,56 @@ def mesh_rank(rank: int, workdir: str) -> None:
     out["f32"]["param_err"], out["f32"]["param_err_leaf"] = max_diff(state["params"], plain)
     del plain
 
+    # The sharded state through CheckpointManager under commit and session:
+    # rank 0's bytes against one save of the same state gathered whole (a
+    # save's bytes and manifest do not depend on the consistency model),
+    # and the restored shards against the saved ones.
+    whole = {n: p.full_tensor().detach() for n, p in state["params"].named_parameters()}
+    moments = {k: {n: t.full_tensor() for n, t in state["opt"][k].items()}
+               for k in ("m", "v")}
+    plain_mgr = None
+    if rank == 0:
+        m = Transformer(cfg, device=dev)
+        m.load_state_dict(whole)
+        plain_mgr = CheckpointManager(model="commit", num_hosts=MESH_CKPT_HOSTS,
+                                      partner=True)
+        plain_mgr.save(2, {"params": m.requires_grad_(True),
+                           "opt": {**moments, "step": state["opt"]["step"].clone()},
+                           "step": state["step"].clone()})
+        del m
+    del whole, moments
+    out["ckpt"] = {}
+    for cm in ("commit", "session"):
+        mgr = CheckpointManager(model=cm, num_hosts=MESH_CKPT_HOSTS, partner=True)
+        t0 = time.perf_counter()
+        manifest = mgr.save(2, state)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = mgr.restore(2, state, num_hosts_new=MESH_CKPT_HOSTS - 1,
+                           failed_hosts=[1])
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        pairs = [(a, b) for (_, a), (_, b) in zip(state["params"].named_parameters(),
+                                                  back["params"].named_parameters())]
+        pairs += [(state["opt"][k][n], back["opt"][k][n]) for k in ("m", "v")
+                  for n in state["opt"][k]]
+        same = all(tuple(a.placements) == tuple(b.placements)
+                   and torch.equal(a.to_local(), b.to_local()) for a, b in pairs)
+        same = (same and torch.equal(state["step"], back["step"])
+                and torch.equal(state["opt"]["step"], back["opt"]["step"]))
+        res = {"restored": bool(same), "save_ms": save_ms, "restore_ms": restore_ms,
+               "gb": sum(p["nbytes"] for leaf in manifest["leaves"].values()
+                         for p in leaf["parts"]) / 1e9}
+        del back, pairs
+        if rank == 0:
+            res["bytes_equal"] = all(file_bytes(mgr, p, n) == file_bytes(plain_mgr, p, n)
+                                     for p, n in ckpt_paths(2))
+            res["manifest_equal"] = manifest == plain_mgr.manifests[2]
+        out["ckpt"][cm] = res
+        del mgr
+        gc.collect()
+    del plain_mgr
+
     # compressed_psum over the data axis on each rank's shard of every
     # gradient leaf of one more loss: twice per leaf inside the count window.
     with sh.active_rules(rules, mesh):
@@ -871,16 +961,30 @@ def mesh_rank(rank: int, workdir: str) -> None:
                          generator=gen(41), device=dev)
     last = MESH_RG["last"]
 
+    def serve(m, prompt, whole):
+        """Greedy tokens and last-position logits of a prefill and
+        ``steps`` decode steps, each taken whole by ``whole``."""
+        steps = MESH_RG["steps"]
+        tok, logits, cache = make_prefill(m, prompt.shape[1] + steps)(prompt)
+        toks_out, logits_out = [whole(tok)], [whole(logits).float()]
+        step = make_serve_step(m)
+        for i in range(steps):
+            tok, logits, cache = step(cache, tok[:, None], prompt.shape[1] + i)
+            toks_out.append(whole(tok))
+            logits_out.append(whole(logits).float())
+        return toks_out, logits_out
+
     def build_rg():
         m = init_params(rcfg, gen(0), dev)
-        plain = None
+        plain = served = None
         if rank == 0:
             with torch.no_grad():
                 plain = m(toks)[0][:, -last:].clone()
+                served = serve(m, toks, lambda t: t)
         sh.distribute_model(m, param_specs(rcfg), rrules, mesh)
-        return m, plain
+        return m, plain, served
 
-    model, rplain = in_turn(build_rg)
+    model, rplain, rserve = in_turn(build_rg)
     reset()
     t0 = time.perf_counter()
     with sh.active_rules(rrules, mesh), torch.no_grad():
@@ -890,7 +994,26 @@ def mesh_rank(rank: int, workdir: str) -> None:
     out["rg"] = {"counts": counts(), "ms": ms, "finite": bool(torch.isfinite(got).all())}
     if rank == 0:
         out["rg"]["err"] = float(((got - rplain).abs() / (1.0 + rplain.abs())).max())
-    del model, rplain, logits, got
+    del rplain, logits, got
+    torch.cuda.empty_cache()
+
+    # The same model served with sharded caches: prefill and 8 greedy decode
+    # steps against the unsharded serve (rank 0, computed before the model
+    # was sharded).
+    reset()
+    t0 = time.perf_counter()
+    with sh.active_rules(rrules, mesh), torch.no_grad():
+        stoks, slogits = serve(model, MS.distribute_batch({"t": toks}, mesh, rrules)["t"],
+                               lambda t: t.full_tensor())
+    ms = (time.perf_counter() - t0) * 1e3
+    out["rg_serve"] = {"counts": counts(), "ms": ms}
+    if rank == 0:
+        out["rg_serve"]["tokens_equal"] = all(torch.equal(a, b) for a, b in
+                                              zip(stoks, rserve[0]))
+        out["rg_serve"]["err"] = max(float(((a - b).abs() / (1.0 + b.abs())).max())
+                                     for a, b in zip(slogits, rserve[1]))
+        out["rg_serve"]["tokens"] = [t.tolist() for t in stoks]
+    del model, stoks, slogits, rserve
     torch.cuda.empty_cache()
 
     # granite bf16, all 24 layers, 2 steps on fresh batches.
@@ -919,6 +1042,70 @@ def mesh_rank(rank: int, workdir: str) -> None:
         json.dump(out, f)
     dist.barrier()
     dist.destroy_process_group()
+
+
+def start_dryruns() -> list:
+    """Start ``python -m repro_torch.launch.dryrun`` for each of
+    DRYRUN_CELLS, one subprocess each, off the card; returns (arch, shape,
+    process, log file, wall seconds once it exits) for each."""
+    import os
+    import tempfile
+    import threading
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    out = []
+
+    def waiter(proc, t0, wall):
+        proc.wait()
+        wall.append(time.perf_counter() - t0)
+
+    for arch, shape in DRYRUN_CELLS:
+        log = tempfile.TemporaryFile(mode="w+")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", "single"], cwd=str(ROOT), env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+        wall: list = []
+        threading.Thread(target=waiter, args=(proc, t0, wall), daemon=True).start()
+        out.append((arch, shape, proc, log, wall))
+    # Stopped on any way out, a failed phase included.
+    atexit.register(lambda: [p.kill() for _, _, p, _, _ in out if p.poll() is None])
+    return out
+
+
+def finish_dryruns(dryruns: list) -> None:
+    """Wait for the dry-run cells, check each artifact says ``status: ok``
+    and print its wall time and per-device numbers."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun
+    lines = []
+    for arch, shape, proc, log, walls in dryruns:
+        rc = proc.wait(timeout=900)
+        while not walls:                 # the waiter thread records the exit
+            time.sleep(0.01)
+        wall = walls[0]
+        log.seek(0)
+        text = log.read()
+        log.close()
+        with open(dryrun._artifact_path(arch, shape, "single")) as f:
+            rec = json.load(f)
+        check(rc == 0 and rec["status"] == "ok",
+              f"dry run {arch} {shape}: rc {rc}, status {rec['status']}: "
+              f"{rec.get('error', '')}\n{text[-3000:]}")
+        gib = 2 ** 30
+        lines.append(
+            f"{arch} {shape} ({rec['mode']}, {rec['devices']} ranks, mesh "
+            f"{rec['mesh_shape']}): wall {wall:.1f} s (build {rec['build_s']} s, "
+            f"trace {rec['trace_s']} s); per device: state "
+            f"{rec['state_bytes_per_device'] / gib:.3f} GiB, cache "
+            f"{rec.get('cache_bytes_per_device', 0) / gib:.3f} GiB, saved "
+            f"{rec.get('saved_bytes_per_device', 0) / gib:.3f} GiB, fits 80 GB "
+            f"{rec['fits_80gb']}, FLOPs {rec['flops_per_device']:.4e}, op bytes "
+            f"{rec['op_bytes_per_device']:.4e}, collective wire bytes "
+            f"{rec['collectives']['wire_bytes_per_device']:.4e} "
+            f"{rec['collectives']['count_by_kind']}, kernels "
+            + json.dumps({k: v["launches"] for k, v in rec["kernels"].items()}))
+    phase(5, "dry run", " | ".join(lines))
 
 
 def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
@@ -953,7 +1140,8 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
     runs = {"f32": (train_launches(f32cfg, 1), a2a_calls(f32cfg, 1)),
             "bf16": (train_launches(gcfg, MESH_BF16["steps"]),
                      a2a_calls(gcfg, MESH_BF16["steps"])),
-            "rg": (expect(flash_attention=1, rglru_scan=2), None)}
+            "rg": (expect(flash_attention=1, rglru_scan=2), None),
+            "rg_serve": (expect(flash_attention=1, rglru_scan=2), None)}
     for r in ranks:
         leaves = r["compressed_psum"]["leaves"]
         runs_r = dict(runs, compressed_psum=(expect(quantize=2 * leaves), None))
@@ -985,7 +1173,20 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
           f"{r0['f32_plain']['aux']}")
     check(r0["rg"]["err"] <= 5e-4, f"mesh recurrentgemma: sharded logits off "
           f"the unsharded by {r0['rg']['err']}")
-    for run in ("f32", "compressed_psum", "rg", "bf16"):
+    rs_ = r0["rg_serve"]
+    check(rs_["tokens_equal"] and rs_["err"] <= 5e-4,
+          f"mesh recurrentgemma serve: sharded greedy tokens equal the unsharded "
+          f"{rs_['tokens_equal']}, logits off by {rs_['err']}")
+    for r in ranks:
+        for cm, res in r["ckpt"].items():
+            check(res["restored"], f"mesh rank {r['rank']} checkpoint {cm}: the "
+                  "restored shards differ from the saved ones")
+    for cm, res in r0["ckpt"].items():
+        check(res["bytes_equal"] and res["manifest_equal"],
+              f"mesh checkpoint {cm}: the sharded save differs from the unsharded "
+              f"one (bytes equal {res['bytes_equal']}, manifest equal "
+              f"{res['manifest_equal']})")
+    for run in ("f32", "compressed_psum", "rg", "rg_serve", "bf16"):
         launches[f"mesh {run}"] = {k: sum(r[run]["counts"][k] for r in ranks)
                                    for k in KERNELS}
     phase(5, "main path mesh granite-moe-1b-a400m f32",
@@ -1008,6 +1209,20 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
           f"sharded logits at the last {MESH_RG['last']} positions within "
           f"{r0['rg']['err']:.3e} of the unsharded; launches per rank "
           f"{r0['rg']['counts']}")
+    phase(5, "main path mesh recurrentgemma-9b serve",
+          f"{MESH_RG['layers']} layers f32, caches sharded on their specs, prefill "
+          f"B={MESH_RG['batch']} T={MESH_RG['seq']} and {MESH_RG['steps']} decode "
+          f"steps: greedy tokens equal the unsharded serve's "
+          f"({rs_['tokens'][-1]} at the last step), logits within {rs_['err']:.3e}; "
+          f"launches per rank {rs_['counts']}")
+    phase(5, "main path mesh granite-moe-1b-a400m f32 checkpoint",
+          "; ".join(f"{cm}: {res['gb']:.3f} GB a copy, every shard file and the "
+                    "manifest byte-equal to the unsharded save, restored on "
+                    f"{MESH_CKPT_HOSTS - 1} hosts (host 1 failed) bit-equal on the "
+                    f"same placements; save ms per rank "
+                    f"{[round(r['ckpt'][cm]['save_ms'], 3) for r in ranks]}, restore "
+                    f"ms per rank {[round(r['ckpt'][cm]['restore_ms'], 3) for r in ranks]}"
+                    for cm, res in r0["ckpt"].items()))
     phase(5, "main path mesh granite-moe-1b-a400m bf16",
           f"{gcfg.n_layers} layers, B={MESH_BF16['batch']} T={MESH_BF16['seq']}, "
           f"{MESH_BF16['steps']} steps: losses "
@@ -1021,7 +1236,9 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
           f"granite f32 {f32cfg.n_layers}-layer step ms per rank "
           f"{[round(r['f32']['ms'], 3) for r in ranks]}; recurrentgemma "
           f"{MESH_RG['layers']}-layer forward ms per rank "
-          f"{[round(r['rg']['ms'], 3) for r in ranks]}; phase wall {mesh_s:.1f} s",
+          f"{[round(r['rg']['ms'], 3) for r in ranks]}, sharded serve (prefill + "
+          f"{MESH_RG['steps']} steps) ms per rank "
+          f"{[round(r['rg_serve']['ms'], 3) for r in ranks]}; phase wall {mesh_s:.1f} s",
           flush=True)
 
 
@@ -1085,6 +1302,9 @@ def main() -> int:
     _build.load_all(sources)
     phase(2, "build", f"{', '.join(sources)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    # The dry run needs no card: its cells run on the host beside the phases
+    # on the card, and are waited for after the mesh phase.
+    dryruns = start_dryruns()
 
     # -- 3. kernels against plain ---------------------------------------------
     main_err, paths = {}, {}
@@ -1847,6 +2067,7 @@ def main() -> int:
 
     run_mesh_phase(torch, launches, smi_line)
     free()
+    finish_dryruns(dryruns)
 
     # -- 6. times at the main-path shapes ---------------------------------------
     def flash_times(shape):

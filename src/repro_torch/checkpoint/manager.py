@@ -30,6 +30,14 @@ queries — the measured RPC gap is the paper's Fig. 5 on real state.
 Elastic restart: the manifest records the row partition, so a restart
 with a different host count (or after a node failure, via the partner
 copy) reads exactly the ranges it needs across shard files.
+
+A sharded state (DTensor leaves, one process per rank) is saved as the
+reference saves global arrays: every rank takes part in gathering each leaf
+whole (:func:`repro_torch.checkpoint.serialization.iter_arrays`) and only
+rank 0 writes, through its BaseFS and consistency layer, so the ledger, the
+manifest and the bytes are exactly an unsharded save's.  Every rank keeps
+the manifest.  A restore reads on rank 0 alone, and every rank gets its own
+shards of each leaf on the template's placements.
 """
 
 from __future__ import annotations
@@ -38,10 +46,12 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.serialization import (
     DTYPES,
     deserialize_tree,
+    is_sharded,
     iter_arrays,
     manifest_from_json,
     manifest_to_json,
@@ -99,17 +109,20 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any) -> dict:
-        """Write one checkpoint; returns the manifest."""
+        """Write one checkpoint; returns the manifest.  Of a sharded tree,
+        on every rank, rank 0 alone writing (module docstring)."""
+        writer = not is_sharded(tree) or dist.get_rank() == 0
         H = self.num_hosts
         dtypes = {k: m["dtype"] for k, m in tree_manifest(tree).items()}
         manifest: dict = {"step": step, "num_hosts": H, "leaves": {}}
-        self.fs.ledger.mark_phase(f"ckpt_save_{step}")
 
         # Host-major write order; the DES reconstructs real concurrency.
         offsets = {h: 0 for h in range(H)}
         handles: Dict[int, FileHandle] = {}
         phandles: Dict[int, FileHandle] = {}
-        for h in range(H):
+        if writer:
+            self.fs.ledger.mark_phase(f"ckpt_save_{step}")
+        for h in range(H if writer else 0):
             handles[h] = self.layer.open(h, _shard_path(self.base, step, h),
                                          node=h)
             self._open_session(handles[h])
@@ -128,22 +141,27 @@ class CheckpointManager:
         for path, arr in iter_arrays(tree):
             nrows = arr.shape[0] if arr.ndim > 0 else 1
             flat2d = arr.reshape(nrows, -1)
-            rowbytes = flat2d[0:1].tobytes().__len__() if nrows else 0
+            rowbytes = flat2d[0:1].nbytes if nrows else 0
             parts = []
             for h, (rs, re) in enumerate(row_partition(nrows, H)):
                 if re <= rs:
                     continue
-                data = flat2d[rs:re].tobytes()
-                self.layer.write(handles[h], data)
-                if self.partner:
-                    self.layer.write(phandles[h], data)
+                nbytes = (re - rs) * rowbytes
+                if writer:
+                    data = flat2d[rs:re].tobytes()
+                    self.layer.write(handles[h], data)
+                    if self.partner:
+                        self.layer.write(phandles[h], data)
                 parts.append({"host": h, "rows": [rs, re],
-                              "offset": offsets[h], "nbytes": len(data)})
-                offsets[h] += len(data)
+                              "offset": offsets[h], "nbytes": nbytes})
+                offsets[h] += nbytes
             manifest["leaves"][path] = {
                 "shape": list(arr.shape), "dtype": dtypes[path],
                 "rowbytes": rowbytes, "parts": parts,
             }
+        self.manifests[step] = manifest
+        if not writer:
+            return manifest
 
         for h in range(H):                       # publish shards FIRST
             self._publish(handles[h])
@@ -154,7 +172,6 @@ class CheckpointManager:
         self._open_session(mfh)
         self.layer.write(mfh, manifest_to_json(manifest))
         self._publish(mfh)
-        self.manifests[step] = manifest
         self._handles[step] = {**handles, "manifest": mfh}
         for h, pfh in phandles.items():
             self._handles[step][("partner", h)] = pfh
@@ -182,7 +199,12 @@ class CheckpointManager:
         ``num_hosts_new`` simulates elastic restart (different reader
         count — purely a read-pattern change); ``failed_hosts`` forces
         those source shards to be served from the partner copy.
+
+        A sharded template is restored on every rank at once: rank 0 reads,
+        and each rank gets its shards (module docstring).
         """
+        if is_sharded(template) and dist.get_rank() != 0:
+            return deserialize_tree(template, None)
         Hn = num_hosts_new or self.num_hosts
         self.fs.ledger.mark_phase(f"ckpt_restore_{step}")
         manifest = self.read_manifest(step)

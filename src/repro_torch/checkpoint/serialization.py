@@ -17,6 +17,15 @@ Every leaf is flattened to a C-order byte string; the manifest records
 Row-partitioned leaves let a restart with a *different* host count read
 exactly the byte ranges it needs (possibly spanning several writers'
 shard files) — the manifest is the sharding-layout contract.
+
+A sharded state (DTensor leaves on a mesh, :mod:`repro_torch.launch.mesh`)
+serializes to the same bytes as the unsharded one: :func:`iter_arrays`
+gathers each DTensor leaf whole with ``full_tensor()``, one leaf at a time,
+as the reference's ``np.asarray`` of a global array does, and every rank
+takes part in each gather.  :func:`deserialize_tree` rebuilds a DTensor
+leaf on its template's placements: rank 0, which alone holds the host
+arrays, broadcasts each leaf and every rank keeps its own shards, so no rank
+builds the whole state on the card.
 """
 
 from __future__ import annotations
@@ -26,9 +35,12 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.convert import reference_layout, reference_path, to_numpy
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import set_parameter
 from repro_torch.models.transformer import Transformer
 
 SEP = "/"
@@ -93,12 +105,26 @@ def _shape_dtype(leaf) -> Tuple[List[int], torch.dtype]:
     return list(leaf.shape), leaf.dtype
 
 
+def is_sharded(tree) -> bool:
+    """True iff the tree's leaves are DTensors (a state on a mesh)."""
+    leaf = _leaves(tree)[0][1]
+    return isinstance(leaf[0] if isinstance(leaf, list) else leaf, DTensor)
+
+
+def _whole(leaf):
+    """A DTensor leaf (or list of them) gathered whole; others as they are."""
+    if isinstance(leaf, list):
+        return [_whole(t) for t in leaf]
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def iter_arrays(tree) -> Iterator[Tuple[str, np.ndarray]]:
     """(path, host array) per leaf, in jax's order, each copied to the host
     only when it is reached; bf16 leaves as their ``uint16`` bits
-    (:func:`tree_manifest` names their dtype)."""
+    (:func:`tree_manifest` names their dtype).  A DTensor leaf is gathered
+    whole first, on every rank (a collective)."""
     for k, leaf in _leaves(tree):
-        yield k, to_numpy(leaf)
+        yield k, to_numpy(_whole(leaf))
 
 
 def flatten_with_paths(tree) -> List[Tuple[str, np.ndarray]]:
@@ -125,18 +151,29 @@ def deserialize_tree(template, arrays: Dict[str, torch.Tensor]):
     Every leaf is a fresh tensor on the template leaf's device, in its dtype;
     a ``Transformer`` is a new module whose parameters take the template's
     ``requires_grad``.  Only the leading stacked axis is unstacked.  The
-    template is not touched."""
-    return _build(template, (), arrays, _find_cfg(template))
+    template is not touched.
+
+    A sharded template (:func:`is_sharded`) is rebuilt on every rank at once:
+    ``arrays`` is rank 0's, the other ranks pass None, and each leaf comes
+    to every rank from rank 0 (:func:`_fresh`)."""
+    return _build(template, (), arrays, _find_cfg(template), is_sharded(template))
 
 
 # Module-level recursion: a recursive closure is a reference cycle, which
 # would keep ``arrays`` (a whole host copy of the state) alive until the
 # garbage collector next runs.
-def _build(node, prefix: Tuple[str, ...], arrays: Dict[str, torch.Tensor],
-           cfg: Optional[ModelConfig]):
+def _build(node, prefix: Tuple[str, ...], arrays: Optional[Dict[str, torch.Tensor]],
+           cfg: Optional[ModelConfig], sharded: bool):
     if isinstance(node, Transformer):
-        model = Transformer(node.cfg, device=node.device)
         old = dict(node.named_parameters())
+        if sharded:
+            # Built on meta, each parameter then replaced by its shards.
+            model = Transformer(node.cfg, device="meta")
+            for name, p in old.items():
+                set_parameter(model, name, _fresh(p.detach(), _port_leaf(
+                    arrays, prefix, name, cfg), True), p.requires_grad)
+            return model
+        model = Transformer(node.cfg, device=node.device)
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(_port_leaf(arrays, prefix, name, cfg).reshape(p.shape))
@@ -144,24 +181,43 @@ def _build(node, prefix: Tuple[str, ...], arrays: Dict[str, torch.Tensor],
         return model
     if isinstance(node, Mapping):
         if _port_names(node):
-            return {n: _fresh(t, _port_leaf(arrays, prefix, n, cfg))
+            return {n: _fresh(t, _port_leaf(arrays, prefix, n, cfg), sharded)
                     for n, t in node.items()}
-        return {k: _build(v, prefix + (k,), arrays, cfg)
+        return {k: _build(v, prefix + (k,), arrays, cfg, sharded)
                 for k, v in node.items()}
-    return _fresh(node, arrays[SEP.join(prefix)])
+    return _fresh(node, None if arrays is None else arrays[SEP.join(prefix)],
+                  sharded)
 
 
-def _port_leaf(arrays: Dict[str, torch.Tensor], prefix: Tuple[str, ...],
-               name: str, cfg: ModelConfig) -> torch.Tensor:
-    """The host tensor of port parameter ``name`` under ``prefix``."""
+def _port_leaf(arrays: Optional[Dict[str, torch.Tensor]], prefix: Tuple[str, ...],
+               name: str, cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """The host tensor of port parameter ``name`` under ``prefix`` (None
+    without arrays: a rank other than 0 of a sharded restore)."""
+    if arrays is None:
+        return None
     path, index = reference_path(name, cfg)
     a = arrays[SEP.join(prefix + path)]
     return a if index is None else a[index]
 
 
-def _fresh(like: torch.Tensor, host: torch.Tensor) -> torch.Tensor:
-    out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
-    return out.copy_(host.reshape(like.shape))
+def _fresh(like: torch.Tensor, host: Optional[torch.Tensor],
+           sharded: bool) -> torch.Tensor:
+    """A new tensor like ``like`` holding ``host``.  In a sharded restore,
+    rank 0's ``host`` is broadcast to every rank (through host memory over
+    gloo), and a DTensor ``like`` keeps only this rank's shards at its
+    placements."""
+    if not sharded:
+        out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        return out.copy_(host.reshape(like.shape))
+    dev = "cpu" if dist.get_backend() == "gloo" else like.device
+    full = (host.reshape(like.shape).to(dev, like.dtype, copy=True)
+            if dist.get_rank() == 0
+            else torch.empty(like.shape, dtype=like.dtype, device=dev))
+    dist.broadcast(full, src=0)
+    if isinstance(like, DTensor):
+        return distribute_tensor(full.to(like.device), like.device_mesh,
+                                 like.placements, src_data_rank=None)
+    return full.to(like.device)
 
 
 def row_partition(nrows: int, num_hosts: int) -> List[Tuple[int, int]]:

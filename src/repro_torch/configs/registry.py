@@ -6,17 +6,17 @@ from repro_torch.configs import (falcon_mamba_7b, granite_moe_1b, llama3_405b,
                                  whisper_small)
 from repro_torch.models.config import ModelConfig
 
-_MODULES = {
-    "qwen3-32b": qwen3_32b,
-    "falcon-mamba-7b": falcon_mamba_7b,
-    "recurrentgemma-9b": recurrentgemma_9b,
-    "starcoder2-3b": starcoder2_3b,
-    "qwen2-72b": qwen2_72b,
-    "llama3-405b": llama3_405b,
+_MODULES = {          # the reference's order, which --list prints
+    "whisper-small": whisper_small,
     "granite-moe-1b-a400m": granite_moe_1b,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
-    "whisper-small": whisper_small,
+    "recurrentgemma-9b": recurrentgemma_9b,
+    "qwen3-32b": qwen3_32b,
+    "llama3-405b": llama3_405b,
+    "qwen2-72b": qwen2_72b,
+    "starcoder2-3b": starcoder2_3b,
     "paligemma-3b": paligemma_3b,
+    "falcon-mamba-7b": falcon_mamba_7b,
 }
 
 # Every architecture of the reference is ported.

@@ -9,7 +9,9 @@ attention and lets JAX differentiate it); here the gradient is
 ``csrc/flash_attention_bwd.cu``, joined to the forward by a
 ``torch.autograd.Function``.  The plain version of the same function is
 :func:`repro_torch.kernels.ref.attention_ref`, and of its gradient autograd
-through it.
+through it.  Given meta tensors, forward and backward launch nothing: they
+return empty outputs of the kernels' shapes and dtypes and record the
+kernels' work in :mod:`repro_torch.kernels.accounting`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import accounting as acc
 
 SOURCE = "flash_attention.cu"
 BWD_SOURCE = "flash_attention_bwd.cu"
@@ -107,7 +110,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Layout and arguments as ``flash_attention_pallas``.  When grad is
     enabled and an input requires it, the result carries a graph whose
     backward is the CUDA backward kernel.  Raises on a CPU tensor, an
-    unsupported dtype or shape, or a refused launch.
+    unsupported dtype or shape, or a refused launch.  On meta tensors it
+    launches nothing and records the work (module docstring).
     """
     _check(q, k, v)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
@@ -120,7 +124,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_cuda:
+        if not (x.is_cuda or x.is_meta):
             raise ValueError(f"flash_attention_cuda: {name} is on {x.device}, "
                              "not a CUDA device")
         if x.dtype not in _DTYPES:
@@ -159,6 +163,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if with_lse else None)
     o_lo = torch.empty_like(q) if with_lse and q.dtype != torch.float32 else None
+    if q.is_meta:
+        pairs = B * H * acc.visible_pairs(T, S, causal, window)
+        acc.record("flash_attention", flops=4 * D * pairs, special=pairs,
+                   bytes=acc.nbytes(q, k, v, out, lse, o_lo),
+                   dense_flops=4 * D * B * H * T * S)
+        return out, lse, o_lo
     if out.numel() == 0 or S == 0:
         return (out.zero_(), None if lse is None else lse.fill_(float("-inf")),
                 None if o_lo is None else o_lo.zero_())
@@ -209,6 +219,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     o, dout, lse = o.contiguous(), dout.contiguous(), lse.contiguous()
     o_lo = None if o_lo is None else o_lo.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.is_meta:
+        # Five products of 2*D flops per visible pair (S, dP, dV, dQ, dK).
+        pairs = B * H * acc.visible_pairs(T, S, causal, window)
+        acc.record("flash_attention_bwd", flops=10 * D * pairs, special=pairs,
+                   bytes=acc.nbytes(q, k, v, o, o_lo, dout, lse, dq, dk, dv),
+                   dense_flops=10 * D * B * H * T * S)
+        return dq, dk, dv
     if q.numel() == 0 or S == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)

@@ -2,7 +2,9 @@
 
 ``flash_attention``, ``ssm_scan``, ``rglru`` and ``quantize`` send a CUDA
 tensor to their hand-written kernel and a CPU tensor to the plain version;
-there is no other route.  Under autograd, ``flash_attention``, ``ssm_scan``
+there is no other route.  A meta tensor (the dry run) goes to the kernel's
+wrapper too, which then launches nothing and records the kernel's work
+(:mod:`repro_torch.kernels.accounting`).  Under autograd, ``flash_attention``, ``ssm_scan``
 and ``rglru`` on the card differentiate through their CUDA backward kernels
 (``csrc/flash_attention_bwd.cu``, ``csrc/ssm_scan_bwd.cu``,
 ``csrc/rglru_scan_bwd.cu``); on the CPU all three differentiate through the
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -87,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with the last key; ``window > 0`` keeps the ``window`` most recent keys."""
     if isinstance(q, DTensor):
         return _flash_on_shards(q, k, v, causal, window, scale)
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal=causal,
                                     window=window, scale=scale)
@@ -101,8 +104,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-position attention against a (possibly padded) KV cache.
 
     q: (B,1,H,D); k,v: (B,S,K,D); ``cache_len`` = number of valid cache
-    positions (the new token's position is ``cache_len - 1``).
+    positions (the new token's position is ``cache_len - 1``).  A DTensor
+    cache is read shard by shard (:func:`_decode_on_shards`).
     """
+    if isinstance(k, DTensor):
+        return _decode_on_shards(q, k, v, cache_len, window, scale)
     B, _, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     rep = H // K
@@ -121,6 +127,49 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def _decode_on_shards(q, k: DTensor, v: DTensor, cache_len: int, window: int,
+                      scale: Optional[float]) -> DTensor:
+    """:func:`decode_attention` on each rank's shard of the cache.
+
+    The query is taken on the cache's batch and head shards.  Where the
+    cache is sharded over the sequence, each rank attends over its own
+    slots only, keeping its max, softmax sum and p.v in f32, and those are
+    combined over the sequence's mesh dims (flash-decoding's split-K
+    combine): the cache is never gathered."""
+    mesh, kpl = k.device_mesh, tuple(k.placements)
+    qpl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in kpl)
+    ql = to_local_at(q, mesh, qpl)
+    kl, vl = k.to_local(), to_local_at(v, mesh, kpl)
+    seq_dims = [m for m, p in enumerate(kpl) if p == Shard(1)]
+    if not seq_dims:
+        return from_local_even(decode_attention(ql, kl, vl, cache_len,
+                                                window=window, scale=scale),
+                               mesh, qpl)
+    B, _, H, D = ql.shape
+    S, K = kl.shape[1], kl.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    qg = ql.float().reshape(B, 1, K, H // K, D)
+    logits = torch.einsum("bqkrd,bskd->bkrqs", qg, kl.float()) * scale
+    kpos = local_offset(k, 1) + torch.arange(S, device=kl.device)
+    mask = kpos < cache_len
+    if window > 0:
+        mask &= kpos > cache_len - 1 - window
+    logits = logits.masked_fill(~mask, _NEG_INF)
+    m = logits.amax(dim=-1)                                   # (B,K,r,1)
+    p = torch.exp(logits - m[..., None])
+    lsum = p.sum(dim=-1)
+    acc = torch.einsum("bkrqs,bskd->bkrqd", p, vl.float())
+    for d in seq_dims:
+        group = mesh.get_group(d)
+        top = funcol.all_reduce(m, "max", group)
+        corr = torch.exp(m - top)
+        lsum = funcol.all_reduce(lsum * corr, "sum", group)
+        acc = funcol.all_reduce(acc * corr[..., None], "sum", group)
+        m = top
+    out = (acc / lsum[..., None]).permute(0, 3, 1, 2, 4).reshape(B, 1, H, D)
+    return from_local_even(out.to(ql.dtype), mesh, qpl)
+
+
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
              h0: Optional[torch.Tensor] = None
@@ -136,7 +185,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             (x, xpl), (dt, xpl), (A, chan), (B, bat), (C, bat), (D, chan))),
             to_local_at(h0, mesh, state))
         return from_local_even(y, mesh, xpl), from_local_even(hT, mesh, state)
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         return ssm_scan_cuda(x.contiguous(), dt, A, B, C, D, h0)
     return _ref.ssm_scan_ref(x, dt, A, B, C, D, h0)
 
@@ -166,7 +215,7 @@ def rglru(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
             (x, xpl), (a_gate, xpl), (i_gate, xpl), (log_lam, chan))),
             to_local_at(h0, mesh, state), c=c)
         return from_local_even(hs, mesh, xpl), from_local_even(hT, mesh, state)
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         return rglru_scan_cuda(x.contiguous(), a_gate.contiguous(),
                                i_gate.contiguous(), log_lam, h0, c=c)
     return _ref.rglru_ref(x, a_gate, i_gate, log_lam, h0, c=c)
@@ -193,7 +242,7 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         pl = keep_shards(x, (0,))
         q, s = quantize(to_local_at(x, mesh, pl))
         return from_local_even(q, mesh, pl), from_local_even(s, mesh, pl)
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         return quantize_cuda(x)
     return _ref.quantize_ref(x)
 

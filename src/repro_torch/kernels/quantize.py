@@ -5,7 +5,9 @@ Replaces ``repro.kernels.quantize.quantize_pallas`` (the Pallas TPU kernel
 ``_quant_kernel``) with ``csrc/quantize.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use and bound through ctypes.  The plain version of the
 same function is :func:`repro_torch.kernels.ref.quantize_ref`; the kernel
-gives exactly its codes.
+gives exactly its codes.  Given a meta tensor it launches nothing: it returns
+empty codes and scales and records the kernel's work in
+:mod:`repro_torch.kernels.accounting`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import accounting as acc
 
 SOURCE = "quantize.cu"
 REPLACES = "src/repro/kernels/quantize.py:35"       # its pl.pallas_call
@@ -43,7 +46,7 @@ def quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     f32 scales (R,1)), as ``quantize_pallas``.  Raises on a CPU tensor, an
     unsupported dtype or shape, or a refused launch."""
     global LAUNCHES
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         raise ValueError(f"quantize_cuda: x is on {x.device}, not a CUDA device")
     if x.dtype not in _DTYPES:
         raise TypeError(f"quantize_cuda: x has dtype {x.dtype}; float32 or "
@@ -55,6 +58,11 @@ def quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     R, C = x.shape
     q = torch.empty((R, C), dtype=torch.int8, device=x.device)
     scale = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        # per element: |x|, a max, a division, a rint, two clamps.
+        acc.record("quantize", flops=6 * R * C, special=0,
+                   bytes=acc.nbytes(x, q, scale))
+        return q, scale
     if x.numel() == 0:
         return q, scale.fill_(1.0)
     fn = _fn()

@@ -14,7 +14,10 @@ over more lanes), joined to the forward by a ``torch.autograd.Function``.
 The plain version of the same function is
 :func:`repro_torch.kernels.ref.rglru_ref`, and of its gradient autograd
 through it.  Unlike the Pallas wrapper, which pads T without masking, the
-kernels walk exactly T steps, so ``h_T`` is right for every T.
+kernels walk exactly T steps, so ``h_T`` is right for every T.  Given meta
+tensors, forward and backward launch nothing: they return empty outputs of
+the kernels' shapes and dtypes (h_T and the chunk carries f32) and record
+the kernels' work in :mod:`repro_torch.kernels.accounting`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import accounting as acc
 
 SOURCE = "rglru_scan.cu"
 BWD_SOURCE = "rglru_scan_bwd.cu"
@@ -85,7 +89,7 @@ def _prepare(x, a_gate, i_gate, log_lam, h0):
     given (one dtype, contiguous), log_lam and h0 f32 and contiguous."""
     for name, t in (("x", x), ("a_gate", a_gate), ("i_gate", i_gate),
                     ("log_lam", log_lam)) + ((("h0", h0),) if h0 is not None else ()):
-        if not t.is_cuda:
+        if not (t.is_cuda or t.is_meta):
             raise ValueError(f"rglru_scan_cuda: {name} is on {t.device}, not "
                              "a CUDA device")
         if t.device != x.device:
@@ -129,7 +133,8 @@ def rglru_scan_cuda(x: torch.Tensor, a_gate: torch.Tensor,
     requires it, the result carries a graph whose backward is the CUDA
     backward kernel, and the forward also saves the state entering each
     chunk for it.  Raises on a CPU tensor, an unsupported dtype or shape,
-    or a refused launch.
+    or a refused launch.  On meta tensors it launches nothing and records
+    the work (module docstring).
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -149,6 +154,12 @@ def _forward(x, a_gate, i_gate, log_lam, h0, c: float, save: bool):
     hT = torch.empty((B, L), dtype=torch.float32, device=x.device)
     carries = (torch.empty((B, -(-T // CHUNK), L), dtype=torch.float32,
                            device=x.device) if save else None)
+    if x.is_meta:
+        # per element: 7 special-function ops and about 12 flops.
+        acc.record("rglru_scan", flops=B * T * L * 12, special=B * T * L * 7,
+                   bytes=acc.nbytes(x, a_gate, i_gate, log_lam, h0, y, hT,
+                                    carries))
+        return y, hT, carries
     if x.numel() == 0:                   # no step: h_T is the initial state
         return y, (hT.copy_(h0) if h0 is not None else hT.zero_()), carries
     fn = _fn()
@@ -193,6 +204,12 @@ def rglru_scan_bwd_cuda(dh: torch.Tensor, dhT: Optional[torch.Tensor],
     f32 = dict(dtype=torch.float32, device=dev)
     dx, dag, dig = (torch.empty_like(x) for _ in range(3))
     dlam, dh0 = torch.empty((L,), **f32), torch.empty((B, L), **f32)
+    if x.is_meta:
+        # per element: 8 special-function ops and about 30 flops.
+        acc.record("rglru_scan_bwd", flops=B * T * L * 30, special=B * T * L * 8,
+                   bytes=acc.nbytes(x, a_gate, i_gate, log_lam, carries, dh,
+                                    dhT, dx, dag, dig, dlam, dh0))
+        return dx, dag, dig, dlam, dh0
     if x.numel() == 0:                   # no step: dh0 is dh_T
         return (dx, dag, dig, dlam.zero_(),
                 dhT.clone() if dhT is not None else dh0.zero_())

@@ -13,7 +13,10 @@ the states the forward saves at each chunk's start (in shorter segments,
 over more lanes, with the states in pairs), joined to the forward by a
 ``torch.autograd.Function``.  The plain version of the same function is
 :func:`repro_torch.kernels.ref.ssm_scan_ref`, and of its gradient autograd
-through it.
+through it.  Given meta tensors, forward and backward launch nothing: they
+return empty outputs of the kernels' shapes and dtypes (h_T and the chunk
+carries f32) and record the kernels' work in
+:mod:`repro_torch.kernels.accounting`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import accounting as acc
 
 SOURCE = "ssm_scan.cu"
 BWD_SOURCE = "ssm_scan_bwd.cu"
@@ -85,7 +89,7 @@ def _bwd_fns():
 def _f32(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
     """``t`` as a contiguous f32 tensor of ``shape`` on ``device``; an
     upcast from bf16 is exact."""
-    if not t.is_cuda:
+    if not (t.is_cuda or t.is_meta):
         raise ValueError(f"ssm_scan_cuda: {name} is on {t.device}, not a "
                          "CUDA device")
     if t.device != device:
@@ -102,7 +106,7 @@ def _f32(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
 def _prepare(x, dt, A, B, C, D, h0):
     """The inputs checked and as the kernels take them: x as given (f32 or
     bf16, contiguous), every other tensor f32 and contiguous."""
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         raise ValueError(f"ssm_scan_cuda: x is on {x.device}, not a CUDA device")
     if x.dtype not in _DTYPES:
         raise TypeError(f"ssm_scan_cuda: x has dtype {x.dtype}; float32 or "
@@ -136,7 +140,8 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     requires it, the result carries a graph whose backward is the CUDA
     backward kernel, and the forward also saves the state entering each
     chunk for it.  Raises on a CPU tensor, an unsupported dtype or shape,
-    or a refused launch.
+    or a refused launch.  On meta tensors it launches nothing and records
+    the work (module docstring).
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
@@ -157,6 +162,12 @@ def _forward(x, dt, A, B, C, D, h0, save: bool):
     hT = torch.empty((Bt, I, N), dtype=torch.float32, device=dev)
     carries = (torch.empty((Bt, -(-T // CHUNK), I, N), dtype=torch.float32,
                            device=dev) if save else None)
+    if x.is_meta:
+        # per (b,t,i,n): 6 flops and one exp; per (b,t,i): 3 flops.
+        acc.record("ssm_scan", flops=Bt * T * I * (6 * N + 3),
+                   special=Bt * T * I * N,
+                   bytes=acc.nbytes(x, dt, A, B, C, D, h0, y, hT, carries))
+        return y, hT, carries
     if x.numel() == 0:                   # no step: h_T is the initial state
         return y, (hT.copy_(h0) if h0 is not None else hT.zero_()), carries
     fn = _fn()
@@ -199,6 +210,13 @@ def ssm_scan_bwd_cuda(dy: torch.Tensor, dhT: Optional[torch.Tensor],
     dA, dD = torch.empty((I, N), **f32), torch.empty((I,), **f32)
     dB, dC = torch.empty((Bt, T, N), **f32), torch.empty((Bt, T, N), **f32)
     dh0 = torch.empty((Bt, I, N), **f32)
+    if x.is_meta:
+        # per (b,t,i,n): 20 flops and one exp.
+        acc.record("ssm_scan_bwd", flops=Bt * T * I * N * 20,
+                   special=Bt * T * I * N,
+                   bytes=acc.nbytes(x, dt, A, B, C, D, carries, dy, dhT, dx,
+                                    ddt, dA, dB, dC, dD, dh0))
+        return dx, ddt, dA, dB, dC, dD, dh0
     if x.numel() == 0:                   # no step: dh0 is dh_T
         return (dx, ddt, dA.zero_(), dB, dC, dD.zero_(),
                 dhT.clone() if dhT is not None else dh0.zero_())

@@ -8,7 +8,10 @@ torchrun environment).
 
 Mesh shapes: single pod (16, 16) = 256 ranks ("data", "model"); multi-pod
 (2, 16, 16) = 512 ranks ("pod", "data", "model").  The pod axis composes
-with data parallelism.
+with data parallelism.  :func:`fake_world` starts a fake process group of
+that many ranks in one process (the dry run: rank 0's view, with every
+collective issued and none carried out), over which a ``"cpu"`` mesh is
+built.
 
 The abstract state, batch and cache are the real modules and tensors built
 on ``device="meta"`` (the reference's ``jax.eval_shape``); the
@@ -28,10 +31,30 @@ from torch.distributed.tensor import Placement, Replicate
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, ShapeCell
 from repro_torch.models.frontends import extra_inputs
-from repro_torch.models.sharding import (P, Rules, distribute_model,
-                                         distribute_tree, resolve_tree, rules_for,
+from repro_torch.models.sharding import (P, Rules, active_rules,
+                                         distribute_model, distribute_tree,
+                                         resolve_tree, rules_for,
                                          use_sync_gloo_all_gather)
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, opt_state_specs
+
+
+def fake_world(n: int) -> None:
+    """Start a fake process group of ``n`` ranks in this process, as rank 0:
+    collectives are issued and return at once without moving data, so what
+    runs is rank 0's local work.  A fake group already started is replaced;
+    a real one is refused (the group is process-wide)."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        if dist.get_world_size() == n:
+            return
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"fake_world({n}): this process already has a "
+            f"{dist.get_backend()} process group of {dist.get_world_size()} "
+            "ranks; a fake group needs a process of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
@@ -39,7 +62,8 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the started process
     group.  On a CUDA mesh over gloo (several ranks on one card) the
     functional all-gather goes through the blocking one
-    (:func:`repro_torch.models.sharding.use_sync_gloo_all_gather`)."""
+    (:func:`repro_torch.models.sharding.use_sync_gloo_all_gather`); a
+    ``"cpu"`` mesh over gloo or over :func:`fake_world` needs nothing."""
     mesh = init_device_mesh(device_type, shape, mesh_dim_names=axes)
     if (device_type == "cuda"
             and torch.distributed.get_backend() == "gloo"):
@@ -136,5 +160,26 @@ def sharded_train_state(model: T.Transformer, cfg: ModelConfig,
 def distribute_batch(batch: Mapping[str, torch.Tensor], mesh,
                      rules: Rules) -> Dict[str, torch.Tensor]:
     """A batch (the same whole batch on every rank) sharded over its batch
-    dim."""
+    dim.  A meta batch gives meta DTensors."""
     return distribute_tree(dict(batch), _batch_specs(batch), rules, mesh)
+
+
+def sharded_abstract_params(cfg: ModelConfig, mesh, rules: Rules) -> T.Transformer:
+    """A model on ``device="meta"`` whose parameters are meta DTensors on
+    their resolved placements (serving)."""
+    return distribute_model(T.Transformer(cfg, device="meta"), T.param_specs(cfg),
+                            rules, mesh)
+
+
+def sharded_abstract_state(cfg: ModelConfig, mesh, rules: Rules) -> Dict[str, Any]:
+    """The train state on ``device="meta"``: parameters (grad on) and
+    moments as meta DTensors on their placements."""
+    return sharded_train_state(T.Transformer(cfg, device="meta"), cfg,
+                               opt_for(cfg), mesh, rules)
+
+
+def sharded_abstract_cache(model: T.Transformer, cell: ShapeCell, mesh,
+                           rules: Rules):
+    """The cell's serving cache as meta DTensors on its placements."""
+    with active_rules(rules, mesh):
+        return model.init_cache(cell.global_batch, cell.seq_len)

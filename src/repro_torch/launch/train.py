@@ -48,15 +48,17 @@ MoE arch adds 0.01 times its load-balance loss and routes through
 pass ``--microbatches 1``.
 
 ``--mesh single|multi`` does what the reference's does: with fewer ranks
-than the production mesh needs (256 single, 512 multi; the world size of the
-torchrun environment, 1 without one) it prints the reference's message and
-trains unsharded, with the same numerics.  With enough ranks it starts the
-process group from the torchrun environment (``env://``; NCCL on the card,
-gloo on the CPU), binds :func:`repro_torch.launch.mesh.make_production_mesh`
-and the arch's rules, places the state and each batch on the mesh and runs
-the same steps under :func:`repro_torch.models.sharding.active_rules`.
-Checkpointing a sharded state is not ported yet: ``--ckpt-every`` with a
-bound mesh raises ``NotImplementedError``.
+than the production mesh needs (256 single, 512 multi; the world size of a
+process group already started, else of the torchrun environment, 1 without
+one) it prints the reference's message and trains unsharded, with the same
+numerics.  With enough ranks it starts the process group from the torchrun
+environment unless one is started (``env://``; NCCL on the card, gloo on the
+CPU), binds :func:`repro_torch.launch.mesh.make_production_mesh` and the
+arch's rules, places the state and each batch on the mesh and runs the same
+steps under :func:`repro_torch.models.sharding.active_rules`.  Checkpoints
+of the sharded state are saved and restored as the reference's are: every
+rank takes part, rank 0 writes and reads, and the bytes are an unsharded
+save's (:class:`repro_torch.checkpoint.CheckpointManager`).
 """
 
 from __future__ import annotations
@@ -147,15 +149,13 @@ def bind_mesh(args: argparse.Namespace, cfg: ModelConfig, device: torch.device):
     if args.mesh == "none":
         return None, None
     need = 512 if args.mesh == "multi" else 256
-    world = int(os.environ.get("WORLD_SIZE", "1"))
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
     if world < need:
         print(f"[launch] {need} devices required for --mesh {args.mesh}, "
               f"have {world}; running unsharded (same numerics).", flush=True)
         return None, None
-    if args.ckpt_every:
-        raise NotImplementedError(
-            "--ckpt-every with a bound mesh: checkpointing a sharded state is "
-            "the sharded-checkpoint slice (ROADMAP.md §1), not ported yet")
     if not torch.distributed.is_initialized():
         torch.distributed.init_process_group(
             "nccl" if device.type == "cuda" else "gloo", init_method="env://")

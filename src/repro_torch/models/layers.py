@@ -144,7 +144,12 @@ def causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
 def conv_tail(u: torch.Tensor, W: int) -> torch.Tensor:
     """The last W-1 steps of u (B,T,C), zero-padded in front when T < W-1:
     the conv window a decode step continues from.  A fresh tensor, so the
-    cache does not keep u alive."""
+    cache does not keep u alive.  A DTensor u runs on each rank's batch and
+    channel shard."""
+    if isinstance(u, DTensor):
+        mesh, pl = u.device_mesh, sh.keep_shards(u, (0, 2))
+        return sh.from_local_even(conv_tail(sh.to_local_at(u, mesh, pl), W),
+                                  mesh, pl)
     return F.pad(u[:, -(W - 1):], (0, 0, max(W - 1 - u.shape[1], 0), 0))
 
 
@@ -190,9 +195,9 @@ def attn_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project to (q, k, v); applies bias, qk-norm, RoPE."""
     src = x if kv_from is None else kv_from
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    q = _heads(x, p["wq"])
+    k = _heads(src, p["wk"])
+    v = _heads(src, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -206,8 +211,33 @@ def attn_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)``.  A DTensor x is projected on each
+    rank's batch (and sequence) shards and the weight's head shards, the
+    weight gathered over its other dims as fsdp gathers on use: DTensor's
+    own plan may shard the flattened heads x head_dim output over more
+    ranks than there are heads, which the split into heads cannot hold."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    mesh = x.device_mesh
+    xpl = sh.keep_shards(x, (0, 1))
+    wpl = (w.placements if isinstance(w, DTensor)
+           else (Replicate(),) * mesh.ndim)
+    wpl = tuple(wp if wp == Shard(1) and not isinstance(xp, Shard)
+                else Replicate() for wp, xp in zip(wpl, xpl))
+    opl = tuple(xp if isinstance(xp, Shard) else Shard(2) if wp == Shard(1)
+                else Replicate() for xp, wp in zip(xpl, wpl))
+    out = torch.einsum("bsd,dhk->bshk",
+                       sh.to_local_at(x, mesh, xpl, sh.partial_where(opl, xpl)),
+                       sh.to_local_at(w, mesh, wpl, sh.partial_where(opl, wpl)))
+    return sh.from_local_even(out, mesh, opl)
+
+
 def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bthk,hkd->btd", o, p["wo"])
+    """The output projection; under a mesh the heads' partial sums are
+    reduced to the batch-sharded residual layout (no-op without one)."""
+    out = torch.einsum("bthk,hkd->btd", o, sh.on_use(p["wo"], o))
+    return sh.shard(out, "batch", None, None)
 
 
 def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -231,15 +261,20 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     Writes the new K/V into ``cache_k``/``cache_v`` IN PLACE (the reference
     returns updated copies) and returns them.  ``ring=True`` writes at
     ``index % S`` (bounded local-window cache); positions stay absolute
-    for RoPE.
+    for RoPE.  A DTensor cache is written shard by shard: only the ranks
+    whose sequence shard holds the slot write it.
     """
     B = x.shape[0]
     S = cache_k.shape[1]
     pos = torch.full((B, 1), index, dtype=torch.int64, device=x.device)
     q, k, v = attn_qkv(p, x, cfg, pos)
     slot = index % S if ring else min(index, S - 1)
-    cache_k[:, slot] = k[:, 0]
-    cache_v[:, slot] = v[:, 0]
+    if isinstance(cache_k, DTensor):
+        _write_slot(cache_k, k, slot)
+        _write_slot(cache_v, v, slot)
+    else:
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
     if ring:
         # Ring cache: all S slots are valid once full; mask handles warmup.
         o = ops.decode_attention(q, cache_k, cache_v, min(index + 1, S))
@@ -248,17 +283,36 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return attn_out(p, o), cache_k, cache_v
 
 
+def _write_slot(cache: DTensor, new: torch.Tensor, slot: int) -> None:
+    """cache[:, slot] = new[:, 0] on the rank(s) whose sequence shard of the
+    (B,S,K,hd) cache holds ``slot``; ``new`` (B,1,K,hd) is taken on the
+    cache's batch and head shards."""
+    mesh, cpl = cache.device_mesh, cache.placements
+    npl = tuple(Replicate() if p == Shard(1) else p for p in cpl)
+    new = sh.to_local_at(new, mesh, npl)      # every rank takes part
+    local = cache.to_local()
+    off = sh.local_offset(cache, 1)
+    if off <= slot < off + local.shape[1]:
+        local[:, slot - off] = new[:, 0]
+
+
 def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = torch.einsum("btd,df->btf", x, p["wi"])
+    """Under a mesh the input is taken whole over its features and the
+    output reduced to the batch-sharded residual layout, the tensor-parallel
+    plan (DTensor's op-by-op choice can shard the residual's features and
+    gather the weights whole instead); no-ops without one."""
+    x = sh.shard(x, "batch", None, None)
+    h = torch.einsum("btd,df->btf", x, sh.on_use(p["wi"], x))
     if cfg.ffn == "swiglu":
-        g = torch.einsum("btd,df->btf", x, p["wg"])
+        g = torch.einsum("btd,df->btf", x, sh.on_use(p["wg"], x))
         h = F.silu(g.float()).to(h.dtype) * h
     elif cfg.ffn == "geglu":
-        g = torch.einsum("btd,df->btf", x, p["wg"])
+        g = torch.einsum("btd,df->btf", x, sh.on_use(p["wg"], x))
         h = F.gelu(g.float(), approximate="tanh").to(h.dtype) * h
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return torch.einsum("btf,fd->btd", h, p["wo"])
+    return sh.shard(torch.einsum("btf,fd->btd", h, sh.on_use(p["wo"], h)),
+                    "batch", None, None)
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -266,14 +320,20 @@ def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if isinstance(table, DTensor):
         # DTensor has a sharding rule for embedding and its backward; it
         # cannot propagate one for the index_put of the indexing's backward
-        # (torch 2.11).  The same rows either way.
-        return F.embedding(tokens, table) * math.sqrt(cfg.d_model)
+        # (torch 2.11).  The same rows either way.  The vocab shards' masked
+        # partial sums are reduced here, and the identity redistribute
+        # after it takes a partial-sum gradient whole before it reaches the
+        # masked partial's backward, which torch 2.11 cannot reach from a
+        # partial sum.
+        out = sh.shard(F.embedding(tokens, table) * math.sqrt(cfg.d_model),
+                       "batch", None, None)
+        return out.redistribute(out.device_mesh, out.placements)
     return table[tokens] * math.sqrt(cfg.d_model)
 
 
 def unembed(p: Params, x: torch.Tensor,
             cfg: Optional[ModelConfig] = None) -> torch.Tensor:
-    logits = torch.einsum("btd,dv->btv", x, p["head"])
+    logits = torch.einsum("btd,dv->btv", x, sh.on_use(p["head"], x))
     Vp = p["head"].shape[-1]
     if cfg is not None and Vp > cfg.vocab:
         # Padded vocab slots never win argmax / contribute to logsumexp.

@@ -128,7 +128,11 @@ def _route(xf: torch.Tensor, router: torch.Tensor, E: int, k: int,
 
     fe = topi.reshape(-1)                                       # (S*k,)
     fe_sorted, order = torch.sort(fe, stable=True)
-    counts = torch.bincount(fe, minlength=E)
+    if fe.is_meta:       # the dry run: bincount's size depends on the data
+        counts = torch.zeros(E, dtype=fe.dtype, device=fe.device).scatter_add_(
+            0, fe, torch.ones_like(fe))
+    else:
+        counts = torch.bincount(fe, minlength=E)
     starts = torch.cumsum(counts, 0) - counts                   # (E,)
     pos = torch.arange(S * k, device=xf.device) - starts[fe_sorted]
     keep = pos < C

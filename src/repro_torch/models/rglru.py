@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import P
 
@@ -72,8 +73,8 @@ def rglru_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None
 
 
 def _branches(p: Params, x: torch.Tensor):
-    gate = torch.einsum("btd,dl->btl", x, p["w_gate"])
-    rec = torch.einsum("btd,dl->btl", x, p["w_rec"])
+    gate = torch.einsum("btd,dl->btl", x, sh.on_use(p["w_gate"], x))
+    rec = torch.einsum("btd,dl->btl", x, sh.on_use(p["w_rec"], x))
     return gate, rec
 
 
@@ -84,10 +85,12 @@ def rglru_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
     gate, rec = _branches(p, x)
     gate = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
     conv = L.causal_conv(rec, p["conv_w"], p["conv_b"])
-    a_gate = torch.einsum("btl,lm->btm", conv, p["w_a"])
-    i_gate = torch.einsum("btl,lm->btm", conv, p["w_i"])
+    a_gate = torch.einsum("btl,lm->btm", conv, sh.on_use(p["w_a"], conv))
+    i_gate = torch.einsum("btl,lm->btm", conv, sh.on_use(p["w_i"], conv))
     hs, hT = ops.rglru(conv, a_gate, i_gate, p["log_lam"])
-    return torch.einsum("btl,ld->btd", hs * gate, p["w_out"]), rec, hT
+    y = hs * gate
+    out = torch.einsum("btl,ld->btd", y, sh.on_use(p["w_out"], y))
+    return sh.shard(out, "batch", None, None), rec, hT
 
 
 def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -97,10 +100,11 @@ def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def rglru_cache_init(cfg: ModelConfig, batch: int, dtype,
                      device) -> Dict[str, torch.Tensor]:
+    """Zero decode state; sharded on its spec under active rules."""
+    spec = rglru_cache_spec(cfg)
     return {
-        "conv": torch.zeros((batch, CONV_W - 1, cfg.lru), dtype=dtype,
-                            device=device),
-        "h": torch.zeros((batch, cfg.lru), dtype=torch.float32, device=device),
+        "conv": sh.zeros((batch, CONV_W - 1, cfg.lru), dtype, device, spec["conv"]),
+        "h": sh.zeros((batch, cfg.lru), torch.float32, device, spec["h"]),
     }
 
 
@@ -113,9 +117,10 @@ def rglru_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     window = torch.cat([cache["conv"], rec], dim=1)       # (B,W,L)
     conv = (torch.einsum("bwl,wl->bl", window, p["conv_w"])
             + p["conv_b"].to(rec.dtype))
-    a_gate = torch.einsum("bl,lm->bm", conv, p["w_a"])
-    i_gate = torch.einsum("bl,lm->bm", conv, p["w_i"])
+    a_gate = torch.einsum("bl,lm->bm", conv, sh.on_use(p["w_a"], conv))
+    i_gate = torch.einsum("bl,lm->bm", conv, sh.on_use(p["w_i"], conv))
     _, h = ops.rglru_step(conv, a_gate, i_gate, p["log_lam"], cache["h"])
     y = h.to(x.dtype) * gate[:, 0]
-    out = torch.einsum("bl,ld->bd", y, p["w_out"])[:, None]
+    out = sh.shard(torch.einsum("bl,ld->bd", y, sh.on_use(p["w_out"], y)),
+                   "batch", None)[:, None]
     return out, {"conv": window[:, 1:], "h": h}

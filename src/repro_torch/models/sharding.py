@@ -256,15 +256,22 @@ def distribute_model(model: nn.Module, specs: Mapping[str, Sequence],
     names it) by a DTensor parameter at its resolved placements, in place;
     ``requires_grad`` is kept."""
     for name, p in list(model.named_parameters()):
-        owner, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(owner) if owner else model
-        new = nn.Parameter(distribute(p.detach(), specs[name], rules, mesh),
-                           requires_grad=p.requires_grad)
-        if isinstance(mod, nn.ParameterDict):
-            mod[leaf] = new
-        else:
-            setattr(mod, leaf, new)
+        set_parameter(model, name, distribute(p.detach(), specs[name], rules, mesh),
+                      p.requires_grad)
     return model
+
+
+def set_parameter(model: nn.Module, name: str, t: torch.Tensor,
+                  requires_grad: bool) -> None:
+    """Replace ``model``'s parameter ``name`` (as ``named_parameters``
+    names it) by a new parameter holding ``t``."""
+    owner, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(owner) if owner else model
+    new = nn.Parameter(t, requires_grad=requires_grad)
+    if isinstance(mod, nn.ParameterDict):
+        mod[leaf] = new
+    else:
+        setattr(mod, leaf, new)
 
 
 def _constrain(x: torch.Tensor, spec: Sequence, rules: Rules, mesh):
@@ -340,6 +347,58 @@ def from_local_even(t: torch.Tensor, mesh, pl) -> DTensor:
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(t.contiguous(), mesh, pl, shape=torch.Size(shape),
                               stride=stride)
+
+
+def local_shape(shape: Sequence[int], mesh, pl) -> Tuple[int, ...]:
+    """This rank's shard shape of a tensor of ``shape`` at placements
+    ``pl`` (even shards)."""
+    out = list(shape)
+    for m, p in enumerate(pl):
+        if isinstance(p, Shard):
+            out[p.dim] //= mesh.size(m)
+    return tuple(out)
+
+
+def zeros(shape: Sequence[int], dtype: torch.dtype, device,
+          spec: Sequence) -> torch.Tensor:
+    """Zeros of ``shape``; under :func:`active_rules` a DTensor at ``spec``'s
+    resolved placements, made on the shards, never whole (a serving cache
+    of 32 K positions does not fit on one card whole)."""
+    ctx = current_context()
+    if ctx is None:
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+    rules, mesh = ctx
+    pl = resolve_placements(spec, rules, mesh, tuple(shape))
+    return from_local_even(torch.zeros(local_shape(shape, mesh, pl), dtype=dtype,
+                                       device=device), mesh, pl)
+
+
+def like_placed(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``new`` at ``old``'s placements when ``old`` is a DTensor (a cache
+    leaf keeps its sharding when a step replaces it), else ``new``."""
+    if not isinstance(old, DTensor):
+        return new
+    if tuple(new.placements) == tuple(old.placements):
+        return new
+    return new.redistribute(old.device_mesh, old.placements)
+
+
+def on_use(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Weight ``w`` as a product with activation ``x`` uses it: gathered
+    over every mesh dim on which ``x`` shards a leading (batch or sequence)
+    dim and ``w`` is sharded, as an fsdp-stored weight is gathered on use.
+    Left to itself, DTensor may move a sequence's activations onto the
+    weight's shards of the contracted dim and redo work on every rank of
+    the data axis.  A decode step's activations (one position a sequence)
+    move fewer bytes than the weight and are left to DTensor.  No-op unless
+    both are DTensors."""
+    if not (isinstance(w, DTensor) and isinstance(x, DTensor)) or (
+            x.ndim < 3 or x.shape[1] == 1):
+        return w
+    pl = tuple(Replicate() if isinstance(xp, Shard) and xp.dim < x.ndim - 1
+               and isinstance(wp, Shard) else wp
+               for xp, wp in zip(x.placements, w.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
 
 
 def mesh_group(mesh, axis: str):

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import P
 
@@ -74,9 +75,12 @@ def mamba_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None
 
 def _split_xproj(p: Params, u: torch.Tensor, cfg: ModelConfig):
     R, N = cfg.dtrank, cfg.ssm_state
-    proj = torch.einsum("...i,ir->...r", u, p["x_proj"])
+    proj = torch.einsum("...i,ir->...r", u, sh.on_use(p["x_proj"], u))
+    # Under a mesh the channels' partial sums are reduced here, so dt comes
+    # out on the channel shards of its bias (no-op without one).
+    proj = sh.shard(proj, "batch", *([None] * (proj.ndim - 1)))
     dt_r, B, C = torch.split(proj, [R, N, N], dim=-1)
-    dt = torch.einsum("...r,ri->...i", dt_r, p["dt_proj"])
+    dt = torch.einsum("...r,ri->...i", dt_r, sh.on_use(p["dt_proj"], dt_r))
     dt = F.softplus(dt.float() + p["dt_bias"])
     return dt, B, C
 
@@ -85,7 +89,7 @@ def mamba_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The mixer over a full sequence.  x: (B,T,D).  Returns (out (B,T,D),
     the pre-conv inputs u (B,T,I), the final ssm state (B,I,N) f32)."""
-    uz = torch.einsum("btd,di->bti", x, p["in_proj"])
+    uz = torch.einsum("btd,di->bti", x, sh.on_use(p["in_proj"], x))
     u, z = torch.chunk(uz, 2, dim=-1)                     # (B,T,I) each
     conv = L.causal_conv(u, p["conv_w"], p["conv_b"])
     uc = F.silu(conv.float()).to(x.dtype)
@@ -93,7 +97,8 @@ def mamba_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
     A = -torch.exp(p["A_log"])                            # (I,N), negative
     y, hT = ops.ssm_scan(uc, dt, A, Bm, Cm, p["D"])
     y = y * F.silu(z.float()).to(y.dtype)
-    return torch.einsum("bti,id->btd", y, p["out_proj"]), u, hT
+    out = torch.einsum("bti,id->btd", y, sh.on_use(p["out_proj"], y))
+    return sh.shard(out, "batch", None, None), u, hT
 
 
 def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -103,11 +108,13 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype,
                      device) -> Dict[str, torch.Tensor]:
+    """Zero decode state; sharded on its spec under active rules."""
+    spec = mamba_cache_spec(cfg)
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.inner), dtype=dtype,
-                            device=device),
-        "h": torch.zeros((batch, cfg.inner, cfg.ssm_state),
-                         dtype=torch.float32, device=device),
+        "conv": sh.zeros((batch, cfg.ssm_conv - 1, cfg.inner), dtype, device,
+                         spec["conv"]),
+        "h": sh.zeros((batch, cfg.inner, cfg.ssm_state), torch.float32, device,
+                      spec["h"]),
     }
 
 
@@ -115,7 +122,7 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token.  x: (B,1,D); cache: conv window (B,W-1,I) + state (B,I,N)."""
-    uz = torch.einsum("btd,di->bti", x, p["in_proj"])
+    uz = torch.einsum("btd,di->bti", x, sh.on_use(p["in_proj"], x))
     u, z = torch.chunk(uz, 2, dim=-1)                     # (B,1,I)
     window = torch.cat([cache["conv"], u], dim=1)         # (B,W,I)
     conv = (torch.einsum("bwi,wi->bi", window, p["conv_w"])
@@ -125,5 +132,6 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     A = -torch.exp(p["A_log"])
     yt, h = ops.ssm_step(ut, dt, A, Bm, Cm, p["D"], cache["h"])
     yt = yt * F.silu(z[:, 0].float()).to(yt.dtype)
-    y = torch.einsum("bi,id->bd", yt, p["out_proj"])[:, None]
+    y = sh.shard(torch.einsum("bi,id->bd", yt, sh.on_use(p["out_proj"], yt)),
+                 "batch", None)[:, None]
     return y, {"conv": window[:, 1:], "h": h}

@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels import ops
@@ -56,7 +57,9 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import P, shard, under_rules
+from repro_torch.models import sharding as sh
+from repro_torch.models.sharding import (P, local_offset, shard, to_local_at,
+                                         under_rules)
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -194,8 +197,16 @@ class Block(nn.Module):
 def _fill_kv(c: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
              ring: bool) -> None:
     """Write the prompt's K/V into the cache in place.  ``ring``: the cache
-    holds the last S_ positions, token t at slot t % S_."""
+    holds the last S_ positions, token t at slot t % S_.  A DTensor cache
+    is written shard by shard: each rank takes K/V on its batch and head
+    shards (whole over the sequence) and writes the slots of its own
+    sequence shard."""
     S_, T = c["k"].shape[1], k.shape[1]
+    sharded = isinstance(c["k"], DTensor)
+    if sharded:
+        mesh, cpl = c["k"].device_mesh, c["k"].placements
+        kpl = tuple(Replicate() if p == Shard(1) else p for p in cpl)
+        k, v = to_local_at(k, mesh, kpl), to_local_at(v, mesh, kpl)
     if ring:
         # The last S_ chronological KVs are a rotation by T % S_.
         k, v = k[:, -S_:], v[:, -S_:]
@@ -203,8 +214,16 @@ def _fill_kv(c: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
             k, v = torch.roll(k, T % S_, dims=1), torch.roll(v, T % S_, dims=1)
     else:
         k, v = k[:, :S_], v[:, :S_]
-    c["k"][:, :k.shape[1]] = k
-    c["v"][:, :v.shape[1]] = v
+    if not sharded:
+        c["k"][:, :k.shape[1]] = k
+        c["v"][:, :v.shape[1]] = v
+        return
+    off = local_offset(c["k"], 1)
+    ck, cv = c["k"].to_local(), c["v"].to_local()
+    lo, hi = off, min(off + ck.shape[1], k.shape[1])
+    if hi > lo:
+        ck[:, :hi - lo] = k[:, lo:hi]
+        cv[:, :hi - lo] = v[:, lo:hi]
 
 
 class Transformer(nn.Module):
@@ -264,12 +283,12 @@ class Transformer(nn.Module):
         if blk.btype == "mamba":
             mix, st = _mamba_prefill(blk.mixer, h, cfg)
             if cache is not None:
-                cache.update(st)
+                _update(cache, st)
             return x + mix, None
         if blk.btype == "rglru":
             mix, rec, hT = R.rglru_mix(blk.mixer, h, cfg)
             if cache is not None:
-                cache.update(conv=L.conv_tail(rec, R.CONV_W), h=hT)
+                _update(cache, {"conv": L.conv_tail(rec, R.CONV_W), "h": hT})
         else:
             window = cfg.local_window if blk.btype == "local" else 0
             q, k, v = L.attn_qkv(blk.mixer, h, cfg, positions)
@@ -288,7 +307,7 @@ class Transformer(nn.Module):
             x = x + L.attn_out(blk.cross, ops.flash_attention(q, k, v,
                                                               causal=False))
             if cache is not None:
-                cache["ck"], cache["cv"] = k, v
+                _update(cache, {"ck": k, "cv": v})
         h2 = L.apply_norm(blk.norm2, x, cfg)
         if cfg.is_moe:
             y, aux = M.moe_forward(blk.ffn, h2, cfg)
@@ -338,8 +357,8 @@ class Transformer(nn.Module):
         cfg = self.cfg
         x = L.embed(self.embed, tokens, cfg)
         if cfg.frontend == "vision" and patches is not None:
-            pe = torch.einsum("bpd,de->bpe", patches.to(cfg.dtype),
-                              self.patch_proj)
+            pe = patches.to(cfg.dtype)
+            pe = torch.einsum("bpd,de->bpe", pe, sh.on_use(self.patch_proj, pe))
             x = torch.cat([pe, x], dim=1)
         enc_out = (self._encode(frames) if cfg.kind == "encdec"
                    and frames is not None else None)
@@ -393,10 +412,12 @@ class Transformer(nn.Module):
         ``min(max_len, local_window)`` slots for ``local``), ``{"conv", "h"}``
         for ``rglru`` and ``mamba``; an encoder-decoder's also hold the
         cross K/V ``{"ck", "cv"}`` (B, enc_len, n_heads, head_dim), zero
-        until prefill fills them."""
+        until prefill fills them.  Under :func:`sharding.active_rules` each
+        leaf is a DTensor at its :func:`cache_specs` placements, made on the
+        shards."""
         cfg, dev = self.cfg, self.device
         cache: Cache = []
-        for blk in self.layers:
+        for blk, spec in zip(self.layers, cache_specs(cfg)):
             if blk.btype == "rglru":
                 c = R.rglru_cache_init(cfg, batch, cfg.dtype, dev)
             elif blk.btype == "mamba":
@@ -405,12 +426,11 @@ class Transformer(nn.Module):
                 S_ = (min(max_len, cfg.local_window) if blk.btype == "local"
                       else max_len)
                 shape = (batch, S_, cfg.n_kv_heads, cfg.head_dim)
-                c = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                     "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+                c = {n: sh.zeros(shape, cfg.dtype, dev, spec[n]) for n in ("k", "v")}
             if cfg.kind == "encdec":
                 shape = (batch, cfg.enc_len, cfg.n_heads, cfg.head_dim)
-                c["ck"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
-                c["cv"] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+                c.update({n: sh.zeros(shape, cfg.dtype, dev, spec[n])
+                          for n in ("ck", "cv")})
             cache.append(c)
         return cache
 
@@ -456,11 +476,11 @@ class Transformer(nn.Module):
         h = L.apply_norm(blk.norm1, x, cfg)
         if blk.btype == "mamba":
             mix, st = S.mamba_decode(blk.mixer, h, cfg, c)
-            c.update(st)
+            _update(c, st)
             return x + mix
         if blk.btype == "rglru":
             mix, st = R.rglru_decode(blk.mixer, h, cfg, c)
-            c.update(st)
+            _update(c, st)
         else:
             local = blk.btype == "local"
             mix, c["k"], c["v"] = L.attn_decode(
@@ -477,6 +497,12 @@ class Transformer(nn.Module):
         return x + L.ffn_forward(blk.ffn, h2, cfg)
 
 
+def _update(c: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
+    """Replace cache leaves; a sharded leaf keeps its placements."""
+    for name, t in new.items():
+        c[name] = sh.like_placed(c[name], t)
+
+
 def _super_block_ends(cfg: ModelConfig) -> set:
     """Indices of the layers that end a super-block (not the remainder)."""
     Pn = len(cfg.pattern)
@@ -488,7 +514,7 @@ def _cross_decode(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
     """One query per sequence against the whole cross cache.  As the
     reference's ``_cross_decode``: the query projection and qk-norm, without
     the q bias."""
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    q = torch.einsum("btd,dhk->bthk", x, sh.on_use(p["wq"], x))
     if cfg.qk_norm:
         q = L._qk_normalize(q, p["q_norm"])
     return ops.decode_attention(q, ck, cv, ck.shape[1])

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.sharding import shard
 from repro_torch.models.transformer import Transformer
 
 
@@ -30,12 +31,17 @@ def prefix_len(model: Transformer, **extras) -> int:
     return 0
 
 
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """Argmax of the last position's f32 logits; under a mesh the vocab
+    shards are gathered first (no-op without one)."""
+    return torch.argmax(shard(logits[:, -1].float(), "batch", None), dim=-1)
+
+
 def make_prefill(model: Transformer, max_len: int):
     def prefill(tokens: torch.Tensor, **extras):
         """tokens: (B,Tp); extras: ``frames`` / ``patches``."""
         logits, cache = model.prefill(tokens, max_len, **extras)
-        next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
-        return next_tok, logits, cache
+        return _greedy(logits), logits, cache
     return prefill
 
 
@@ -43,8 +49,7 @@ def make_serve_step(model: Transformer):
     def serve_step(cache, tokens: torch.Tensor, index: int):
         """tokens: (B,1) current token; index: its position.  Greedy argmax."""
         logits, cache = model.decode_step(cache, tokens, index)
-        next_tok = torch.argmax(logits[:, -1].float(), dim=-1)
-        return next_tok, logits, cache
+        return _greedy(logits), logits, cache
     return serve_step
 
 

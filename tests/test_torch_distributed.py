@@ -29,6 +29,17 @@ the reference test's tolerances:
 6. ``compressed_psum`` / ``compressed_psum_ef`` over the data axis: each
    rank's codes equal the reference's under ``shard_map`` exactly, the sums
    within 1e-6, two calls bit-equal.
+7. Sharded serving: prefill and 4 decode steps with the caches on their
+   ``cache_specs`` placements (qwen3 TINY with a 512-slot cache sharded over
+   the sequence, recurrentgemma TINY with its ring, whisper TINY with its
+   cross caches) equal the reference's ``make_prefill`` / ``make_serve_step``
+   jitted with its ``cache_shardings`` (greedy tokens equal, logits 5e-4);
+   the caches keep their placements, and a decode step moves fewer
+   collective bytes per rank than its local cache holds (no cache gather).
+8. Sharded checkpoints: case 2's sharded state saved under commit and under
+   session is byte-equal, manifest included, to rank 0's unsharded save of
+   the same state, and restores onto the same placements, shards
+   bit-equal.
 """
 
 import dataclasses
@@ -48,6 +59,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.registry import tiny_config as jtiny  # noqa: E402
 from repro.data.pipeline import synthetic_batch as jbatch  # noqa: E402
+from repro.models.frontends import extra_inputs as jextra  # noqa: E402
 from repro.models import moe as JM  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch.configs.registry import tiny_config  # noqa: E402
@@ -55,6 +67,11 @@ from repro_torch.configs.registry import tiny_config  # noqa: E402
 SHAPE = (2, 4)
 WORLD = SHAPE[0] * SHAPE[1]
 CAP = 8.0            # no-drop capacity for the a2a cases
+STEPS = 4            # decode steps after the prefill
+# (case, arch, its reference parameters' key, cache length)
+SERVE = (("qwen", "qwen3-32b", "qwen_p", 512),
+         ("rg", "recurrentgemma-9b", "rg_p", 16),
+         ("whisper", "whisper-small", "wh_p", 16))
 TOL = dict(atol=1e-4, rtol=1e-4)
 FWD_TOL = dict(atol=5e-4, rtol=5e-4)
 
@@ -132,8 +149,33 @@ REFERENCE = textwrap.dedent("""
                    check_vma=False)
     q, s, tot, tot_ef, new_err = jax.jit(fn)(inp["cp_x"], inp["cp_err"])
     out["cp"] = [np.asarray(a) for a in (q, s, tot, tot_ef, new_err)]
+
+    from repro.launch.mesh import cache_shardings
+    from repro.serve.decode import make_prefill, make_serve_step
+
+    def serve(cfg, params, toks, max_len, **extras):
+        cell = ShapeCell("s", max_len, toks.shape[0], "decode")
+        res = {"logits": [], "tokens": []}
+        with mesh, active_rules(rules_for(cfg.policy, False), mesh):
+            csh = cache_shardings(cfg, cell, mesh, rules_for(cfg.policy, False))
+            pf = jax.jit(make_prefill(cfg, max_len), out_shardings=(None, None, csh))
+            st = jax.jit(make_serve_step(cfg), out_shardings=(None, None, csh))
+            tok, logits, cache = pf(params, toks, **extras)
+            for i in range(%(steps)d + 1):
+                res["logits"].append(np.asarray(logits))
+                res["tokens"].append(np.asarray(tok))
+                if i < %(steps)d:
+                    tok, logits, cache = st(params, cache, tok[:, None],
+                                            jnp.int32(toks.shape[1] + i))
+        return res
+
+    for name, arch, key, max_len in %(serve)r:
+        cfg = dataclasses.replace(tiny_config(arch), dtype=f32)
+        extras = {"frames": inp["wh_frames"]} if name == "whisper" else {}
+        out["serve_" + name] = serve(cfg, inp[key], inp["serve_toks"], max_len,
+                                     **extras)
     pickle.dump(out, open(sys.argv[2], "wb"))
-""") % {"cap": CAP}
+""") % {"cap": CAP, "steps": STEPS, "serve": SERVE}
 
 
 def _ranks(rank: int, inputs: str, rendezvous: str, outdir: str) -> None:
@@ -235,9 +277,96 @@ def _ranks(rank: int, inputs: str, rendezvous: str, outdir: str) -> None:
     out["cp"] = [t.numpy() for t in (q, s, tot, tot_ef, new_err)]
     out["cp_twice"] = bool(torch.equal(tot, gc.compressed_psum(xl, mesh, "data")))
     out["cp_data"] = d
+
+    # 7. Sharded serving.
+    from repro_torch.launch.hlostats import StepCounter
+    from repro_torch.serve.decode import make_prefill, make_serve_step
+
+    def serve(cfg, tree, toks, max_len, **extras):
+        m = model(cfg, tree)
+        rules = MS.arch_rules(cfg, False)
+        sh.distribute_model(m, MS.T.param_specs(cfg), rules, mesh)
+        res = {"logits": [], "tokens": []}
+        with sh.active_rules(rules, mesh), torch.no_grad():
+            b = MS.distribute_batch({"tokens": torch.from_numpy(toks).long(),
+                                     **{k: torch.from_numpy(v) for k, v in extras.items()}},
+                                    mesh, rules)
+            tok, logits, cache = make_prefill(m, max_len)(
+                b["tokens"], **{k: b[k] for k in extras})
+            want = [{k: tuple(t.placements) for k, t in c.items()} for c in
+                    m.init_cache(toks.shape[0], max_len)]
+            step = make_serve_step(m)
+            for i in range(STEPS + 1):
+                res["logits"].append(logits.full_tensor().numpy())
+                res["tokens"].append(tok.full_tensor().numpy())
+                res.setdefault("kept", []).append(want == [
+                    {k: tuple(t.placements) for k, t in c.items()} for c in cache])
+                if i < STEPS:
+                    with StepCounter() as count:
+                        tok, logits, cache = step(cache, tok[:, None],
+                                                  toks.shape[1] + i)
+                    res.setdefault("wire", []).append(count.collectives.payload_bytes)
+            res["local_cache"] = sum(t.to_local().numel() * t.to_local().element_size()
+                                     for c in cache for t in c.values())
+        return res
+
+    for name, arch, key, max_len in SERVE:
+        cfg = dataclasses.replace(tiny_config(arch), dtype=f32)
+        extras = {"frames": inp["wh_frames"]} if name == "whisper" else {}
+        out["serve_" + name] = serve(cfg, inp[key], inp["serve_toks"], max_len,
+                                     **extras)
+
+    # 8. Sharded checkpoints of case 2's state.
+    from repro_torch.checkpoint.manager import CheckpointManager
+    cfg = dataclasses.replace(tiny_config("qwen3-32b"), dtype=f32)
+    whole = None
+    if rank == 0:
+        whole = Transformer(cfg, device="cpu")
+    full = {n: t.full_tensor().detach() for n, t in new["params"].named_parameters()}
+    moments = {k: {n: t.full_tensor() for n, t in new["opt"][k].items()}
+               for k in ("m", "v")}
+    if rank == 0:
+        whole.load_state_dict(full)
+        whole = {"params": whole.requires_grad_(True),
+                 "opt": {**moments, "step": new["opt"]["step"].clone()},
+                 "step": new["step"].clone()}
+    ck = {}
+    for cm in ("commit", "session"):
+        mgr = CheckpointManager(model=cm, num_hosts=4, partner=True)
+        manifest = mgr.save(2, new)
+        back = mgr.restore(2, new, num_hosts_new=3, failed_hosts=[1])
+        pairs = [(a, b) for (_, a), (_, b) in zip(new["params"].named_parameters(),
+                                                  back["params"].named_parameters())]
+        pairs += [(new["opt"][k][n], back["opt"][k][n]) for k in ("m", "v")
+                  for n in new["opt"][k]]
+        pairs += [(new["opt"]["step"], back["opt"]["step"]), (new["step"], back["step"])]
+        same = all(type(a) is type(b) and (
+            tuple(a.placements) == tuple(b.placements)
+            and torch.equal(a.to_local(), b.to_local()) if hasattr(a, "placements")
+            else torch.equal(a, b)) for a, b in pairs)
+        res = {"restored": same, "manifest": manifest}
+        if rank == 0:
+            plain = CheckpointManager(model=cm, num_hosts=4, partner=True)
+            plain.save(2, whole)
+            paths = [(f"/ckpt/step_2/shard_{h}.bin{sfx}", (h + p) % 4)
+                     for h in range(4) for sfx, p in (("", 0), (".partner", 1))]
+            res["bytes_equal"] = all(
+                _file_bytes(mgr, path, node) == _file_bytes(plain, path, node)
+                for path, node in paths + [("/ckpt/step_2/MANIFEST", 0)])
+            res["plain_manifest"] = plain.manifests[2]
+        ck[cm] = res
+    out["ckpt"] = ck
     with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
+
+
+def _file_bytes(mgr, path, node):
+    fh = mgr.layer.open(990_000, path, node=node)
+    mgr._open_session(fh)
+    size = mgr.layer.stat_size(fh)
+    mgr.layer.seek(fh, 0)
+    return bytes(mgr.layer.read(fh, size))
 
 
 def _inputs():
@@ -251,7 +380,11 @@ def _inputs():
     qcfg = dataclasses.replace(jtiny("qwen3-32b"), dtype=f32)
     qp = get(JT.init_params(jax.random.PRNGKey(0), qcfg))
     rcfg = dataclasses.replace(jtiny("recurrentgemma-9b"), dtype=f32)
+    wcfg = dataclasses.replace(jtiny("whisper-small"), dtype=f32)
     return {
+        "wh_p": get(JT.init_params(jax.random.PRNGKey(2), wcfg)),
+        "wh_frames": np.asarray(get(jextra(wcfg, 8, key=jax.random.PRNGKey(4))["frames"])),
+        "serve_toks": rng.integers(0, 128, (8, 12)).astype(np.int32),
         "moe_p": moe_p,
         "moe_x": rng.standard_normal((8, 4, cfg.d_model)).astype(np.float32),
         "moe_batch": {k: np.asarray(v) for k, v in get(jbatch(
@@ -349,6 +482,32 @@ def test_compressed_psum_equals_reference(runs):
         np.testing.assert_allclose(tot_ef, wtot_ef, atol=1e-6, rtol=1e-6)
         np.testing.assert_allclose(new_err, wnew_err, atol=1e-6, rtol=1e-6)
         assert got["cp_twice"]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SERVE])
+def test_sharded_serving_equals_reference(runs, case):
+    _, want, ranks = runs
+    w = want["serve_" + case]
+    for got in ranks:
+        g = got["serve_" + case]
+        assert len(g["tokens"]) == len(w["tokens"]) == STEPS + 1
+        for a, b in zip(g["tokens"], w["tokens"]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(g["logits"], w["logits"]):
+            np.testing.assert_allclose(a, b, **FWD_TOL)
+        assert all(g["kept"])
+        if case == "qwen":        # the cache sharded over the sequence
+            assert max(g["wire"]) < g["local_cache"], (g["wire"], g["local_cache"])
+
+
+def test_sharded_checkpoint_is_an_unsharded_one(runs):
+    ranks = runs[2]
+    for got in ranks:
+        for cm in ("commit", "session"):
+            res = got["ckpt"][cm]
+            assert res["restored"], cm
+            assert res["manifest"] == ranks[0]["ckpt"][cm]["plain_manifest"], cm
+    assert all(ranks[0]["ckpt"][cm]["bytes_equal"] for cm in ("commit", "session"))
 
 
 def test_launch_train_mesh_single_runs_unsharded_below_256_ranks(capsys):

@@ -13,6 +13,11 @@ vectors that the port does not; one test pins that difference at the default
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -321,18 +326,38 @@ def test_launch_train_tiny_on_cpu(capsys):
 
 @pytest.mark.parametrize("flag", [["--ckpt-every", "2"], ["--fail-at", "1"],
                                   ["--mesh", "single"]])
-def test_launch_train_refuses_unported_options(flag, monkeypatch):
-    # --mesh runs since the distribution slice (unsharded below 256 ranks);
-    # what it refuses is --ckpt-every with a bound mesh, before it starts a
-    # process group.  --ckpt-every and --fail-at run since the checkpoint
-    # slice.
+def test_launch_train_refuses_unported_options(flag):
+    # Every option runs since the sharded-checkpoint slice: --mesh trains
+    # unsharded below 256 ranks, and with 256 (a fake group, in a process of
+    # its own since the group is process-wide) a sharded state is trained
+    # and checkpointed with --ckpt-every, its manifest an unsharded save's
+    # (the bytes are held equal on 8 gloo ranks, test_torch_distributed.py).
+    # --ckpt-every and --fail-at run since the checkpoint slice.
     argv = ["--arch", ARCH, "--tiny", "--device", "cpu", "--steps", "2",
             "--batch", "2", "--seq", "8", *flag]
     if flag[0] == "--mesh":
         assert len(tlaunch.run(argv).losses) == 2
-        monkeypatch.setenv("WORLD_SIZE", "256")
-        with pytest.raises(NotImplementedError, match="sharded-checkpoint slice"):
-            tlaunch.run(argv + ["--ckpt-every", "2"])
+        # A fake group moves no data, so the values are meaningless; qwen3's
+        # tensor-parallel rules index nothing by a gathered value.
+        argv[1] = "qwen3-32b"
+        code = textwrap.dedent(f"""
+            import json
+            from repro_torch.checkpoint.serialization import is_sharded
+            from repro_torch.launch import mesh, train
+            mesh.fake_world(256)
+            res = train.run({argv + ["--ckpt-every", "2"]!r})
+            print(json.dumps({{"steps": res.ckpt_steps, "sharded": is_sharded(res.state),
+                              "manifest": res.ckpt.manifests[2]}}))
+        """)
+        env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__),
+                                                       "..", "src"))
+        r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                           text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        got = json.loads(r.stdout.strip().splitlines()[-1])
+        plain = tlaunch.run(argv[:-2] + ["--ckpt-every", "2"])
+        assert got["steps"] == [2] and got["sharded"]
+        assert got["manifest"] == plain.ckpt.manifests[2]
         return
     res = tlaunch.run(argv)
     if flag[0] == "--ckpt-every":

@@ -7,10 +7,11 @@ Builds every kernel (one nvcc per source, as ``chip_smoke`` does), then
 runs ``chip_smoke.run_mesh_phase``: 4 ranks on the one card over gloo, a
 (data=2, model=2) mesh, granite-moe-1b-a400m's sharded step against the
 unsharded one in f32 and its 24 layers in bf16, recurrentgemma-9b's sharded
-forward, ``compressed_psum``, with the same checks and printed lines.  About
-75 s on an H100 after the build; any failed check raises.  Prints the
-card's name and power limit first, and last the phase's wall time and its
-launch counts summed over the ranks.
+forward and sharded serving, granite's sharded checkpoint, ``compressed_psum``,
+with the same checks and printed lines, and beside it ``chip_smoke``'s dry-run
+cells on the host.  Any failed check raises.  Prints the card's name and
+power limit first, and last the phase's wall time and its launch counts
+summed over the ranks.
 """
 
 from __future__ import annotations
@@ -42,7 +43,9 @@ def main() -> int:
     _build.load_all([getattr(m, src) for m, src, _ in cs.kernel_table().values()])
     launches: dict = {}
     t0 = time.perf_counter()
+    dryruns = cs.start_dryruns()
     cs.run_mesh_phase(torch, launches, smi)
+    cs.finish_dryruns(dryruns)
     print(f"mesh phase {time.perf_counter() - t0:.1f} s; launches summed over "
           f"the ranks {launches}", flush=True)
     return 0
