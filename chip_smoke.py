@@ -157,7 +157,15 @@ without the final result line:
    ``cache_specs`` (the local layer's ring over the sequence): a prefill of
    B=2, 2100 tokens and 8 greedy decode steps against the unsharded serve
    on rank 0, greedy tokens equal and every step's logits within 5e-4,
-   rglru 2 and flash 1 per rank (the decode steps run no kernel).  The
+   rglru 2 and flash 1 per rank (the decode steps run no kernel).
+   phi3.5-moe-42b-a6.6b at full width (16 experts of d_ff 6400, top-2), 1
+   layer, f32, no-drop capacity (8.0), its ``sort_scatter`` on each rank's
+   shard: one sharded step (aux term in the loss) against the unsharded
+   step on rank 0, loss within 1e-4 and every parameter within 5e-4, each
+   rank's dot FLOPs (``StepCounter`` on its CUDA tensors) at most 0.35x the
+   unsharded step's, flash 2 / 1 per rank; a sharded prefill of B=4, 256
+   tokens and 4 decode steps against the unsharded serve, greedy tokens
+   equal and logits within 5e-4, flash 1 per rank.  The
    granite f32 sharded state, after its step, saved through
    ``CheckpointManager`` under commit and under session (4 hosts, partner
    copies; every rank gathers, rank 0 writes) and restored on 3 hosts with
@@ -169,11 +177,13 @@ without the final result line:
    rank.  Printed: per-rank step ms and peak GB beside the card's name and
    power limit, labelled as time-shared ranks.
    Then the dry run: ``python -m repro_torch.launch.dryrun`` for qwen3-32b
-   decode_32k and falcon-mamba-7b train_4k on the single-pod mesh, as
-   subprocesses on the host (a fake group of 256 ranks,
-   meta tensors; started after the build, run beside the phases on the
-   card): each cell's artifact must say ``status: ok``; printed: wall
-   times and the per-device numbers.
+   decode_32k, falcon-mamba-7b train_4k and phi3.5-moe-42b-a6.6b train_4k
+   on the single-pod mesh, as subprocesses on the host (a fake group of
+   256 ranks, meta tensors; started after the build, run beside the phases
+   on the card): each cell's artifact must say ``status: ok`` and its dense
+   FLOPs per device stay within 1.15x the reference's dry run of the cell
+   (``artifacts/dryrun_reference/``, read as data); printed: wall times and
+   the per-device numbers.
 6. Times at the main-path shapes: kernel, plain version, the least time
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
@@ -744,9 +754,20 @@ MESH_RANKS = MESH_SHAPE[0] * MESH_SHAPE[1]
 MESH_F32 = dict(layers=4, batch=4, seq=256, capacity=4.0)
 MESH_BF16 = dict(batch=4, seq=1024, steps=2)
 MESH_RG = dict(layers=3, batch=2, seq=2100, last=64, steps=8)
+# phi3.5-moe-42b-a6.6b at full width (16 experts of d_ff 6400, top-2), 1
+# layer, f32, sort_scatter at a no-drop capacity (E / k: C = B*T): one
+# sharded step against the unsharded step, each rank's dot FLOPs against
+# the unsharded step's, and a sharded prefill of B=4 T=256 with 4 decode
+# steps against the unsharded serve.
+MESH_PHI = dict(layers=1, batch=4, seq=256, capacity=8.0, steps=4, flops=0.35)
 MESH_CKPT_HOSTS = 4
-# The dry run's cells: (arch, shape), single-pod mesh.
-DRYRUN_CELLS = (("qwen3-32b", "decode_32k"), ("falcon-mamba-7b", "train_4k"))
+# The dry run's cells: (arch, shape), single-pod mesh.  Each cell's dense
+# FLOPs per device must stay within DRYRUN_FLOPS of the reference's own dry
+# run of the cell, read from its committed record.
+DRYRUN_CELLS = (("qwen3-32b", "decode_32k"), ("falcon-mamba-7b", "train_4k"),
+                ("phi3.5-moe-42b-a6.6b", "train_4k"))
+DRYRUN_FLOPS = 1.15
+REFERENCE_DRYRUN = ROOT / "artifacts" / "dryrun_reference"
 
 
 def file_bytes(mgr, path: str, node: int) -> bytes:
@@ -784,6 +805,7 @@ def mesh_rank(rank: int, workdir: str) -> None:
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels import ref
     from repro_torch.launch import mesh as MS
+    from repro_torch.launch.hlostats import StepCounter
     from repro_torch.models import moe
     from repro_torch.models import sharding as sh
     from repro_torch.models.transformer import Transformer, init_params, param_specs
@@ -961,10 +983,9 @@ def mesh_rank(rank: int, workdir: str) -> None:
                          generator=gen(41), device=dev)
     last = MESH_RG["last"]
 
-    def serve(m, prompt, whole):
+    def serve(m, prompt, whole, steps=MESH_RG["steps"]):
         """Greedy tokens and last-position logits of a prefill and
         ``steps`` decode steps, each taken whole by ``whole``."""
-        steps = MESH_RG["steps"]
         tok, logits, cache = make_prefill(m, prompt.shape[1] + steps)(prompt)
         toks_out, logits_out = [whole(tok)], [whole(logits).float()]
         step = make_serve_step(m)
@@ -1014,6 +1035,63 @@ def mesh_rank(rank: int, workdir: str) -> None:
                                      for a, b in zip(slogits, rserve[1]))
         out["rg_serve"]["tokens"] = [t.tolist() for t in stoks]
     del model, stoks, slogits, rserve
+    torch.cuda.empty_cache()
+
+    # phi3.5-moe f32, full width, 1 layer, no-drop capacity: sort_scatter
+    # on each rank's shard, the aux term in the loss.  Rank 0 serves and
+    # steps the unsharded model first; each rank's dot FLOPs of the step
+    # are counted on its CUDA tensors.
+    pcfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), dtype=torch.float32,
+                               n_layers=MESH_PHI["layers"],
+                               moe_capacity=MESH_PHI["capacity"])
+    prules = MS.arch_rules(pcfg, multi_pod=False)
+    popt = MS.opt_for(pcfg)
+    pstep = make_train_step(pcfg, popt, num_microbatches=1)
+    pbatch = synthetic_batch(71, pcfg, MESH_PHI["batch"], MESH_PHI["seq"], dev)
+    ptoks = torch.randint(0, pcfg.vocab, (MESH_PHI["batch"], MESH_PHI["seq"]),
+                          generator=gen(72), device=dev)
+    plain = pserved = None
+    if rank == 0:
+        m = init_params(pcfg, gen(0), dev)
+        with torch.no_grad():
+            pserved = serve(m, ptoks, lambda t: t, MESH_PHI["steps"])
+        del m
+        st = train_state_init(gen(0), pcfg, popt, dev)
+        with StepCounter() as count:
+            st, pm = pstep(st, pbatch)
+        plain = {n: p.detach() for n, p in st["params"].named_parameters()}
+        out["phi_plain"] = {"loss": float(pm["loss"]), "aux": float(pm["moe_aux"]),
+                            "flops": count.totals()["dense_flops"]}
+        del st, pm
+        torch.cuda.empty_cache()
+    dist.barrier()
+    state = in_turn(lambda: MS.sharded_train_state(init_params(pcfg, gen(0), dev),
+                                                   pcfg, popt, mesh, prules))
+    reset()
+    t0 = time.perf_counter()
+    with sh.active_rules(prules, mesh), torch.no_grad():
+        stoks, slogits = serve(state["params"],
+                               MS.distribute_batch({"t": ptoks}, mesh, prules)["t"],
+                               lambda t: t.full_tensor(), MESH_PHI["steps"])
+    out["phi_serve"] = {"counts": counts(), "ms": (time.perf_counter() - t0) * 1e3}
+    if rank == 0:
+        out["phi_serve"]["tokens_equal"] = all(torch.equal(a, b) for a, b in
+                                               zip(stoks, pserved[0]))
+        out["phi_serve"]["err"] = max(float(((a - b).abs() / (1.0 + b.abs())).max())
+                                      for a, b in zip(slogits, pserved[1]))
+        out["phi_serve"]["tokens"] = [t.tolist() for t in stoks]
+    del stoks, slogits, pserved
+    dbatch = MS.distribute_batch(pbatch, mesh, prules)
+    reset()
+    t0 = time.perf_counter()
+    with StepCounter() as count, sh.active_rules(prules, mesh):
+        state, met = pstep(state, dbatch)
+    loss = float(met["loss"])
+    out["phi"] = {"counts": counts(), "ms": (time.perf_counter() - t0) * 1e3,
+                  "loss": loss, "aux": float(met["moe_aux"]),
+                  "flops": count.totals()["dense_flops"]}
+    out["phi"]["param_err"], out["phi"]["param_err_leaf"] = max_diff(state["params"], plain)
+    del plain, state, met, dbatch
     torch.cuda.empty_cache()
 
     # granite bf16, all 24 layers, 2 steps on fresh batches.
@@ -1075,7 +1153,9 @@ def start_dryruns() -> list:
 
 def finish_dryruns(dryruns: list) -> None:
     """Wait for the dry-run cells, check each artifact says ``status: ok``
-    and print its wall time and per-device numbers."""
+    and its dense FLOPs per device are within DRYRUN_FLOPS of the
+    reference's record of the cell, and print its wall time and per-device
+    numbers."""
     sys.path.insert(0, str(SRC))
     from repro_torch.launch import dryrun
     lines = []
@@ -1092,6 +1172,13 @@ def finish_dryruns(dryruns: list) -> None:
         check(rc == 0 and rec["status"] == "ok",
               f"dry run {arch} {shape}: rc {rc}, status {rec['status']}: "
               f"{rec.get('error', '')}\n{text[-3000:]}")
+        ref_path = REFERENCE_DRYRUN / Path(dryrun._artifact_path(arch, shape, "single")).name
+        ref = json.loads(ref_path.read_text())["hlo_flops_per_device"]
+        ratio = rec["dense_flops_per_device"] / ref
+        check(ratio <= DRYRUN_FLOPS,
+              f"dry run {arch} {shape}: dense FLOPs per device "
+              f"{rec['dense_flops_per_device']:.4e}, {ratio:.3f}x the reference's "
+              f"{ref:.4e} ({ref_path.relative_to(ROOT)}), above {DRYRUN_FLOPS}x")
         gib = 2 ** 30
         lines.append(
             f"{arch} {shape} ({rec['mode']}, {rec['devices']} ranks, mesh "
@@ -1100,7 +1187,9 @@ def finish_dryruns(dryruns: list) -> None:
             f"{rec['state_bytes_per_device'] / gib:.3f} GiB, cache "
             f"{rec.get('cache_bytes_per_device', 0) / gib:.3f} GiB, saved "
             f"{rec.get('saved_bytes_per_device', 0) / gib:.3f} GiB, fits 80 GB "
-            f"{rec['fits_80gb']}, FLOPs {rec['flops_per_device']:.4e}, op bytes "
+            f"{rec['fits_80gb']}, FLOPs {rec['flops_per_device']:.4e} (dense "
+            f"{rec['dense_flops_per_device']:.4e}, {ratio:.4f}x the reference's "
+            f"{ref:.4e}), op bytes "
             f"{rec['op_bytes_per_device']:.4e}, collective wire bytes "
             f"{rec['collectives']['wire_bytes_per_device']:.4e} "
             f"{rec['collectives']['count_by_kind']}, kernels "
@@ -1131,6 +1220,9 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
                                  dtype=torch.float32, n_layers=MESH_F32["layers"],
                                  moe_capacity=MESH_F32["capacity"])
     gcfg = get_config("granite-moe-1b-a400m")
+    pcfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), dtype=torch.float32,
+                               n_layers=MESH_PHI["layers"],
+                               moe_capacity=MESH_PHI["capacity"])
 
     def a2a_calls(cfg, steps):
         """Two all-to-alls per MoE layer forward; a checkpointed layer runs
@@ -1141,7 +1233,9 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
             "bf16": (train_launches(gcfg, MESH_BF16["steps"]),
                      a2a_calls(gcfg, MESH_BF16["steps"])),
             "rg": (expect(flash_attention=1, rglru_scan=2), None),
-            "rg_serve": (expect(flash_attention=1, rglru_scan=2), None)}
+            "rg_serve": (expect(flash_attention=1, rglru_scan=2), None),
+            "phi": (train_launches(pcfg, 1), None),
+            "phi_serve": (serve_launches(pcfg), None)}
     for r in ranks:
         leaves = r["compressed_psum"]["leaves"]
         runs_r = dict(runs, compressed_psum=(expect(quantize=2 * leaves), None))
@@ -1177,6 +1271,23 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
     check(rs_["tokens_equal"] and rs_["err"] <= 5e-4,
           f"mesh recurrentgemma serve: sharded greedy tokens equal the unsharded "
           f"{rs_['tokens_equal']}, logits off by {rs_['err']}")
+    pp = r0["phi_plain"]
+    check(abs(r0["phi"]["loss"] - pp["loss"]) <= 1e-4
+          and abs(r0["phi"]["aux"] - pp["aux"]) <= 1e-4
+          and r0["phi"]["param_err"] <= 5e-4,
+          f"mesh phi3.5 f32: sharded loss {r0['phi']['loss']!r} (aux "
+          f"{r0['phi']['aux']!r}) against unsharded {pp['loss']!r} (aux {pp['aux']!r}); "
+          f"max parameter error {r0['phi']['param_err']} at {r0['phi']['param_err_leaf']}")
+    ps = r0["phi_serve"]
+    check(ps["tokens_equal"] and ps["err"] <= 5e-4,
+          f"mesh phi3.5 serve: sharded greedy tokens equal the unsharded "
+          f"{ps['tokens_equal']}, logits off by {ps['err']}")
+    for r in ranks:
+        check(r["phi"]["loss"] == r0["phi"]["loss"]
+              and r["phi"]["flops"] <= MESH_PHI["flops"] * pp["flops"],
+              f"mesh rank {r['rank']} phi3.5: loss {r['phi']['loss']} (rank 0 "
+              f"{r0['phi']['loss']}), dot FLOPs {r['phi']['flops']:.4e} against "
+              f"{MESH_PHI['flops']} x the unsharded step's {pp['flops']:.4e}")
     for r in ranks:
         for cm, res in r["ckpt"].items():
             check(res["restored"], f"mesh rank {r['rank']} checkpoint {cm}: the "
@@ -1186,7 +1297,7 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
               f"mesh checkpoint {cm}: the sharded save differs from the unsharded "
               f"one (bytes equal {res['bytes_equal']}, manifest equal "
               f"{res['manifest_equal']})")
-    for run in ("f32", "compressed_psum", "rg", "rg_serve", "bf16"):
+    for run in ("f32", "compressed_psum", "rg", "rg_serve", "phi", "phi_serve", "bf16"):
         launches[f"mesh {run}"] = {k: sum(r[run]["counts"][k] for r in ranks)
                                    for k in KERNELS}
     phase(5, "main path mesh granite-moe-1b-a400m f32",
@@ -1223,6 +1334,24 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
                     f"{[round(r['ckpt'][cm]['save_ms'], 3) for r in ranks]}, restore "
                     f"ms per rank {[round(r['ckpt'][cm]['restore_ms'], 3) for r in ranks]}"
                     for cm, res in r0["ckpt"].items()))
+    pflops = ", ".join(f"{r['phi']['flops']:.4e}" for r in ranks)
+    phase(5, "main path mesh phi3.5-moe-42b-a6.6b f32",
+          f"{pcfg.n_layers} layer at full width ({pcfg.moe_experts} experts of d_ff "
+          f"{pcfg.d_ff}, top-{pcfg.moe_topk}), B={MESH_PHI['batch']} "
+          f"T={MESH_PHI['seq']}, capacity {pcfg.moe_capacity} (no drops), sort_scatter "
+          f"on each rank's shard: sharded step loss {r0['phi']['loss']:.6f} (aux "
+          f"{r0['phi']['aux']:.6f}) against unsharded {pp['loss']:.6f} (aux "
+          f"{pp['aux']:.6f}); max parameter error {r0['phi']['param_err']:.3e} "
+          f"({r0['phi']['param_err_leaf']}); dot FLOPs per rank "
+          f"{pflops} against the unsharded step's "
+          f"{pp['flops']:.4e} (at most {MESH_PHI['flops']}x: "
+          f"{max(r['phi']['flops'] for r in ranks) / pp['flops']:.4f}x); launches per "
+          f"rank {r0['phi']['counts']}")
+    phase(5, "main path mesh phi3.5-moe-42b-a6.6b serve",
+          f"prefill B={MESH_PHI['batch']} T={MESH_PHI['seq']} and {MESH_PHI['steps']} "
+          f"decode steps, caches sharded: greedy tokens equal the unsharded serve's "
+          f"({ps['tokens'][-1]} at the last step), logits within {ps['err']:.3e}; "
+          f"launches per rank {ps['counts']}")
     phase(5, "main path mesh granite-moe-1b-a400m bf16",
           f"{gcfg.n_layers} layers, B={MESH_BF16['batch']} T={MESH_BF16['seq']}, "
           f"{MESH_BF16['steps']} steps: losses "
@@ -1238,7 +1367,10 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
           f"{MESH_RG['layers']}-layer forward ms per rank "
           f"{[round(r['rg']['ms'], 3) for r in ranks]}, sharded serve (prefill + "
           f"{MESH_RG['steps']} steps) ms per rank "
-          f"{[round(r['rg_serve']['ms'], 3) for r in ranks]}; phase wall {mesh_s:.1f} s",
+          f"{[round(r['rg_serve']['ms'], 3) for r in ranks]}; phi3.5 1-layer step ms "
+          f"per rank {[round(r['phi']['ms'], 3) for r in ranks]}, sharded serve (prefill "
+          f"+ {MESH_PHI['steps']} steps) ms per rank "
+          f"{[round(r['phi_serve']['ms'], 3) for r in ranks]}; phase wall {mesh_s:.1f} s",
           flush=True)
 
 

@@ -24,12 +24,15 @@ see one rank's local shards, so the counts are per rank.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
 FIELDS = ("flops", "special", "bytes", "dense_flops", "launches")
 COUNTS: Dict[str, Dict[str, float]] = {}
+# Called as ``LISTENER(name, flops, dense_flops)`` on every record while set
+# (``repro_torch.launch.hlostats.StepCounter`` attributes kernels with it).
+LISTENER: Optional[Callable[[str, float, float], None]] = None
 
 
 def reset() -> None:
@@ -47,8 +50,11 @@ def record(name: str, *, flops: float, special: float, bytes: float,
     c["flops"] += flops
     c["special"] += special
     c["bytes"] += bytes
-    c["dense_flops"] += flops if dense_flops is None else dense_flops
+    dense = flops if dense_flops is None else dense_flops
+    c["dense_flops"] += dense
     c["launches"] += 1
+    if LISTENER is not None:
+        LISTENER(name, flops, dense)
 
 
 def nbytes(*tensors) -> int:

@@ -49,6 +49,7 @@ import sys
 import time
 import traceback
 from collections import namedtuple
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -207,10 +208,15 @@ def _local_bytes(tree) -> int:
 # one cell
 # ---------------------------------------------------------------------------
 def run_cell(arch: str, shape: str, mesh_kind: str,
-             verbose: bool = True, cfg=None, mesh_shape: Optional[MeshShape] = None
-             ) -> Dict[str, Any]:
-    """One cell's artifact record.  ``cfg`` and ``mesh_shape`` replace the
-    arch's config and the production mesh (the tests' small cells)."""
+             verbose: bool = True, cfg=None, mesh_shape: Optional[MeshShape] = None,
+             by_op: bool = False, cell=None) -> Dict[str, Any]:
+    """One cell's artifact record.  ``cfg``, ``mesh_shape`` and ``cell`` (a
+    ``ShapeCell``) replace the arch's config, the production mesh and the
+    named shape (the tests' small cells).  The
+    record splits the FLOPs and wire bytes by operation (``by_op``); with
+    ``by_op=True`` also by the line of the package that issued each
+    (``by_caller``, slower: anomaly mode keeps every node's forward
+    traceback), and ``verbose`` prints both splits' top 20."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -223,10 +229,10 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
 
     cfg = cfg or get_config(arch)
     cells = {c.name: c for c in shapes_for(cfg)}
-    if shape not in cells:
+    if cell is None and shape not in cells:
         return {"arch": arch, "shape": shape, "mesh": mesh_kind,
                 "status": "skipped", "reason": SKIP_REASON}
-    cell = cells[shape]
+    cell = cell or cells[shape]
     multi = mesh_kind == "multi"
     ms = mesh_shape or production_shape(multi)
     n_dev = 1
@@ -255,7 +261,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
                              f"{_local_bytes(placed[1])} bytes, the placements "
                              f"{rec[placed[0]]}")
     rec["build_s"] = round(time.time() - t0, 2)
-    counter, saved = hlostats.StepCounter(), hlostats.SavedBytes()
+    counter, saved = hlostats.StepCounter(by_caller=by_op), hlostats.SavedBytes()
     t1 = time.time()
     if cell.mode == "train":
         step = make_train_step(cfg, M.opt_for(cfg), num_microbatches=cfg.microbatches)
@@ -297,6 +303,9 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
     rec["kernels"] = {name: {"flops": c["flops"], "bytes": c["bytes"],
                              "launches": c["launches"]}
                       for name, c in counter.kernels.items()}
+    rec["by_op"] = counter.by_op
+    if by_op:
+        rec["by_caller"] = counter.by_caller
     held = sum(rec.get(k, 0) for k in (
         "state_bytes_per_device", "batch_bytes_per_device",
         "cache_bytes_per_device", "saved_bytes_per_device"))
@@ -322,7 +331,19 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
         print("  collective wire bytes/device: "
               f"{coll.wire_bytes:.3e}  by kind: "
               + json.dumps({k: f"{v:.2e}" for k, v in coll.by_kind.items()}))
+        if by_op:
+            _print_top(counter)
     return rec
+
+
+def _print_top(counter, n: int = 20) -> None:
+    """The top ``n`` entries of each split by dense FLOPs and by wire bytes."""
+    for split in ("by_op", "by_caller"):
+        for key in ("dense_flops", "wire_bytes"):
+            print(f"  top {n} {split} by {key}:")
+            for name, e in counter.top(split, key, n):
+                if e[key]:
+                    print(f"    {e[key]:.3e}  {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +369,11 @@ def main(argv=None) -> int:
     ap.add_argument("--force", action="store_true",
                     help="re-run cells that already have artifacts")
     ap.add_argument("--timeout", type=int, default=3600)
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --all, cells run at once (one subprocess each)")
+    ap.add_argument("--by-op", action="store_true",
+                    help="also split FLOPs and wire bytes by the issuing line "
+                         "and print the top 20 of each split")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -359,22 +385,28 @@ def main(argv=None) -> int:
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     if args.all:
-        failures = []
-        for arch, shape in all_cells():
-            for mk in meshes:
-                path = _artifact_path(arch, shape, mk)
-                if os.path.exists(path) and not args.force:
-                    print(f"skip (exists): {arch}/{shape}/{mk}")
-                    continue
-                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", arch, "--shape", shape, "--mesh", mk]
-                print(f">>> {arch}/{shape}/{mk}", flush=True)
-                t0 = time.time()
-                r = subprocess.run(cmd, timeout=args.timeout)
-                print(f"<<< rc={r.returncode} {time.time()-t0:.0f}s",
-                      flush=True)
-                if r.returncode != 0:
-                    failures.append((arch, shape, mk))
+        todo = [(arch, shape, mk) for arch, shape in all_cells() for mk in meshes]
+        if not args.force:
+            for cell in [c for c in todo if os.path.exists(_artifact_path(*c))]:
+                print(f"skip (exists): {'/'.join(cell)}")
+                todo.remove(cell)
+
+        def one(cell):
+            arch, shape, mk = cell
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mk]
+            if args.by_op:
+                cmd.append("--by-op")
+            t0 = time.time()
+            r = subprocess.run(cmd, timeout=args.timeout, capture_output=True,
+                               text=True)
+            print(f">>> {arch}/{shape}/{mk}\n{r.stdout}{r.stderr[-2000:] if r.returncode else ''}"
+                  f"<<< rc={r.returncode} {time.time()-t0:.0f}s", flush=True)
+            return r.returncode
+
+        with ThreadPoolExecutor(max(args.jobs, 1)) as pool:
+            rcs = list(pool.map(one, todo))
+        failures = [c for c, rc in zip(todo, rcs) if rc != 0]
         if failures:
             print("FAILED cells:", failures)
             return 1
@@ -386,7 +418,7 @@ def main(argv=None) -> int:
     for mk in meshes:
         path = _artifact_path(args.arch, args.shape, mk)
         try:
-            rec = run_cell(args.arch, args.shape, mk)
+            rec = run_cell(args.arch, args.shape, mk, by_op=args.by_op)
         except Exception as e:  # record the failure as an artifact too
             rec = {"arch": args.arch, "shape": args.shape, "mesh": mk,
                    "status": "error", "error": f"{type(e).__name__}: {e}",

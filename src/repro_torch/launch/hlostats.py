@@ -36,9 +36,11 @@ recomputation keeps.
 from __future__ import annotations
 
 import contextlib
+import os
 import re
+import sys
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -156,31 +158,110 @@ def _bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+_SRC = os.path.join("src", "repro_torch") + os.sep
+# Frames that never name a caller: the counter itself, the sharding helpers
+# every redistribution goes through, and the kernels' wrappers and their
+# accounting (a kernel is named by the line that called ``kernels.ops``).
+_NOT_CALLERS = tuple(os.path.join(*parts) for parts in (
+    ("launch", "hlostats.py"), ("models", "sharding.py"),
+    ("kernels", "accounting.py"), ("kernels", "flash_attention.py"),
+    ("kernels", "ssm_scan.py"), ("kernels", "rglru_scan.py"),
+    ("kernels", "quantize.py")))
+
+
+def _site(filename: str, lineno: int, func: str) -> Optional[str]:
+    """``models/ssm.py:78 _split_xproj`` for a frame of this package that
+    names a caller, else None."""
+    i = filename.rfind(_SRC)
+    if i < 0 or filename.endswith(_NOT_CALLERS):
+        return None
+    return f"{filename[i + len(_SRC):]}:{lineno} {func}"
+
+
+def _caller() -> str:
+    """The innermost frame of this package (outside the counter and the
+    sharding helpers) that led to the operation now dispatched.  An
+    operation of the backward, which autograd runs from the train step's
+    ``autograd.grad``, is named by the forward frame that made its autograd
+    node, ``bwd `` in front; that needs anomaly mode's forward tracebacks
+    (:class:`StepCounter` ``by_caller=True`` turns it on)."""
+    f = sys._getframe(2)
+    while f is not None:
+        site = _site(f.f_code.co_filename, f.f_lineno, f.f_code.co_name)
+        if site is not None:
+            break
+        f = f.f_back
+    if site is None or site.startswith(os.path.join("train", "train_step.py")):
+        node = torch._C._current_autograd_node()
+        trace = node.metadata.get("traceback_") if node is not None else None
+        for entry in reversed(trace or ()):
+            m = re.match(r'\s*File "(.*)", line (\d+), in (\S+)', entry)
+            fwd = m and _site(m.group(1), int(m.group(2)), m.group(3))
+            if fwd:
+                return "bwd " + fwd
+    return site or "(outside the package)"
+
+
 class StepCounter(TorchDispatchMode):
     """Rank 0's local work while it is on (module docstring).
 
     ``flops``: dot FLOPs of the operations seen, the hand-written kernels'
     excluded; ``op_bytes``: bytes read and written by them; ``collectives``
-    (a :class:`CollectiveStats`) and ``calls``, the collectives' number by
-    kind; ``kernels``: the kernels' own counts,
+    (a :class:`CollectiveStats`), ``calls``, the collectives' number by
+    kind, and ``issued``, each collective's (kind, group size, output
+    shape) in order; ``kernels``: the kernels' own counts,
     ``{name: {"flops", "special", "bytes", "dense_flops", "launches"}}``.
-    :meth:`totals` adds the kernels' FLOPs and bytes to the operations'."""
+    :meth:`totals` adds the kernels' FLOPs and bytes to the operations'.
 
-    def __init__(self):
+    ``by_op`` splits the FLOPs (with and without the kernels' masked tiles)
+    and the wire bytes by aten operation (``aten.mm``), collective
+    (``all-gather``) or kernel (``kernel.flash_attention``);
+    with ``by_caller=True``, ``by_caller`` splits them by the line of this
+    package that issued the operation (:func:`_caller`).  Each split sums
+    to :meth:`totals`' ``flops`` / ``dense_flops`` and the collectives'
+    ``wire_bytes``: every count is added to one entry of each, as the
+    integer or ring-model value it adds to the total."""
+
+    def __init__(self, by_caller: bool = False):
         super().__init__()
-        self.flops = 0.0
+        self.flops = 0
         self.op_bytes = 0.0
         self.collectives = CollectiveStats()
         self.calls: Dict[str, int] = {}
+        self.issued: List[Tuple[str, int, Tuple[int, ...]]] = []
         self.kernels: Dict[str, Dict[str, float]] = {}
+        self.by_op: Dict[str, Dict[str, float]] = {}
+        self.by_caller: Optional[Dict[str, Dict[str, float]]] = (
+            {} if by_caller else None)
+        self._anomaly = None
 
     def __enter__(self):
         accounting.reset()
+        accounting.LISTENER = self._kernel
+        if self.by_caller is not None:
+            self._anomaly = torch.autograd.set_detect_anomaly(True, check_nan=False)
         return super().__enter__()
 
     def __exit__(self, *exc):
         self.kernels = accounting.snapshot()
+        accounting.LISTENER = None
+        if self._anomaly is not None:
+            self._anomaly.__exit__(*exc)
+            self._anomaly = None
         return super().__exit__(*exc)
+
+    def _add(self, key: str, flops=0, dense=0, wire=0.0) -> None:
+        splits = [(self.by_op, key)]
+        if self.by_caller is not None:
+            splits.append((self.by_caller, _caller()))
+        for split, k in splits:
+            e = split.setdefault(k, {"flops": 0, "dense_flops": 0, "wire_bytes": 0.0})
+            e["flops"] += flops
+            e["dense_flops"] += dense
+            e["wire_bytes"] += wire
+
+    def _kernel(self, name: str, flops, dense) -> None:
+        self._add("kernel." + name, flops=flops, dense=dense)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -197,7 +278,9 @@ class StepCounter(TorchDispatchMode):
             return out
         packet = func.overloadpacket
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            n = flop_registry[packet](*args, **kwargs, out_val=out)
+            self.flops += n
+            self._add(name, flops=n, dense=n)
         if name not in _FREE and not func.is_view:
             self.op_bytes += _bytes(ins) + _bytes(_tensors(out))
         return out
@@ -213,6 +296,8 @@ class StepCounter(TorchDispatchMode):
         c.wire_bytes += wire
         c.by_kind[kind] = c.by_kind.get(kind, 0.0) + wire
         self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.issued.append((kind, g, tuple(_tensors(out)[0].shape)))
+        self._add(kind, wire=wire)
 
     def totals(self) -> Dict[str, float]:
         """{"flops": dot FLOPs plus the kernels' FLOPs, "dense_flops": the
@@ -222,6 +307,13 @@ class StepCounter(TorchDispatchMode):
         return {"flops": self.flops + sum(c["flops"] for c in k),
                 "dense_flops": self.flops + sum(c["dense_flops"] for c in k),
                 "bytes": self.op_bytes + sum(c["bytes"] for c in k)}
+
+    def top(self, split: str = "by_op", key: str = "dense_flops",
+            n: int = 20) -> List[Tuple[str, Dict[str, float]]]:
+        """The ``n`` largest entries of ``by_op`` or ``by_caller`` by
+        ``key`` (``flops``, ``dense_flops`` or ``wire_bytes``)."""
+        entries = getattr(self, split) or {}
+        return sorted(entries.items(), key=lambda kv: -kv[1][key])[:n]
 
 
 def _local_bytes(t: torch.Tensor) -> int:

@@ -216,28 +216,41 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rank's batch (and sequence) shards and the weight's head shards, the
     weight gathered over its other dims as fsdp gathers on use: DTensor's
     own plan may shard the flattened heads x head_dim output over more
-    ranks than there are heads, which the split into heads cannot hold."""
+    ranks than there are heads, which the split into heads cannot hold.
+    Where the heads are not split over a mesh dim that holds x whole (KV
+    heads that the model axis does not divide), the ranks of that dim each
+    project a slice of head_dim and gather the slices: the same bytes as
+    the heads' shards, not the whole product on every rank."""
     if not isinstance(x, DTensor):
         return torch.einsum("bsd,dhk->bshk", x, w)
     mesh = x.device_mesh
     xpl = sh.keep_shards(x, (0, 1))
     wpl = (w.placements if isinstance(w, DTensor)
            else (Replicate(),) * mesh.ndim)
-    wpl = tuple(wp if wp == Shard(1) and not isinstance(xp, Shard)
-                else Replicate() for wp, xp in zip(wpl, xpl))
-    opl = tuple(xp if isinstance(xp, Shard) else Shard(2) if wp == Shard(1)
-                else Replicate() for xp, wp in zip(xpl, wpl))
+    split, new = 1, []
+    for m, (wp, xp) in enumerate(zip(wpl, xpl)):
+        if isinstance(xp, Shard):
+            wp = Replicate()
+        elif wp != Shard(1):
+            wp = Shard(2) if w.shape[2] % (split * mesh.size(m)) == 0 else Replicate()
+            split *= mesh.size(m) if wp == Shard(2) else 1
+        new.append(wp)
+    wpl = tuple(new)
+    opl = tuple(xp if isinstance(xp, Shard) else Shard(wp.dim + 1)
+                if isinstance(wp, Shard) else Replicate()
+                for xp, wp in zip(xpl, wpl))
     out = torch.einsum("bsd,dhk->bshk",
                        sh.to_local_at(x, mesh, xpl, sh.partial_where(opl, xpl)),
                        sh.to_local_at(w, mesh, wpl, sh.partial_where(opl, wpl)))
-    return sh.from_local_even(out, mesh, opl)
+    out = sh.from_local_even(out, mesh, opl)
+    whole = tuple(Replicate() if p == Shard(3) else p for p in opl)
+    return out if whole == opl else out.redistribute(mesh, whole)
 
 
 def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
     """The output projection; under a mesh the heads' partial sums are
     reduced to the batch-sharded residual layout (no-op without one)."""
-    out = torch.einsum("bthk,hkd->btd", o, sh.on_use(p["wo"], o))
-    return sh.shard(out, "batch", None, None)
+    return sh.shard(sh.product(o, p["wo"], 2), "batch", None, None)
 
 
 def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -302,17 +315,16 @@ def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     plan (DTensor's op-by-op choice can shard the residual's features and
     gather the weights whole instead); no-ops without one."""
     x = sh.shard(x, "batch", None, None)
-    h = torch.einsum("btd,df->btf", x, sh.on_use(p["wi"], x))
+    h = sh.product(x, p["wi"])
     if cfg.ffn == "swiglu":
-        g = torch.einsum("btd,df->btf", x, sh.on_use(p["wg"], x))
+        g = sh.product(x, p["wg"])
         h = F.silu(g.float()).to(h.dtype) * h
     elif cfg.ffn == "geglu":
-        g = torch.einsum("btd,df->btf", x, sh.on_use(p["wg"], x))
+        g = sh.product(x, p["wg"])
         h = F.gelu(g.float(), approximate="tanh").to(h.dtype) * h
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return sh.shard(torch.einsum("btf,fd->btd", h, sh.on_use(p["wo"], h)),
-                    "batch", None, None)
+    return sh.shard(sh.product(h, p["wo"]), "batch", None, None)
 
 
 def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -333,7 +345,7 @@ def embed(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def unembed(p: Params, x: torch.Tensor,
             cfg: Optional[ModelConfig] = None) -> torch.Tensor:
-    logits = torch.einsum("btd,dv->btv", x, sh.on_use(p["head"], x))
+    logits = sh.product(x, p["head"])
     Vp = p["head"].shape[-1]
     if cfg is not None and Vp > cfg.vocab:
         # Padded vocab slots never win argmax / contribute to logsumexp.

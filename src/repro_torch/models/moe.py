@@ -5,10 +5,11 @@ same routing math:
 
 * ``sort_scatter``: the call's tokens are sorted by expert into an
   (E*C, D) slab, every expert runs on it, and the outputs are combined back.
-  Under a mesh (:func:`repro_torch.models.sharding.active_rules`) the tokens
-  and the weights are gathered to every rank and each rank runs it whole,
-  which is what the reference's GSPMD does with its data-dependent
-  scatters; DTensor has no sharding rule for them, so it is done here
+  Under a mesh (:func:`repro_torch.models.sharding.active_rules`) each rank
+  routes its data shard's tokens into the global slot order and runs its
+  own experts on its share of their capacity rows (:func:`_moe_sharded`),
+  the work the reference's GSPMD gives each device when it partitions the
+  same scatters; DTensor has no sharding rule for them, so it is done here
   explicitly.
 * ``a2a`` (``cfg.moe_impl="a2a"``, granite) under a mesh whose expert axis
   divides the expert count: GShard-style expert parallelism, the
@@ -52,12 +53,12 @@ has no CUDA kernel of its own.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.distributed._functional_collectives import all_to_all_single_autograd
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
@@ -118,8 +119,12 @@ class Routing(NamedTuple):
 
 
 def _route(xf: torch.Tensor, router: torch.Tensor, E: int, k: int,
-           C: int) -> Routing:
-    """Top-k routing with capacity positions via stable sort."""
+           C: int, before: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+           ) -> Routing:
+    """Top-k routing with capacity positions via stable sort.  ``before``,
+    where given, maps the (E,) counts of these tokens' slots to the slots
+    of each expert that tokens before them take (a data shard's place in
+    the global order); positions start there."""
     S = xf.shape[0]
     logits = torch.einsum("sd,de->se", xf.float(), router.float())
     probs = torch.softmax(logits, dim=-1)                       # (S,E)
@@ -134,6 +139,8 @@ def _route(xf: torch.Tensor, router: torch.Tensor, E: int, k: int,
     else:
         counts = torch.bincount(fe, minlength=E)
     starts = torch.cumsum(counts, 0) - counts                   # (E,)
+    if before is not None:
+        starts = starts - before(counts)
     pos = torch.arange(S * k, device=xf.device) - starts[fe_sorted]
     keep = pos < C
     dest = torch.where(keep, fe_sorted * C + pos, E * C)
@@ -142,17 +149,22 @@ def _route(xf: torch.Tensor, router: torch.Tensor, E: int, k: int,
     return Routing(dest, tok, wslot, keep, counts, probs, order, weights)
 
 
-def _expert_ffn(slab: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
-    """(E, C, D) slab -> (E, C, D) through each expert's FFN."""
-    h = torch.einsum("ecd,edf->ecf", slab, p["wi"])
+def _expert_ffn(slab: torch.Tensor, p: Params, cfg: ModelConfig, up=None,
+                down=None) -> torch.Tensor:
+    """(E, C, D) slab -> (E, C, D) through each expert's FFN.  ``up(slab,
+    w)`` and ``down(h, w)``, where given, compute the products with the
+    (E, D, F) and (E, F, D) weights."""
+    up = up or (lambda s, w: torch.einsum("ecd,edf->ecf", s, w))
+    down = down or (lambda h, w: torch.einsum("ecf,efd->ecd", h, w))
+    h = up(slab, p["wi"])
     if cfg.ffn in ("swiglu", "geglu"):
-        g = torch.einsum("ecd,edf->ecf", slab, p["wg"])
+        g = up(slab, p["wg"])
         act = (F.silu(g.float()) if cfg.ffn == "swiglu"
                else F.gelu(g.float(), approximate="tanh"))
         h = act.to(h.dtype) * h
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return torch.einsum("ecf,efd->ecd", h, p["wo"])
+    return down(h, p["wo"])
 
 
 def _aux_loss(counts: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor:
@@ -163,24 +175,33 @@ def _aux_loss(counts: torch.Tensor, probs: torch.Tensor, E: int) -> torch.Tensor
     return E * torch.sum(me * ce)
 
 
-def _dispatch(xf: torch.Tensor, r: Routing, E: int, C: int
+def _dispatch(xf: torch.Tensor, r: Routing, E: int, C: int, e0: int = 0,
+              El: Optional[int] = None, Cp: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(slab (E, C, D), the slot that fills each slab row, each slot's
-    combine weight) of the flat (S, D) tokens routed by ``r``."""
+    """(slab (El, Cp, D), the slot that fills each slab row, each slot's
+    combine weight) of the flat (S, D) tokens routed by ``r``: the rows of
+    experts ``e0 .. e0+El-1`` (all E by default), ``Cp >= C`` rows each
+    (C by default); the slots of other experts are left out as dropped
+    ones are."""
     S, D = xf.shape
     n = r.dest.shape[0]
     k = n // S
+    El = E if El is None else El
+    Cp = C if Cp is None else Cp
+    e = r.dest // C
+    mine = r.keep & (e >= e0) & (e < e0 + El)
+    ldest = torch.where(mine, (e - e0) * Cp + r.dest - e * C, El * Cp)
     # Each slot's slab row and weight, in slot order (s*k + j), and the slot
     # that fills each slab row (n, a trash slot, where none does).
-    dest = torch.empty_like(r.dest).index_put_((r.order,), r.dest)
-    keep = torch.empty_like(r.keep).index_put_((r.order,), r.keep)
+    dest = torch.empty_like(ldest).index_put_((r.order,), ldest)
+    keep = torch.empty_like(mine).index_put_((r.order,), mine)
     w = r.weights.reshape(-1) * keep
-    filler = torch.full((E * C + 1,), n, dtype=dest.dtype, device=dest.device)
-    filler = filler.index_put_((dest,), torch.arange(n, device=dest.device))[:E * C]
-    # Slot s*k + j carries token s; dropped slots land in the trash row E*C.
+    filler = torch.full((El * Cp + 1,), n, dtype=dest.dtype, device=dest.device)
+    filler = filler.index_put_((dest,), torch.arange(n, device=dest.device))[:El * Cp]
+    # Slot s*k + j carries token s; left-out slots land in the trash row.
     slots = xf[:, None, :].expand(S, k, D).reshape(n, D)
-    slab = xf.new_zeros((E * C + 1, D)).index_put((dest,), slots)
-    return slab[:E * C].reshape(E, C, D), filler, w
+    slab = xf.new_zeros((El * Cp + 1, D)).index_put((dest,), slots)
+    return slab[:El * Cp].reshape(El, Cp, D), filler, w
 
 
 def _combine(ye: torch.Tensor, filler: torch.Tensor, w: torch.Tensor,
@@ -213,24 +234,150 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
         if out is not None:
             return out
     if isinstance(x, DTensor):
-        return _moe_replicated(p, x, cfg)
+        return _moe_sharded(p, x, cfg)
     B, T, D = x.shape
     y, aux = _moe_local(x.reshape(B * T, D), p, cfg, capacity(cfg, B * T))
     return y.reshape(B, T, D), aux
 
 
-def _moe_replicated(p: Params, x: DTensor, cfg: ModelConfig
-                    ) -> Tuple[DTensor, DTensor]:
-    """``sort_scatter`` under a mesh: every rank gathers all the tokens and
-    weights and runs the whole layer; outputs and gradients are replicated."""
-    mesh = x.device_mesh
-    rep = (Replicate(),) * mesh.ndim
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, with its gradient scaled by ``c``."""
+
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
+def _moe_sharded(p: Params, x: DTensor, cfg: ModelConfig
+                 ) -> Tuple[DTensor, DTensor]:
+    """``sort_scatter`` under a mesh, on each rank's shard; the unsharded
+    function (global capacity, global slot order, drops past C).
+
+    * Each data shard of the tokens (the ranks that hold the same batch
+      rows) routes its own tokens.  Its slots of expert e start after the
+      slots that the shards before it in the batch take (an all-gather of
+      the (E,) counts): with the batch split contiguously in rank order,
+      that is the global stable-sort order.
+    * The expert dims (mesh dims that shard ``wi``'s experts) each hold
+      ``El`` experts; every other mesh dim (the row dims) splits each
+      expert's capacity rows, padded to ``Cp``, so each rank runs its
+      experts' FFN on Cp/G rows, as the reference's partitioned scatter
+      does.  A shard's slots reach the rows' owners as a reduce-scatter of
+      its (El, Cp, D) slab over the token dims, whose rows only it fills,
+      and come back as an all-gather.
+    * The weights are gathered over the row dims as fsdp gathers on use;
+      a decode step (one position, no grad) instead runs each product on
+      the weights' stored shards and moves its few rows
+      (:func:`_experts_on_features`).
+    * Each rank combines its experts' slots into its tokens: a partial sum
+      over the expert dims, reduced to the batch-sharded residual layout as
+      a tensor-parallel FFN output is.
+    * The aux loss takes the global counts and the global mean of
+      ``probs``.  Its gradient reaches x and the router on every rank of
+      the expert dims, which (as partial sums) add up: each takes 1/n of
+      it."""
+    mesh, nd = x.device_mesh, x.device_mesh.ndim
     B, T, D = x.shape
-    xl = x.redistribute(mesh, rep).to_local()
-    pl = {n: t.redistribute(mesh, rep).to_local() for n, t in p.items()}
-    y, aux = _moe_local(xl.reshape(B * T, D), pl, cfg, capacity(cfg, B * T))
-    return (DTensor.from_local(y.reshape(B, T, D), mesh, rep),
-            DTensor.from_local(aux, mesh, rep))
+    E, k = cfg.moe_experts, cfg.moe_topk
+    C = capacity(cfg, B * T)
+    xpl = sh.keep_shards(x, (0,))
+    tok = [m for m in range(nd) if isinstance(xpl[m], Shard)]
+    ex = [m for m, pl in enumerate(p["wi"].placements)
+          if pl == Shard(0) and m not in tok]
+    n_ex = 1
+    for m in ex:
+        n_ex *= mesh.size(m)
+    one = T == 1 and not torch.is_grad_enabled()
+    El, G = E // n_ex, 1 if one else mesh.size() // n_ex
+    Cp = -(-C // G) * G
+    part = tuple(Partial() if m in ex else pl for m, pl in enumerate(xpl))
+    rep = (Replicate(),) * nd
+    xd = x.redistribute(mesh, xpl)
+    xl = xd.to_local(grad_placements=part)
+    Bl = xl.shape[0]
+    g = sh.local_offset(xd, 0) // Bl
+    router = sh.to_local_at(p["router"], mesh, rep, tuple(
+        Partial() if m in tok or m in ex else Replicate() for m in range(nd)))
+    e0 = sh.local_offset(p["wi"], 0)
+    cpl = tuple(Shard(0) if m in tok else Replicate() for m in range(nd))
+    totals = []
+
+    def before(counts: torch.Tensor) -> torch.Tensor:
+        every = sh.from_local_even(counts[None], mesh, cpl).full_tensor()
+        totals.append(every.sum(0))
+        return every[:g].sum(0)
+
+    xf = xl.reshape(Bl * T, D)
+    r = _route(xf, router, E, k, C, before)
+    slab, filler, w = _dispatch(xf, r, E, C, e0, El, Cp)
+    run = _experts_on_features if one else _experts_on_rows
+    ye = run(slab, p, cfg, mesh, ex, tok)
+    y = _combine(ye.reshape(El * Cp, D), filler, w, Bl * T)
+    y = sh.from_local_even(y.reshape(Bl, T, D), mesh, part).redistribute(mesh, xpl)
+
+    probs = r.probs if n_ex == 1 else _ScaleGrad.apply(r.probs, 1.0 / n_ex)
+    me = sh.from_local_even(probs.sum(0)[None], mesh, tuple(
+        Partial() if m in tok else Replicate() for m in range(nd)))
+    me = me.redistribute(mesh, rep).to_local()[0] / (B * T)
+    counts = totals[0]
+    ce = counts.float() / torch.clamp(counts.sum(), min=1).float()
+    aux = E * torch.sum(me * ce)
+    return y, DTensor.from_local(aux, mesh, rep)
+
+
+def _experts_on_rows(slab: torch.Tensor, p: Params, cfg: ModelConfig, mesh,
+                     ex, tok) -> torch.Tensor:
+    """This rank's experts' FFN on its group's (El, Cp, D) slab, each
+    expert's rows split over the mesh dims other than the expert dims
+    ``ex``: the slab reduce-scattered over the token dims ``tok`` (each
+    group fills only its own slots' rows), the weights gathered, the
+    outputs all-gathered back.  Returns the whole (El, Cp, D) output, its
+    gradient a partial sum over the token dims."""
+    nd = mesh.ndim
+    src = tuple(Shard(0) if m in ex else Partial() if m in tok else Replicate()
+                for m in range(nd))
+    rows = tuple(Shard(0) if m in ex else Shard(1) for m in range(nd))
+    whole = tuple(Shard(0) if m in ex else Replicate() for m in range(nd))
+    slab = sh.from_local_even(slab, mesh, src).redistribute(mesh, rows).to_local()
+    pl = {n: sh.to_local_at(p[n], mesh, whole, sh.partial_where(rows, whole))
+          for n in ("wi", "wg", "wo") if n in p}
+    ye = sh.from_local_even(_expert_ffn(slab, pl, cfg), mesh, rows)
+    return ye.redistribute(mesh, whole).to_local(grad_placements=tuple(
+        Partial() if m in tok else pl_ for m, pl_ in enumerate(whole)))
+
+
+def _experts_on_features(slab: torch.Tensor, p: Params, cfg: ModelConfig, mesh,
+                         ex, tok) -> torch.Tensor:
+    """The same for a one-position step without grad (decode), where the
+    slab is a few rows and the weights are the bytes to spare: the slab is
+    summed whole over the token dims, and each product runs on the
+    weights' stored shards of D (fsdp), its partial sums reduced (up) or
+    its D shards gathered (down)."""
+    nd = mesh.ndim
+    src = tuple(Shard(0) if m in ex else Partial() if m in tok else Replicate()
+                for m in range(nd))
+    whole = tuple(Shard(0) if m in ex else Replicate() for m in range(nd))
+    slab = sh.from_local_even(slab, mesh, src).redistribute(mesh, whole).to_local()
+    wi = p["wi"]
+    d0, dl = sh.local_offset(wi, 1), wi.to_local().shape[1]
+    ppl = tuple(Partial() if pl == Shard(1) and m not in ex else pl
+                for m, pl in enumerate(wi.placements))
+
+    def up(s, w):
+        h = torch.einsum("ecd,edf->ecf", s[..., d0:d0 + dl], w)
+        return sh.from_local_even(h, mesh, ppl).redistribute(mesh, whole).to_local()
+
+    def down(h, w):
+        return sh.from_local_even(torch.einsum("ecf,efd->ecd", h, w), mesh,
+                                  p["wo"].placements).redistribute(mesh, whole).to_local()
+
+    return _expert_ffn(slab, {n: p[n].to_local() for n in ("wi", "wg", "wo") if n in p},
+                       cfg, up, down)
 
 
 def _rule_axes(rules, key) -> Tuple[str, ...]:

@@ -73,9 +73,15 @@ def rglru_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None
 
 
 def _branches(p: Params, x: torch.Tensor):
-    gate = torch.einsum("btd,dl->btl", x, sh.on_use(p["w_gate"], x))
-    rec = torch.einsum("btd,dl->btl", x, sh.on_use(p["w_rec"], x))
-    return gate, rec
+    return sh.product(x, p["w_gate"]), sh.product(x, p["w_rec"])
+
+
+def _gates(p: Params, conv: torch.Tensor):
+    """The a- and i-gate products of the conv output.  Under a mesh the
+    conv output is gathered over its channel shards once for both, and each
+    gate comes out on the channel shards of its weight's columns."""
+    conv = sh.shard(conv, "batch", *([None] * (conv.ndim - 1)))
+    return sh.product(conv, p["w_a"]), sh.product(conv, p["w_i"])
 
 
 def rglru_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -85,12 +91,10 @@ def rglru_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
     gate, rec = _branches(p, x)
     gate = F.gelu(gate.float(), approximate="tanh").to(x.dtype)
     conv = L.causal_conv(rec, p["conv_w"], p["conv_b"])
-    a_gate = torch.einsum("btl,lm->btm", conv, sh.on_use(p["w_a"], conv))
-    i_gate = torch.einsum("btl,lm->btm", conv, sh.on_use(p["w_i"], conv))
+    a_gate, i_gate = _gates(p, conv)
     hs, hT = ops.rglru(conv, a_gate, i_gate, p["log_lam"])
     y = hs * gate
-    out = torch.einsum("btl,ld->btd", y, sh.on_use(p["w_out"], y))
-    return sh.shard(out, "batch", None, None), rec, hT
+    return sh.shard(sh.product(y, p["w_out"]), "batch", None, None), rec, hT
 
 
 def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -117,10 +121,8 @@ def rglru_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     window = torch.cat([cache["conv"], rec], dim=1)       # (B,W,L)
     conv = (torch.einsum("bwl,wl->bl", window, p["conv_w"])
             + p["conv_b"].to(rec.dtype))
-    a_gate = torch.einsum("bl,lm->bm", conv, sh.on_use(p["w_a"], conv))
-    i_gate = torch.einsum("bl,lm->bm", conv, sh.on_use(p["w_i"], conv))
+    a_gate, i_gate = _gates(p, conv)
     _, h = ops.rglru_step(conv, a_gate, i_gate, p["log_lam"], cache["h"])
     y = h.to(x.dtype) * gate[:, 0]
-    out = sh.shard(torch.einsum("bl,ld->bd", y, sh.on_use(p["w_out"], y)),
-                   "batch", None)[:, None]
+    out = sh.shard(sh.product(y, p["w_out"]), "batch", None)[:, None]
     return out, {"conv": window[:, 1:], "h": h}

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
@@ -383,22 +384,74 @@ def like_placed(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     return new.redistribute(old.device_mesh, old.placements)
 
 
-def on_use(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Weight ``w`` as a product with activation ``x`` uses it: gathered
-    over every mesh dim on which ``x`` shards a leading (batch or sequence)
-    dim and ``w`` is sharded, as an fsdp-stored weight is gathered on use.
-    Left to itself, DTensor may move a sequence's activations onto the
-    weight's shards of the contracted dim and redo work on every rank of
-    the data axis.  A decode step's activations (one position a sequence)
-    move fewer bytes than the weight and are left to DTensor.  No-op unless
-    both are DTensors."""
-    if not (isinstance(w, DTensor) and isinstance(x, DTensor)) or (
-            x.ndim < 3 or x.shape[1] == 1):
-        return w
-    pl = tuple(Replicate() if isinstance(xp, Shard) and xp.dim < x.ndim - 1
-               and isinstance(wp, Shard) else wp
-               for xp, wp in zip(x.placements, w.placements))
-    return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
+def product(x: torch.Tensor, w: torch.Tensor, n: int = 1) -> torch.Tensor:
+    """``torch.tensordot(x, w, n)``: x's last ``n`` dims contracted with w's
+    first ``n``.  Between DTensors it runs as one local product on each
+    rank's shards, forward and backward, in the tensor-parallel plan the
+    reference's GSPMD gives it; DTensor left to itself plans the product and
+    each of its gradient products op by op, and may repeat one over a mesh
+    axis.  Per mesh dim, after a partial-sum ``x`` is reduced:
+
+    * ``x`` sharded on a leading (batch or sequence) dim: ``w`` is gathered
+      there, as an fsdp-stored weight is gathered on use, and the output
+      keeps the shard (a one-position ``x`` that meets ``w`` sharded on a
+      contracted dim is gathered instead: it moves fewer bytes);
+    * ``x`` sharded on a contracted dim: ``w`` takes the same shard and the
+      output is a partial sum (row parallel);
+    * ``x`` whole: a shard of ``w``'s other dims shards the output (column
+      parallel); a shard of its contracted dims is gathered (fsdp on use),
+      or, for a one-position ``x``, takes the same slice of ``x`` (no data
+      moves) and gives a partial sum;
+    * both whole, ``x`` one position a sequence: both take a slice of the
+      first contracted dim and the output is a partial sum (a mesh dim
+      that a decode of too few sequences leaves idle).
+
+    Each input's gradient is a partial sum where the input is whole and
+    the output is not.  Plain tensors give ``torch.tensordot``."""
+    if not isinstance(x, DTensor):
+        return torch.tensordot(x, w, n)
+    mesh, lead = x.device_mesh, x.ndim - n
+    if isinstance(w, DTensor):
+        wpl = list(w.placements)
+    else:
+        wpl = [Replicate()] * mesh.ndim
+    xpl = [Replicate() if p.is_partial() else p for p in x.placements]
+    one_position = x.ndim < 3 or x.shape[1] == 1
+    opl: List[Placement] = []
+    for m in range(mesh.ndim):
+        xp, wp = xpl[m], wpl[m]
+        # a slice of the first contracted dim nested inside those already
+        # taken, and none left to a later mesh dim
+        outer = math.prod(mesh.size(d) for d in range(m) if xpl[d] == Shard(lead))
+        idle = (one_position and Shard(lead) not in x.placements[m + 1:]
+                and Shard(0) not in wpl[m + 1:]
+                and x.shape[lead] % (outer * mesh.size(m)) == 0)
+        if isinstance(xp, Shard) and xp.dim < lead and (
+                one_position and isinstance(wp, Shard) and wp.dim < n):
+            xp = xpl[m] = Replicate()
+        if isinstance(xp, Shard) and xp.dim < lead:
+            wpl[m] = Replicate()
+            opl.append(xp)
+        elif isinstance(xp, Shard):
+            wpl[m] = Shard(xp.dim - lead)
+            opl.append(Partial())
+        elif isinstance(wp, Shard) and wp.dim < n and one_position:
+            xpl[m] = Shard(lead + wp.dim)
+            opl.append(Partial())
+        elif isinstance(wp, Shard) and wp.dim < n:
+            wpl[m] = Replicate()
+            opl.append(Replicate())
+        elif isinstance(wp, Shard):
+            opl.append(Shard(lead + wp.dim - n))
+        elif idle:
+            xpl[m], wpl[m] = Shard(lead), Shard(0)
+            opl.append(Partial())
+        else:
+            opl.append(Replicate())
+    xpl, wpl = tuple(xpl), tuple(wpl)
+    out = torch.tensordot(to_local_at(x, mesh, xpl, partial_where(opl, xpl)),
+                          to_local_at(w, mesh, wpl, partial_where(opl, wpl)), n)
+    return from_local_even(out, mesh, tuple(opl))
 
 
 def mesh_group(mesh, axis: str):

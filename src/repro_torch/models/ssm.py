@@ -16,6 +16,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -75,30 +76,41 @@ def mamba_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None
 
 def _split_xproj(p: Params, u: torch.Tensor, cfg: ModelConfig):
     R, N = cfg.dtrank, cfg.ssm_state
-    proj = torch.einsum("...i,ir->...r", u, sh.on_use(p["x_proj"], u))
+    proj = sh.product(u, p["x_proj"])
     # Under a mesh the channels' partial sums are reduced here, so dt comes
     # out on the channel shards of its bias (no-op without one).
     proj = sh.shard(proj, "batch", *([None] * (proj.ndim - 1)))
     dt_r, B, C = torch.split(proj, [R, N, N], dim=-1)
-    dt = torch.einsum("...r,ri->...i", dt_r, sh.on_use(p["dt_proj"], dt_r))
-    dt = F.softplus(dt.float() + p["dt_bias"])
+    dt = F.softplus(sh.product(dt_r, p["dt_proj"]).float() + p["dt_bias"])
     return dt, B, C
+
+
+def _in_proj(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u, z), the two halves of ``x @ in_proj``.  Under a mesh a product
+    sharded over its 2I columns would hold the halves on different ranks:
+    for a sequence each half is a product of its own on the channel shards
+    (the weight's halves are laid out again, fewer bytes than the
+    activations); a one-position step's halves are laid out again."""
+    w = p["in_proj"]
+    if not isinstance(x, DTensor) or x.shape[1] == 1:
+        return torch.chunk(sh.product(x, w), 2, dim=-1)
+    u_w, z_w = (h.redistribute(w.device_mesh, w.placements)
+                for h in torch.chunk(w, 2, dim=-1))
+    return sh.product(x, u_w), sh.product(x, z_w)
 
 
 def mamba_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The mixer over a full sequence.  x: (B,T,D).  Returns (out (B,T,D),
     the pre-conv inputs u (B,T,I), the final ssm state (B,I,N) f32)."""
-    uz = torch.einsum("btd,di->bti", x, sh.on_use(p["in_proj"], x))
-    u, z = torch.chunk(uz, 2, dim=-1)                     # (B,T,I) each
+    u, z = _in_proj(p, x)                                 # (B,T,I) each
     conv = L.causal_conv(u, p["conv_w"], p["conv_b"])
     uc = F.silu(conv.float()).to(x.dtype)
     dt, Bm, Cm = _split_xproj(p, uc, cfg)
     A = -torch.exp(p["A_log"])                            # (I,N), negative
     y, hT = ops.ssm_scan(uc, dt, A, Bm, Cm, p["D"])
     y = y * F.silu(z.float()).to(y.dtype)
-    out = torch.einsum("bti,id->btd", y, sh.on_use(p["out_proj"], y))
-    return sh.shard(out, "batch", None, None), u, hT
+    return sh.shard(sh.product(y, p["out_proj"]), "batch", None, None), u, hT
 
 
 def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -122,8 +134,7 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token.  x: (B,1,D); cache: conv window (B,W-1,I) + state (B,I,N)."""
-    uz = torch.einsum("btd,di->bti", x, sh.on_use(p["in_proj"], x))
-    u, z = torch.chunk(uz, 2, dim=-1)                     # (B,1,I)
+    u, z = _in_proj(p, x)                                 # (B,1,I)
     window = torch.cat([cache["conv"], u], dim=1)         # (B,W,I)
     conv = (torch.einsum("bwi,wi->bi", window, p["conv_w"])
             + p["conv_b"].to(u.dtype))
@@ -132,6 +143,5 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     A = -torch.exp(p["A_log"])
     yt, h = ops.ssm_step(ut, dt, A, Bm, Cm, p["D"], cache["h"])
     yt = yt * F.silu(z[:, 0].float()).to(yt.dtype)
-    y = sh.shard(torch.einsum("bi,id->bd", yt, sh.on_use(p["out_proj"], yt)),
-                 "batch", None)[:, None]
+    y = sh.shard(sh.product(yt, p["out_proj"]), "batch", None)[:, None]
     return y, {"conv": window[:, 1:], "h": h}

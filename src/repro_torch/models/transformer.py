@@ -358,7 +358,7 @@ class Transformer(nn.Module):
         x = L.embed(self.embed, tokens, cfg)
         if cfg.frontend == "vision" and patches is not None:
             pe = patches.to(cfg.dtype)
-            pe = torch.einsum("bpd,de->bpe", pe, sh.on_use(self.patch_proj, pe))
+            pe = sh.product(pe, self.patch_proj)
             x = torch.cat([pe, x], dim=1)
         enc_out = (self._encode(frames) if cfg.kind == "encdec"
                    and frames is not None else None)
@@ -514,7 +514,7 @@ def _cross_decode(p: L.Params, x: torch.Tensor, cfg: ModelConfig,
     """One query per sequence against the whole cross cache.  As the
     reference's ``_cross_decode``: the query projection and qk-norm, without
     the q bias."""
-    q = torch.einsum("btd,dhk->bthk", x, sh.on_use(p["wq"], x))
+    q = L._heads(x, p["wq"])
     if cfg.qk_norm:
         q = L._qk_normalize(q, p["q_norm"])
     return ops.decode_attention(q, ck, cv, ck.shape[1])

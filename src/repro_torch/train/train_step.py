@@ -33,10 +33,13 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import shard, shard_tree
+from repro_torch.models.sharding import (from_local_even, keep_shards,
+                                         local_offset, shard, shard_tree,
+                                         to_local_at)
 from repro_torch.models.transformer import Transformer, init_params, param_specs
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -65,17 +68,47 @@ def loss_fn(model: Transformer, batch: Batch, cfg: ModelConfig,
     logits, aux = model(batch["tokens"], **extras)
     labels = batch["labels"]
     Tl = labels.shape[1]
-    # Under a mesh the vocab shards are gathered first: DTensor cannot
-    # reduce a gather over a vocab shard (no-op without a mesh).
-    logits = shard(logits[:, -Tl:].float(), "batch", None, None)
-    logz = torch.logsumexp(logits, dim=-1)
     # A masked label (< 0) gathers slot 0; the mask zeroes its term.
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    nll = _nll(logits[:, -Tl:].float(), labels.clamp(min=0).long())
     mask = (labels >= 0).float()
     ntok = torch.clamp(mask.sum(), min=1.0)
-    ce = torch.sum((logz - gold) * mask) / ntok
+    ce = torch.sum(nll * mask) / ntok
     loss = ce + aux_weight * aux
     return _whole(loss), {"ce": _whole(ce), "moe_aux": _whole(aux)}
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp(logits) - logits[label], (B, T) from (B, T, V) f32 logits.
+
+    DTensor logits sharded over the vocab are never gathered: each rank
+    takes the max, the exp-sum and its label's logit over its own vocab
+    shard, and only those (B, T) values are reduced over the vocab's mesh
+    dims (the vocab-parallel cross entropy).  The max is a constant of the
+    gradient (logsumexp's does not depend on it)."""
+    vocab = ([m for m, p in enumerate(logits.placements) if p == Shard(2)]
+             if isinstance(logits, DTensor) else [])
+    if not vocab:
+        logits = shard(logits, "batch", None, None)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - gold
+    mesh = logits.device_mesh
+    pl = keep_shards(logits, (0, 2))
+    bpl = tuple(Replicate() if p == Shard(2) else p for p in pl)
+    logits = logits.redistribute(mesh, pl)
+    off = local_offset(logits, 2)
+    ll = logits.to_local()
+    tgt = to_local_at(labels, mesh, bpl) - off
+    inside = (tgt >= 0) & (tgt < ll.shape[-1])
+    m = ll.detach().amax(dim=-1)
+    for d in vocab:
+        m = funcol.all_reduce(m, "max", mesh.get_group(d))
+    s = torch.exp(ll - m[..., None]).sum(dim=-1)
+    gold = torch.gather(ll, -1, tgt.clamp(0, ll.shape[-1] - 1)[..., None])[..., 0]
+    parts = torch.stack([s, gold * inside], dim=-1)
+    ppl = tuple(Partial() if p == Shard(2) else p for p in pl)
+    parts = from_local_even(parts, mesh, ppl).redistribute(mesh, bpl).to_local()
+    nll = m + torch.log(parts[..., 0]) - parts[..., 1]
+    return from_local_even(nll, mesh, bpl)
 
 
 def _whole(x: torch.Tensor) -> torch.Tensor:

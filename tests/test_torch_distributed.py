@@ -24,8 +24,8 @@ the reference test's tolerances:
    TINY): each rank reads the KV head of its own query head (5e-4).
 5. ``seq_parallel=True`` (qwen3 TINY): the residual stream sharded over
    the sequence at the block boundaries (5e-4); and granite TINY with its
-   ``sort_scatter`` dispatch, which under a mesh gathers the tokens and
-   runs whole on every rank (5e-4).
+   ``sort_scatter`` dispatch, which under a mesh runs on each rank's shard
+   (5e-4), no collective of its forward gathering the token array.
 6. ``compressed_psum`` / ``compressed_psum_ef`` over the data axis: each
    rank's codes equal the reference's under ``shard_map`` exactly, the sums
    within 1e-6, two calls bit-equal.
@@ -40,6 +40,11 @@ the reference test's tolerances:
    session is byte-equal, manifest included, to rank 0's unsharded save of
    the same state, and restores onto the same placements, shards
    bit-equal.
+9. phi3.5 TINY, f32, ``sort_scatter`` on each rank's shard: its sharded
+   train step (aux term in the loss) equals the reference's sharded step
+   and the unsharded step (loss 1e-4, parameters 5e-4; weight decay 0),
+   and so does a step at a capacity that drops slots; its sharded serving
+   is case 7's ``phi``.
 """
 
 import dataclasses
@@ -71,7 +76,9 @@ STEPS = 4            # decode steps after the prefill
 # (case, arch, its reference parameters' key, cache length)
 SERVE = (("qwen", "qwen3-32b", "qwen_p", 512),
          ("rg", "recurrentgemma-9b", "rg_p", 16),
-         ("whisper", "whisper-small", "wh_p", 16))
+         ("whisper", "whisper-small", "wh_p", 16),
+         ("phi", "phi3.5-moe-42b-a6.6b", "phi_p", 16))
+DROP_CAP = 0.5       # a capacity at which phi3.5 TINY drops slots
 TOL = dict(atol=1e-4, rtol=1e-4)
 FWD_TOL = dict(atol=5e-4, rtol=5e-4)
 
@@ -119,6 +126,21 @@ REFERENCE = textwrap.dedent("""
             state, inp["qwen_batch"])
     out["train_loss"] = float(m["loss"])
     out["train_params"] = jax.device_get(s["params"])
+
+    pcfg = dataclasses.replace(tiny_config("phi3.5-moe-42b-a6.6b"), dtype=f32)
+    pstep = make_train_step(pcfg, opt, num_microbatches=1)
+    pstate = {"params": inp["phi_p"],
+              "opt": {"m": jax.tree.map(jnp.zeros_like, inp["phi_p"]),
+                      "v": jax.tree.map(jnp.zeros_like, inp["phi_p"]),
+                      "step": jnp.zeros((), jnp.int32)},
+              "step": jnp.zeros((), jnp.int32)}
+    with mesh, active_rules(rules, mesh):
+        ss = state_shardings(pcfg, mesh, rules)
+        bs = batch_shardings(pcfg, ShapeCell("t", 12, 8, "train"), mesh, rules)
+        s, m = jax.jit(pstep, in_shardings=(ss, bs), out_shardings=(ss, None))(
+            pstate, inp["phi_batch"])
+    out["phi_loss"] = float(m["loss"])
+    out["phi_params"] = jax.device_get(s["params"])
 
     def fwd(cfg, params, toks):
         with mesh, active_rules(rules, mesh):
@@ -205,13 +227,18 @@ def _ranks(rank: int, inputs: str, rendezvous: str, outdir: str) -> None:
         m.load_state_dict(params_from_reference(tree, cfg))
         return m
 
-    def sharded_forward(cfg, tree, toks):
+    def sharded_forward(cfg, tree, toks, issued=None):
+        from repro_torch.launch.hlostats import StepCounter
         m = model(cfg, tree)
         rules = MS.arch_rules(cfg, False)
         sh.distribute_model(m, MS.T.param_specs(cfg), rules, mesh)
         with sh.active_rules(rules, mesh), torch.no_grad():
             t = MS.distribute_batch({"t": torch.from_numpy(toks).long()}, mesh, rules)
-            return m(t["t"])[0].full_tensor().numpy()
+            with StepCounter() as count:
+                logits = m(t["t"])[0]
+            if issued is not None:
+                issued.extend(count.issued)
+            return logits.full_tensor().numpy()
 
     # 1. MoE a2a against sort_scatter, and its step without the aux term.
     cfg = dataclasses.replace(tiny_config("granite-moe-1b-a400m"), dtype=f32,
@@ -255,6 +282,34 @@ def _ranks(rank: int, inputs: str, rendezvous: str, outdir: str) -> None:
     out["train_params"] = {n: t.full_tensor().detach().numpy()
                            for n, t in new["params"].named_parameters()}
 
+    # 9. phi3.5 TINY: sort_scatter on each rank's shard, the aux term in the
+    # loss; the sharded step against the unsharded one, at the config's
+    # capacity and at one that drops slots.
+    from repro_torch.train.optimizer import adamw_init
+
+    def fresh(cfg, tree):
+        m = model(cfg, tree).requires_grad_(True)
+        return {"params": m, "opt": adamw_init(dict(m.named_parameters()), opt),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    pbatch = {k: torch.from_numpy(v).long() for k, v in inp["phi_batch"].items()}
+    for key, cap in (("phi", None), ("phi_drop", DROP_CAP)):
+        pcfg = dataclasses.replace(tiny_config("phi3.5-moe-42b-a6.6b"), dtype=f32)
+        if cap is not None:
+            pcfg = dataclasses.replace(pcfg, moe_capacity=cap)
+        prules = MS.arch_rules(pcfg, False)
+        pstep = make_train_step(pcfg, opt, num_microbatches=1)
+        plain, pm = pstep(fresh(pcfg, inp["phi_p"]), pbatch)
+        st = MS.sharded_train_state(model(pcfg, inp["phi_p"]), pcfg, opt, mesh, prules)
+        with sh.active_rules(prules, mesh):
+            shd, sm = pstep(st, MS.distribute_batch(pbatch, mesh, prules))
+        out[key] = {"loss": float(sm["loss"]), "plain_loss": float(pm["loss"]),
+                    "aux": float(sm["moe_aux"]), "plain_aux": float(pm["moe_aux"]),
+                    "params": {n: t.full_tensor().detach().numpy()
+                               for n, t in shd["params"].named_parameters()},
+                    "plain_params": {n: t.detach().numpy()
+                                     for n, t in plain["params"].named_parameters()}}
+
     # 3.-5. Sharded forwards.
     out["rg_logits"] = sharded_forward(
         dataclasses.replace(tiny_config("recurrentgemma-9b"), dtype=f32),
@@ -262,9 +317,10 @@ def _ranks(rank: int, inputs: str, rendezvous: str, outdir: str) -> None:
     out["gqa_logits"] = sharded_forward(cfg, inp["qwen_p"], inp["toks"])
     out["sp_logits"] = sharded_forward(dataclasses.replace(cfg, seq_parallel=True),
                                        inp["qwen_p"], inp["sp_toks"])
+    out["moe_issued"] = []
     out["moe_logits"] = sharded_forward(
         dataclasses.replace(tiny_config("granite-moe-1b-a400m"), dtype=f32),
-        inp["granite_p"], inp["toks"])
+        inp["granite_p"], inp["toks"], out["moe_issued"])
 
     # 6. compressed_psum over the data axis.
     d = mesh.get_coordinate()[0]
@@ -381,6 +437,7 @@ def _inputs():
     qp = get(JT.init_params(jax.random.PRNGKey(0), qcfg))
     rcfg = dataclasses.replace(jtiny("recurrentgemma-9b"), dtype=f32)
     wcfg = dataclasses.replace(jtiny("whisper-small"), dtype=f32)
+    pcfg = dataclasses.replace(jtiny("phi3.5-moe-42b-a6.6b"), dtype=f32)
     return {
         "wh_p": get(JT.init_params(jax.random.PRNGKey(2), wcfg)),
         "wh_frames": np.asarray(get(jextra(wcfg, 8, key=jax.random.PRNGKey(4))["frames"])),
@@ -395,6 +452,9 @@ def _inputs():
         "rg_p": get(JT.init_params(jax.random.PRNGKey(0), rcfg)),
         "granite_p": get(JT.init_params(jax.random.PRNGKey(0), dataclasses.replace(
             jtiny("granite-moe-1b-a400m"), dtype=f32))),
+        "phi_p": get(JT.init_params(jax.random.PRNGKey(5), pcfg)),
+        "phi_batch": {k: np.asarray(v) for k, v in get(jbatch(
+            jax.random.PRNGKey(6), pcfg, 8, 12)).items()},
         "toks": rng.integers(0, 128, (8, 12)).astype(np.int32),
         "sp_toks": rng.integers(0, 128, (8, 16)).astype(np.int32),
         "cp_x": rng.standard_normal((4, 1500)).astype(np.float32),
@@ -468,6 +528,42 @@ def test_sharded_forward_equals_reference(runs, case):
     _, want, ranks = runs
     for got in ranks:
         np.testing.assert_allclose(got[case], want[case], **FWD_TOL)
+
+
+def test_sort_scatter_forward_gathers_no_token_array(runs):
+    """Case 5's granite TINY forward: no all-gather outputs the MoE
+    layer's (B, T, D) input, as the replicated dispatch's did."""
+    inp, _, ranks = runs
+    B, T = inp["toks"].shape
+    D = tiny_config("granite-moe-1b-a400m").d_model
+    for got in ranks:
+        gathers = [tuple(shape) for kind, _, shape in got["moe_issued"]
+                   if kind == "all-gather"]
+        assert gathers and (B, T, D) not in gathers, gathers
+
+
+def test_phi_sort_scatter_train_step_equals_reference(runs):
+    from repro_torch.convert import reference_leaf
+    _, want, ranks = runs
+    cfg = tiny_config("phi3.5-moe-42b-a6.6b")
+    for got in ranks:
+        np.testing.assert_allclose(got["phi"]["loss"], want["phi_loss"], **TOL)
+        for n, a in got["phi"]["params"].items():
+            np.testing.assert_allclose(a, reference_leaf(want["phi_params"], n, cfg),
+                                       atol=5e-4, rtol=5e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("key", ["phi", "phi_drop"])
+def test_phi_sort_scatter_train_step_equals_unsharded(runs, key):
+    """The global capacity, slot order and drops: the aux term included, at
+    the config's capacity and at one that drops slots."""
+    for got in runs[2]:
+        res = got[key]
+        assert abs(res["loss"] - res["plain_loss"]) < 1e-4
+        assert abs(res["aux"] - res["plain_aux"]) < 1e-5
+        for n, a in res["params"].items():
+            np.testing.assert_allclose(a, res["plain_params"][n], atol=5e-4, rtol=5e-4,
+                                       err_msg=n)
 
 
 def test_compressed_psum_equals_reference(runs):

@@ -184,20 +184,21 @@ def test_tiny_cells_run_on_a_fake_mesh(tiny_cells):
 def test_tiny_decode_collectives_by_hand(tiny_cells):
     """On (data=2, model=4): the vocab-sharded embedding's partial sum is
     reduce-scattered and the batch layout gathered (1 RS + 1 AG); an
-    attention layer over its sequence-sharded cache gathers the query's
-    heads (1 AG) and combines max, sum and p.v over the sequence shards
-    (3 AR), then reduces the attention and FFN outputs (2 AR); an RG-LRU
-    layer gathers the conv output's channel shards for each of its two gate
-    products (2 AG) and reduces its and the FFN's outputs (2 AR); the greedy
-    argmax gathers the vocab shards (1 AG)."""
+    attention layer projects its 2 KV heads, which the model axis does not
+    divide, on head_dim slices and gathers them (2 AG), gathers the query's
+    heads over its sequence-sharded cache (1 AG) and combines max, sum and
+    p.v over the sequence shards (3 AR), then reduces the attention and FFN
+    outputs (2 AR); an RG-LRU layer gathers the conv output's channel
+    shards once for its two gate products (1 AG) and reduces its and the
+    FFN's outputs (2 AR); the greedy argmax gathers the vocab shards (1 AG)."""
     qwen = tiny_cells["qwen3-32b/decode_32k"]["collectives"]
     n = tiny_config("qwen3-32b").n_layers                    # 2 attention layers
-    assert qwen["count_by_kind"] == {"reduce-scatter": 1, "all-gather": 2 + n,
+    assert qwen["count_by_kind"] == {"reduce-scatter": 1, "all-gather": 2 + 3 * n,
                                      "all-reduce": 5 * n}
     rg = tiny_cells["recurrentgemma-9b/decode_32k"]["collectives"]
     n_rg, n_local = 4, 1                                     # of 5 layers
     assert rg["count_by_kind"] == {"reduce-scatter": 1,
-                                   "all-gather": 2 + 2 * n_rg + n_local,
+                                   "all-gather": 2 + n_rg + 3 * n_local,
                                    "all-reduce": 2 * n_rg + 5 * n_local}
     for c in (qwen, rg):
         assert c["count"] == sum(c["count_by_kind"].values())

@@ -290,3 +290,42 @@ def test_step_counter_on_a_fake_group_counts_rank_0():
     assert got["wire"] == got["payload"] * 15 / 16
     assert set(got["by_kind"]) == {"all-gather"}
     assert got["refused"]                    # a real group is not replaced
+
+
+BREAKDOWN = textwrap.dedent("""
+    import json
+    from repro_torch.configs.registry import tiny_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import ShapeCell
+    rec = D.run_cell("qwen3-32b", "t", "single", verbose=False,
+                     cfg=tiny_config("qwen3-32b"),
+                     mesh_shape=D.MeshShape(("data", "model"), (2, 4)),
+                     cell=ShapeCell("t", 32, 8, "train"), by_op=True)
+    print(json.dumps({k: rec[k] for k in ("by_op", "by_caller", "flops_per_device",
+                                          "dense_flops_per_device", "collectives")}))
+""")
+
+
+def test_breakdown_sums_to_the_totals():
+    """qwen3 TINY train on a fake (2, 4) group: the split by operation and
+    the split by issuing line each add up to the step's FLOPs (with and
+    without the kernels' masked tiles) and its wire bytes, exactly."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..",
+                                                   "src"))
+    r = subprocess.run([sys.executable, "-c", BREAKDOWN], env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = __import__("json").loads(r.stdout.strip().splitlines()[-1])
+    for split in ("by_op", "by_caller"):
+        entries = rec[split].values()
+        assert sum(e["flops"] for e in entries) == rec["flops_per_device"], split
+        assert sum(e["dense_flops"] for e in entries) == rec["dense_flops_per_device"]
+        assert (sum(e["wire_bytes"] for e in entries)
+                == rec["collectives"]["wire_bytes_per_device"]), split
+    assert rec["dense_flops_per_device"] > rec["flops_per_device"] > 0
+    assert rec["collectives"]["wire_bytes_per_device"] > 0
+    ops = rec["by_op"]
+    assert {"aten.mm", "kernel.flash_attention", "kernel.flash_attention_bwd",
+            "all-reduce"} <= set(ops)
+    # the backward's products are named by the forward lines that made them
+    assert any(k.startswith("bwd models/layers.py") for k in rec["by_caller"])

@@ -7,9 +7,11 @@ Builds every kernel (one nvcc per source, as ``chip_smoke`` does), then
 runs ``chip_smoke.run_mesh_phase``: 4 ranks on the one card over gloo, a
 (data=2, model=2) mesh, granite-moe-1b-a400m's sharded step against the
 unsharded one in f32 and its 24 layers in bf16, recurrentgemma-9b's sharded
-forward and sharded serving, granite's sharded checkpoint, ``compressed_psum``,
-with the same checks and printed lines, and beside it ``chip_smoke``'s dry-run
-cells on the host.  Any failed check raises.  Prints the card's name and
+forward and sharded serving, phi3.5-moe-42b-a6.6b's sharded ``sort_scatter``
+step and serving at full width (1 layer, f32) against the unsharded ones,
+granite's sharded checkpoint, ``compressed_psum``, with the same checks and
+printed lines, and beside it ``chip_smoke``'s dry-run cells on the host (each
+held against the reference's committed record of the cell).  Any failed check raises.  Prints the card's name and
 power limit first, and last the phase's wall time and its launch counts
 summed over the ranks.
 """
