@@ -37,9 +37,10 @@ without the final result line:
    scales within 1e-6.  The flash kernels' path queries must put the bf16
    main shapes (qwen3, llama3 (H/K 16, forward only), recurrentgemma-local
    and starcoder2 forward, starcoder2 and recurrentgemma-local backward, the
-   five new shapes forward and backward) on the tensor cores and
-   f32 on the FMA kernels, and the backward's group split must be the one
-   each case expects.  The scans' backward kernels, through autograd,
+   five new shapes forward and backward) on the tensor cores (the forward
+   on the wgmma kernel at head dims 64 and 128, on the mma.sync kernel at
+   256) and f32 on the FMA kernels, and the backward's group split must be
+   the one each case expects.  The scans' backward kernels, through autograd,
    against f32 autograd of the plain scans over the same cases and the
    training shapes (falcon-mamba-7b (4, 1024, 8192, 16), recurrentgemma-9b
    (2, 3000, 4096)): per-element gradients (dx, ddt, da_gate, di_gate,
@@ -193,7 +194,9 @@ without the final result line:
    kernels and the flash backward at the recurrentgemma local training
    shape (head dim 256, the tensor cores' warp-pair kernels) against
    autograd of plain and of SDPA; the flash forward and backward at
-   whisper's encoder shape and paligemma's training shape.
+   whisper's encoder shape and paligemma's training shape; the flash
+   forward alone at whisper's cross-attention, llama3's, phi3.5's and
+   granite's prefill shapes.
 7. The ``kernels`` JSON line (the scans' entries with their tile sizes;
    ``launches`` sums the main paths' runs, the mesh phase's summed over its
    ranks),
@@ -299,7 +302,8 @@ ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
 FWD_ONLY = [LLAMA3_SHAPE]
 BWD_TC_GROUPS.update({TRAIN_SHAPE: 4, LOCAL_SHAPE: 3, LOCAL_TRAIN_SHAPE: 6,
                       **ARCH_SHAPES})
-# Shapes whose bf16 forward must take the tensor cores.
+# Shapes whose bf16 forward must take the tensor cores: the wgmma kernel at
+# head dims 64 and 128, the mma.sync kernel at 256.
 TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, *ARCH_SHAPES)
 # Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
 # ties, and the largest gradient leaf of the starcoder2-3b main path (the
@@ -1452,8 +1456,9 @@ def main() -> int:
                       f"flash_attention_cuda {case} f32: path {path}, not the FMA kernel")
                 main = case in TC_FORWARD
                 if dtype == torch.bfloat16 and main:
-                    check(path == 1, f"flash_attention_cuda {case} bf16: path "
-                          f"{fa.PATHS[path]}, not the tensor cores")
+                    want_path = 2 if case[5] in fa.WGMMA_TILES else 1
+                    check(path == want_path, f"flash_attention_cuda {case} bf16: "
+                          f"path {fa.PATHS[path]}, not {fa.PATHS[want_path]}")
                     paths[("flash_attention", case)] = path
                 want = ref.attention_ref(q, k, v, causal=causal, window=window)
                 err = compare(torch, got, want, tol, f"flash_attention_cuda {case} {dtype}")
@@ -2290,6 +2295,15 @@ def main() -> int:
         bwd_t, line = flash_bwd_times(shape, seed, plain_iters=3)
         lines.append(line)
         arch_times[label] = (shape, fwd_t, bwd_t)
+    # The forward alone at the other head-dim 64 and 128 main shapes.
+    fwd_times = {}
+    for label, shape in (("whisper_cross", WHISPER_CROSS_SHAPE),
+                         ("llama3_prefill", LLAMA3_SHAPE),
+                         ("phi3.5_prefill", PHI_SHAPE),
+                         ("granite_prefill", GRANITE_SHAPE)):
+        fwd_t, line = flash_times(shape)
+        lines.append(line)
+        fwd_times[label] = (shape, fwd_t)
 
     # The flash backward at the starcoder2 training shape: each call is the
     # backward alone, from one forward's saved tensors.
@@ -2512,6 +2526,10 @@ def main() -> int:
                     shape=list(shape), max_abs_err=main_err[(name, shape)],
                     **(fwd_t if name == "flash_attention" else bwd_t))
         if name == "flash_attention":
+            entry["shape"] = list(MAIN_SHAPE)
+            for label, (shape, fwd_t) in fwd_times.items():
+                entry[f"at_{label}"] = dict(
+                    shape=list(shape), max_abs_err=main_err[(name, shape)], **fwd_t)
             entry["at_recurrentgemma_local"] = dict(
                 shape=list(LOCAL_SHAPE),
                 max_abs_err=main_err[("flash_attention", LOCAL_SHAPE)],

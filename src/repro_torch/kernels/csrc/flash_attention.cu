@@ -10,59 +10,76 @@
 // flash_attention_bwd.cu; a row that sees no key writes -inf.  Serving
 // passes a null pointer and writes nothing more.
 //
-// Common design.  One thread block per (batch*head, query tile), 128
-// threads.  The block walks the KV tiles its rows can see, staged in shared
-// memory; this loop replaces the sequential "arbitrary" grid axis of the TPU
-// kernel, whose online-softmax state lived in VMEM scratch across grid
-// steps.  Tiles wholly past the causal diagonal or before the window are
-// never loaded.  GQA reads K/V head h / (H/K) directly; K/V are never
-// repeated in memory.  Until a row has seen a visible key its running max is
-// -inf, and the kernel keeps p = 0 and the correction at 1 instead of
-// computing exp(-inf - -inf).
+// Bound on an H100 SXM: 4*D flops per visible (query, key) pair on the
+// tensor cores.  At qwen3-32b's prefill (B=4, T=S=1024, H=64, K=8, D=128,
+// causal, bf16) that is 68.8 GFLOP, 70 us at 989 TFLOP/s, against 151 MB
+// of q, k, v and o, 45 us at 3.35 TB/s; at whisper's encoder (T=S=1500,
+// 12 heads, D=64, non-causal) 27.6 GFLOP against 37 MB.  So the work is
+// bound by operations, and the bf16 paths run both products on the tensor
+// cores.  The TPU kernel's sequential "arbitrary" grid axis, whose online
+// softmax state lived in VMEM scratch across grid steps, becomes a loop over
+// KV tiles inside each block; tiles wholly past the causal diagonal or
+// before the window are never loaded.  GQA reads K/V head h / (H/K)
+// directly; K/V are never repeated in memory.  Until a row has seen a
+// visible key its running max is -inf, and the kernels keep p = 0 and the
+// correction at 1 instead of computing exp(-inf - -inf).
 //
-// Two paths, chosen from the inputs by repro_flash_attention_fwd_path
+// Three paths, chosen from the inputs by repro_flash_attention_fwd_path
 // (exported, so callers can ask which one a call takes):
-// * bf16 with D in {16, 32, 64, 128, 256} and 16-byte aligned pointers
-//   (the serving and training path): the two products run on the tensor
-//   cores as mma.sync m16n8k16 (bf16 in, f32 accumulate; helpers in
-//   mma_bf16.cuh).  Each warp owns 16 query rows of a 64-row tile; the
-//   scores of a KV tile come back in the accumulator layout, the softmax
-//   runs on them in f32 registers (quad shuffles for the row max and sum),
-//   and they are repacked as bf16 A fragments for P.V without touching
-//   shared memory.  Q and K fragments come from ldmatrix, V fragments from
-//   ldmatrix.trans.  The KV tiles hold 32 keys and are double-buffered
-//   with cp.async: the next tile's 16-byte copies are in flight while the
-//   current tile's products run.  Only tiles that the causal diagonal, the
-//   window or S cut are masked element by element.
-//   - The register budget: at D=256 the output accumulator alone is 128
-//     f32 registers a thread, so Q's fragments (64 registers there) are
-//     not held but read from shared memory with ldmatrix for each k-chunk
-//     when it is used, and the 32-key tiles keep the scores at 16
-//     registers.  No head dim spills (ptxas -v).
-//   - Shared memory: Q plus two stages of K and V is 101 KB at D=256 (two
-//     blocks per SM) and 52 KB at D=128.  32-key tiles with Q read from
-//     shared memory measured about 12% faster at D=128 than 64-key tiles
-//     with Q held in registers (PERF.md), so every head dim uses them.
-//   - Training asks for the log-sum-exp and for o_lo, the bf16 residual
-//     of the f32 output (see the entry point), which the backward needs.
-// * everything else (f32, other head dims up to 256, unaligned pointers):
-//   f32 FMAs on the CUDA cores.  Each query row of a 32-row tile is owned
-//   by 4 lanes of one warp that split its 32 scores and its D outputs, so
-//   the row's max, sum and correction never leave registers.  Q and K rows
-//   are padded to D+1 floats so the dot products read shared memory
-//   without bank conflicts.
-//
-// Bound on an H100 SXM at the main-path prefill (B=4, T=S=1024, H=64, K=8,
-// D=128, causal, bf16): 4*D per visible (query, key) pair is 68.8 GFLOP,
-// about 70 us at 989 TFLOP/s bf16 on the tensor cores; reading q, k, v once
-// and writing o once is 151 MB, about 45 us at 3.35 TB/s.  At
-// recurrentgemma's local layer (B=4, T=S=3000, H=16, K=1, D=256, window
-// 2048) it is 265 GFLOP, 0.268 ms.  So the work is bound by operations,
-// which is why the bf16 path uses the tensor cores.  mma.sync issues from
-// each warp in turn; wgmma (asynchronous warpgroup products) and TMA
-// copies, which the card's full rate needs, are the next steps (see
-// ROADMAP.md).  The FMA path is bound by the CUDA cores' 67 TFLOP/s f32
-// rate at best.
+// * 2: bf16 with D in {64, 128} and 16-byte aligned pointers (every
+//   forward of qwen3, qwen2, llama3, starcoder2, granite-moe, phi3.5-moe
+//   and whisper): wgmma fed by TMA, warp-specialised (namespace wg; helpers
+//   in wgmma_tma.cuh).  A block of 384 threads owns 128 query rows of one
+//   (batch, head): one producer warpgroup, which drops to 24 registers a
+//   thread with setmaxnreg and whose one thread issues every copy, and two
+//   consumer warpgroups of 64 rows, which rise to 240.  The host encodes a
+//   tensor map per call for q, k and v, each seen as 4-d (D, heads, rows,
+//   B), so a box of 64 head-dim columns by 128 rows of one (batch, head)
+//   zero-fills rows past a ragged T or S and never reads the next batch;
+//   128-byte swizzled, which is the layout wgmma reads without bank
+//   conflicts.  Q is loaded once; K and V tiles of 128 keys pass through a
+//   ring of STAGES slots (2 at D=128, 3 at D=64, where tiles are half the
+//   bytes) with a full barrier per slot for K and for V (armed with the
+//   tile's bytes) and an empty barrier that both consumers release.  A
+//   consumer computes S = Q K^T as m64n128k16 wgmmas with both operands
+//   from shared memory (K-major), runs the online softmax on the
+//   accumulator (quad shuffles for the row max and sum; masks only in tiles
+//   that the diagonal, the window or S cut), packs P to bf16 in place as
+//   the register A operand and accumulates O += P V as m64nDk16 wgmmas with
+//   V read MN-major (transposed) from shared memory.  The softmax is what
+//   binds (ablations in PERF.md): per score it takes one max, one FFMA that
+//   scales and subtracts the max, one flush-to-zero EX2 and one add, with
+//   no select for rows that have seen no key (their max term is 0 instead);
+//   with exp2f, a separate scale and a select per score the kernel took
+//   1.5x as long at qwen3's shape on an H100.  Blocks start heaviest first.
+//   Each product waits for its own completion before the next step: the
+//   overlap of one warpgroup's softmax with the other's products is left to
+//   the hardware's scheduling of the two consumers, and FlashAttention-3's
+//   intra-warpgroup overlap and ping-pong, persistent blocks and clusters
+//   are not used (see ROADMAP.md).  128 keys a tile at D=64 too: 192 and
+//   256 measured 19-24% slower there on an H100.  Registers: 168 at launch
+//   (ptxas -v), no spills.
+// * 1: bf16 with D in {16, 32, 256} and 16-byte aligned pointers
+//   (recurrentgemma's local layers and paligemma at D=256): mma.sync
+//   m16n8k16 (bf16 in, f32 accumulate; helpers in mma_bf16.cuh), 128
+//   threads a block, each warp owning 16 query rows of a 64-row tile.  The
+//   scores of a 32-key tile come back in the accumulator layout, the
+//   softmax runs on them in registers and they are repacked as bf16 A
+//   fragments for P.V without touching shared memory; Q and K fragments
+//   come from ldmatrix, V fragments from ldmatrix.trans, and the KV tiles
+//   are double-buffered with cp.async.  At D=256 the output accumulator is
+//   128 f32 registers a thread, so Q's fragments are read from shared
+//   memory for each k-chunk and not held; Q plus two stages of K and V is
+//   101 KB (two blocks per SM).  The recurrentgemma local forward runs
+//   faster than SDPA this way (PERF.md); D=256 on wgmma is open (ROADMAP).
+// * 0: everything else (f32, other head dims up to 256, unaligned
+//   pointers): f32 FMAs on the CUDA cores, bound by their 67 TFLOP/s at
+//   best.  Each query row of a 32-row tile is owned by 4 lanes of one warp
+//   that split its 32 scores and its D outputs, so the row's max, sum and
+//   correction never leave registers.  Q and K rows are padded to D+1
+//   floats so the dot products read shared memory without bank conflicts.
+// Training asks for the log-sum-exp and for o_lo, the bf16 residual of the
+// f32 output (see the entry point), which the backward needs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,6 +87,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -264,7 +282,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path
+// bf16 mma.sync path, head dims 16, 32 and 256
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -484,13 +502,359 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
-// Which kernel a forward call takes: 1 = the bf16 tensor-core kernel, 0 =
-// the f32-FMA kernel.  dtype as below; `aligned` is nonzero when q, k, v
-// and o all start on 16 bytes (the tensor-core kernel copies 16-byte
-// chunks).  repro_flash_attention_fwd dispatches by this function.
+// ---------------------------------------------------------------------------
+// bf16 wgmma path, head dims 64 and 128 (helpers in wgmma_tma.cuh)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using namespace hopper;
+
+// Tiles per head dim: BM query rows a block (two consumer warpgroups of 64),
+// BN keys a KV tile, STAGES KV tiles in the ring.  Mirrored by
+// WGMMA_TILES in kernels/flash_attention.py.
+template <int D> struct Tiles;
+template <> struct Tiles<64> { static constexpr int BM = 128, BN = 128, STAGES = 3; };
+template <> struct Tiles<128> { static constexpr int BM = 128, BN = 128, STAGES = 2; };
+
+// 2^x with a subnormal result flushed to zero: one MUFU.EX2 (exp2f adds
+// three instructions around it to keep subnormals).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int CONSUMERS = 2;                  // warpgroups of 64 query rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int BOX = 64;                       // head-dim columns per TMA box (128 bytes)
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+
+// Shared memory, from a 1024-byte-aligned base: Q (BM x D), STAGES K tiles,
+// STAGES V tiles (BN x D each), each stored as D/64 tiles of 64 columns;
+// then the barriers.
+template <int D>
+struct Layout {
+  static constexpr int BM = Tiles<D>::BM, BN = Tiles<D>::BN, STAGES = Tiles<D>::STAGES;
+  static constexpr int HALVES = D / BOX;
+  static constexpr uint32_t Q_BYTES = BM * D * 2;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 3 * STAGES;   // q_full, k_full[], v_full[], empty[]
+  static constexpr size_t SMEM = BAR_OFF + N_BARS * 8 + 1024;   // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    __nv_bfloat16* __restrict__ o_lo, int T_, int S, int H,
+                    int K, int causal, int window, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int BM = L::BM, BN = L::BN, STAGES = L::STAGES;
+  constexpr int NS = BN / 8;          // 8-key blocks of a score row
+  constexpr int NO = D / 8;           // 8-column blocks of an output row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
+
+  // Blocks start in order of their linear index: the heaviest query tiles
+  // (the last rows, under a causal mask) of every (b, h) go first.
+  const int BH = gridDim.y;
+  const int lin = blockIdx.x + blockIdx.y * gridDim.x;
+  const int bh = lin % BH;
+  const int q0 = (gridDim.x - 1 - lin / BH) * BM;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  const int offs = S - T_;             // query t sits at key position offs+t
+
+  // Keys any row of this block can see, from a BN-aligned start.
+  const int q_last = min(q0 + BM, T_) - 1;
+  const int pos_lo = offs + q0, pos_hi = offs + q_last;
+  int kv_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  const int kv_end = causal ? min(S, pos_hi + 1) : S;
+  kv_begin = (kv_begin / BN) * BN;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    // Producer warpgroup: one thread keeps the ring full with TMA copies.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < L::HALVES; ++c)
+        tma_load_4d(Qs + c * BM * 128, &tq, q_full, c * BOX, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        // Stage s is free once both consumers released tile j - STAGES.
+        if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        const int k0 = kv_begin + j * BN;
+        unsigned char* Ks = smem + L::K_OFF + s * L::KV_BYTES;
+        unsigned char* Vs = smem + L::V_OFF + s * L::KV_BYTES;
+        mbar_arrive_expect_tx(&k_full[s], L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::HALVES; ++c)
+          tma_load_4d(Ks + c * BN * 128, &tk, &k_full[s], c * BOX, kh, k0, b);
+        mbar_arrive_expect_tx(&v_full[s], L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::HALVES; ++c)
+          tma_load_4d(Vs + c * BN * 128, &tv, &v_full[s], c * BOX, kh, k0, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup wq: query rows q0 + 64 wq .. + 63.
+    reg_alloc<CONSUMER_REGS>();
+    const int wq = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = 64 * wq + 16 * warp + g;          // and r0 + 8
+    const int qpos[2] = {offs + q0 + r0, offs + q0 + r0 + 8};
+    // This warp's rows all see every key of a tile in [full_lo, full_hi).
+    const int wpos_lo = offs + q0 + 64 * wq + 16 * warp, wpos_hi = wpos_lo + 15;
+    const int full_lo = window > 0 ? wpos_hi - window + 1 : 0;
+    const int full_hi = causal ? min(S, wpos_lo + 1) : S;
+
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const uint32_t ph = (j / STAGES) & 1;
+      const int k0 = kv_begin + j * BN;
+      const unsigned char* Ks = smem + L::K_OFF + s * L::KV_BYTES;
+      const unsigned char* Vs = smem + L::V_OFF + s * L::KV_BYTES;
+
+      // S = Q K^T: 64 rows x BN keys, D/16 k-steps, A = this warpgroup's Q
+      // rows and B = the K tile, both K-major.
+      float sc[BN / 2];
+      mbar_wait(&k_full[s], ph);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 32;
+        wgmma_m64n128k16_ss(
+            sc, desc_sw128(Qs + c * BM * 128 + wq * 64 * 128 + off, 16, 1024),
+            desc_sw128(Ks + c * BN * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // Mask (only where the tile is not wholly visible to the warp) and the
+      // running max per row, on the unscaled scores: the scale is positive.
+      const bool full = k0 >= full_lo && k0 + BN <= full_hi;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          if (!full) {
+            const int kpos = k0 + n * 8 + 2 * t + (i & 1);
+            bool ok = kpos < S;
+            if (causal) ok = ok && kpos <= qpos[r];
+            if (window > 0) ok = ok && kpos > qpos[r] - window;
+            if (!ok) sc[4 * n + i] = -INFINITY;
+          }
+          mx[r] = fmaxf(mx[r], sc[4 * n + i]);
+        }
+      }
+      // p = 2^(s * scale_log2 - mb) in one FFMA and one EX2.  Until the row
+      // has seen a visible key its max is -inf, and mb = 0 keeps p =
+      // 2^-inf = 0 instead of computing -inf - -inf; corr is then 0, which
+      // leaves l and acc at 0.
+      float corr[2], mb[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        mb[r] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+        corr[r] = exp2_ftz(m[r] * scale_log2 - mb[r]);
+        m[r] = m_new;
+      }
+      float ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const float p = exp2_ftz(fmaf(sc[4 * n + i], scale_log2, -mb[r]));
+          sc[4 * n + i] = p;
+          ps[r] += p;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+        l[r] = l[r] * corr[r] + ps[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[4 * n + 0] *= corr[0];
+        acc[4 * n + 1] *= corr[0];
+        acc[4 * n + 2] *= corr[1];
+        acc[4 * n + 3] *= corr[1];
+      }
+
+      // O += P V: P in registers as the A operand (key blocks 2k and 2k+1
+      // are k-step k), V (BN keys x D) MN-major from shared memory.
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        pa[kk][0] = tc::pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = tc::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = tc::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = tc::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      mbar_wait(&v_full[s], ph);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t dv = desc_sw128(Vs + kk * 16 * 128, BN * 128, 1024);
+        if constexpr (D == 64) wgmma_m64n64k16_rs_tn(acc, pa[kk], dv, 1);
+        else wgmma_m64n128k16_rs_tn(acc, pa[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(&empty[s]);          // both products of this stage are done
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tq = q0 + r0 + 8 * r;
+      if (tq < T_) {
+        const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+        const long row = ((long)(b * T_ + tq) * H + h) * D;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const float x0 = acc[4 * n + 2 * r] * inv, x1 = acc[4 * n + 2 * r + 1] * inv;
+          uint32_t hi = tc::pack_bf16(x0, x1);
+          *reinterpret_cast<uint32_t*>(o + row + n * 8 + 2 * t) = hi;
+          if (o_lo != nullptr) {
+            const __nv_bfloat162 h2 = *reinterpret_cast<__nv_bfloat162*>(&hi);
+            *reinterpret_cast<uint32_t*>(o_lo + row + n * 8 + 2 * t) =
+                tc::pack_bf16(x0 - __low2float(h2), x1 - __high2float(h2));
+          }
+        }
+        // m is the unscaled max: lse = ln(2^(m * scale_log2) * l).
+        if (lse != nullptr && t == 0)
+          lse[(long)bh * T_ + tq] =
+              l[r] > 0.f ? (m[r] * scale_log2 + log2f(l[r])) * tc::LN2 : -INFINITY;
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that this library
+// needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 (B, N, heads, D) tensor seen as 4-d (D, heads, N, B),
+// innermost first; a box is 64 head-dim columns of `rows` rows of one
+// (batch, head), 128-byte swizzled.  Rows past N read as zeros, and a box
+// never reaches into the next batch.
+bool encode(CUtensorMap* map, const void* ptr, int B, int N, int heads, int D,
+            int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)N * heads * D * 2};
+  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, void* o_lo, int B, int T_, int S, int H, int K,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  using L = Layout<D>;
+  CUtensorMap tq, tk, tv;
+  if (!encode(&tq, q, B, T_, H, D, L::BM) || !encode(&tk, k, B, S, K, D, L::BN) ||
+      !encode(&tv, v, B, S, K, D, L::BN))
+    return cudaErrorInvalidValue;
+  auto kern = fa_fwd_wgmma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((T_ + L::BM - 1) / L::BM, B * H);
+  kern<<<grid, THREADS, L::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+      static_cast<__nv_bfloat16*>(o_lo), T_, S, H, K, causal, window,
+      scale * tc::LOG2E);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// Which kernel a forward call takes: 2 = the bf16 wgmma kernel (head dims
+// 64 and 128), 1 = the bf16 mma.sync kernel (head dims 16, 32 and 256), 0 =
+// the f32-FMA kernel.  dtype as below; `aligned` is nonzero when q, k, v and
+// o all start on 16 bytes (TMA and the 16-byte cp.async copies need it).
+// repro_flash_attention_fwd dispatches by this function.
 extern "C" int repro_flash_attention_fwd_path(int dtype, int D, int aligned) {
-  return dtype == 1 && aligned &&
-         (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
+  if (dtype != 1 || !aligned) return 0;
+  if (D == 64 || D == 128) return 2;
+  return D == 16 || D == 32 || D == 256 ? 1 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All tensors are
@@ -511,14 +875,14 @@ extern "C" int repro_flash_attention_fwd(
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15) == 0;
-  if (repro_flash_attention_fwd_path(dtype, D, aligned)) {
-    switch (D) {
-      case 16: return (int)tc::launch<16>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-      case 32: return (int)tc::launch<32>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-      case 64: return (int)tc::launch<64>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-      case 128: return (int)tc::launch<128>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-      case 256: return (int)tc::launch<256>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-    }
+  switch (repro_flash_attention_fwd_path(dtype, D, aligned)) {
+    case 2:
+      if (D == 64) return (int)wg::launch<64>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      return (int)wg::launch<128>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+    case 1:
+      if (D == 16) return (int)tc::launch<16>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      if (D == 32) return (int)tc::launch<32>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      return (int)tc::launch<256>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
   }
   if (dtype == 0)
     return (int)dispatch_d<float>(q, k, v, o, ls, o_lo, B, T, S, H, K, D, causal, window, scale, st);

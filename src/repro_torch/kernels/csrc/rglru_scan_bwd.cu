@@ -62,8 +62,8 @@
 // special-function units.  Bytes bind.  On an H100 80GB HBM3 at 700 W
 // the kernel takes about 0.17 ms there, 1.65x that bound, and a copy of it
 // that only loads and stores its tiles about 0.155 (tools/bench_scans.py,
-// tools/ablate_scan_bwd.py; PERF.md).  63 registers, no spills (python -m
-// repro_torch.kernels._build): two blocks per SM.
+// tools/ablate_kernels.py --kernel scan_bwd; PERF.md).  63 registers, no
+// spills (python -m repro_torch.kernels._build): two blocks per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

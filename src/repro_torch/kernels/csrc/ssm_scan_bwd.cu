@@ -63,11 +63,11 @@
 // (11.7 shared-memory loads a (step, state)) and summed dB and dC with 1.75
 // shuffles a value.  This one issues per (step, state) 1.75 shared-memory
 // loads, 3.1 shuffles and 23 f32 instructions, 33 in all against 52-61
-// (SASS, tools/ablate_scan_bwd.py).  What holds it on the card (PERF.md has
-// the times, on an H100 80GB HBM3 at 700 W): the dB/dC channel sums and
-// the lane scans, whose shuffles come in bursts that the barrier of each
-// pair lines up, and the bytes with the dB/dC partials, which alone take a
-// quarter of its time.  One block of 16 warps per SM in 128 registers
+// (SASS, tools/ablate_kernels.py --kernel scan_bwd).  What holds it on the
+// card (PERF.md has the times, on an H100 80GB HBM3 at 700 W): the dB/dC
+// channel sums and the lane scans, whose shuffles come in bursts that the
+// barrier of each pair lines up, and the bytes with the dB/dC partials,
+// which alone take a quarter of its time.  One block of 16 warps per SM in 128 registers
 // (python -m repro_torch.kernels._build): against two blocks of 8 warps
 // and 32 channels it halves the partials and measured faster.
 

@@ -2,8 +2,11 @@
 
 The bf16 tensor-core paths of ``csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu`` round where the plain attention does not.
-The forward rounds P to bf16 before P·V, tile by tile (32 keys) of its
-online softmax.  The backward rounds P and dS to bf16 before dV = Pᵀ·dO,
+The forward rounds P to bf16 before P·V, tile by tile of its online
+softmax: 128-key tiles on the wgmma path (head dims 64 and 128), 32-key
+tiles on the mma.sync path (head dims 16, 32 and 256), as the wrapper's
+mirror of the kernels' constants says (``WGMMA_TILES``, ``MMA_TILE_KEYS``,
+checked against the ``.cu`` file below).  The backward rounds P and dS to bf16 before dV = Pᵀ·dO,
 dK = dSᵀ·Q and dQ = dS·K, accumulates in f32, sums each group of query
 heads' dK / dV partials in f32 and rounds once; its Δ = rowsum(dO·O)
 reads O as the forward's bf16 output plus the residual the forward lost
@@ -17,6 +20,7 @@ that tolerance before any card runs them.
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
@@ -27,6 +31,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from test_torch_cuda import WGMMA_FWD_CASES  # noqa: E402
 
 TOL = 2e-2
 LOG2E = 1.4426950408889634
@@ -53,14 +60,21 @@ def _scores(q, k):
     return torch.einsum("bthd,bshd->bhts", q, k.repeat_interleave(H // K, 2))
 
 
+def tile_keys(D):
+    """Keys a KV tile of the bf16 forward kernel at head dim D."""
+    return fa.WGMMA_TILES[D][1] if D in fa.WGMMA_TILES else fa.MMA_TILE_KEYS
+
+
 def tc_forward(q, k, v, causal, window):
     """The forward kernel's arithmetic: online softmax in the log2 domain
-    over 32-key KV tiles, P rounded to bf16 before P·V, f32 m, l and
-    accumulator; output rounded to bf16.  Returns (o, lse, o_lo), o_lo the
-    bf16 residual that training asks for: o + o_lo is the f32 output."""
+    over KV tiles of ``tile_keys(D)`` keys from key 0 (the kernels start at
+    a multiple of the tile; tiles a row cannot see change nothing), P
+    rounded to bf16 before P·V, f32 m, l and accumulator; output rounded to
+    bf16.  Returns (o, lse, o_lo), o_lo the bf16 residual that training
+    asks for: o + o_lo is the f32 output."""
     B, T, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    bk = 32
+    bk = tile_keys(D)
     vf = v.repeat_interleave(H // K, 2)
     x = (_scores(q, k) * (D ** -0.5 * LOG2E)).masked_fill(
         ~_mask(T, S, causal, window), float("-inf"))
@@ -141,7 +155,18 @@ FWD_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", FWD_CASES, ids=str)
+def _lse_reference(q, k, causal, window):
+    """Each row's log-sum-exp of its scaled, masked scores (B,H,T) in jnp;
+    -inf where a row sees no key."""
+    H, K, D = q.shape[2], k.shape[2], q.shape[3]
+    T, S = q.shape[1], k.shape[1]
+    s = jnp.einsum("bthd,bshd->bhts", jnp.asarray(q),
+                   jnp.repeat(jnp.asarray(k), H // K, axis=2)) * D ** -0.5
+    mask = jnp.asarray(_mask(T, S, causal, window).numpy())
+    return jax.scipy.special.logsumexp(jnp.where(mask, s, -jnp.inf), axis=-1)
+
+
+@pytest.mark.parametrize("case", FWD_CASES + WGMMA_FWD_CASES, ids=str)
 def test_tc_forward_rounding_within_bf16_tolerance_of_reference(case):
     B, T, S, H, K, D, causal, window = case
     q, k, v, _ = _inputs(20, B, T, S, H, K, D)
@@ -149,12 +174,34 @@ def test_tc_forward_rounding_within_bf16_tolerance_of_reference(case):
                               causal=causal, window=window)
     got, lse, _ = tc_forward(*(torch.from_numpy(a) for a in (q, k, v)), causal, window)
     _close(got, want)
-    # Rows that see no key return 0 and write lse = -inf.
+    # Rows that see no key return 0 and write lse = -inf; the others' lse is
+    # the reference's to f32 rounding (1e-4, as the card holds the kernels').
     blind = ~_mask(T, S, causal, window).any(-1)
     assert bool((got[:, blind] == 0).all())
     assert bool(torch.isinf(lse[..., blind]).all())
     if T > S:
         assert bool(blind.any())
+    want_lse = np.asarray(_lse_reference(q, k, causal, window))
+    assert bool(np.isneginf(want_lse[..., blind.numpy()]).all())
+    np.testing.assert_allclose(lse[..., ~blind].numpy(), want_lse[..., ~blind.numpy()],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_forward_tile_constants_match_the_wrapper():
+    """``flash_attention.cu`` states the forward's tiles once; the wrapper
+    mirrors them, and ``tc_forward`` reads the wrapper's."""
+    src = (_build.CSRC / fa.SOURCE).read_text()
+    tiles = {int(d): tuple(map(int, rest)) for d, *rest in re.findall(
+        r"struct Tiles<(\d+)> \{ static constexpr int BM = (\d+), BN = (\d+), "
+        r"STAGES = (\d+); \};", src)}
+    assert tiles == fa.WGMMA_TILES
+    consumers = int(re.search(r"constexpr int CONSUMERS = (\d+);", src).group(1))
+    assert all(bm == 64 * consumers for bm, _, _ in tiles.values())
+    # The path query sends exactly these head dims to the wgmma kernel.
+    dims = " || ".join(f"D == {d}" for d in sorted(tiles))
+    assert f"if ({dims}) return 2;" in src
+    mma = src[src.index("namespace tc {"):src.index("}  // namespace tc")]
+    assert int(re.search(r"constexpr int BK = (\d+);", mma).group(1)) == fa.MMA_TILE_KEYS
 
 
 # D in {64, 128} at T = S = 256 and GQA 12:1, causal and windowed; the

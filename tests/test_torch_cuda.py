@@ -93,12 +93,13 @@ ARCH_SHAPES = [
 @pytest.mark.parametrize("case", ARCH_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_at_the_new_arch_shapes(case, dtype):
-    """Forward against plain; bf16 on the tensor cores, f32 on the FMA
-    kernel."""
+    """Forward against plain; bf16 on the tensor cores (wgmma at head dims
+    64 and 128, mma.sync at 256), f32 on the FMA kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, T, S, H, K, D, causal, window = case
-    assert fa.fwd_path(dtype, D) == (1 if dtype == torch.bfloat16 else 0)
+    bf16_path = 2 if D in fa.WGMMA_TILES else 1
+    assert fa.fwd_path(dtype, D) == (bf16_path if dtype == torch.bfloat16 else 0)
     rng = np.random.default_rng(5)
     q, k, v = (_cuda(rng, shape, dtype)
                for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
@@ -347,13 +348,15 @@ def test_flash_attention_bwd_is_deterministic(case):
 
 @pytest.mark.gpu
 def test_flash_attention_paths():
-    """The bf16 main shapes (head dims 128 and 256, forward and backward)
-    take the tensor cores; f32, head dims the tensor-core kernels do not
+    """The bf16 forward takes the wgmma kernel at head dims 64 and 128 and
+    the mma.sync kernel at 16, 32 and 256; the bf16 backward takes the
+    tensor cores at all five; f32, head dims the tensor-core kernels do not
     instantiate, and unaligned pointers take the FMA kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     bf16, f32 = torch.bfloat16, torch.float32
-    assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1] * 5
+    assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1, 1, 2, 2, 1]
+    assert fa.PATHS[2] == "wgmma"
     assert [fa.bwd_path(bf16, D) for D in (16, 32, 64, 128)] == [1] * 4
     assert fa.bwd_path(bf16, 256) == 1
     assert fa.fwd_path(bf16, 96) == fa.bwd_path(bf16, 96) == 0
@@ -424,19 +427,87 @@ def test_flash_attention_serving_unchanged_by_lse(case, dtype):
     if dtype == torch.bfloat16:
         assert bool((o_lo.float().abs() <= out.float().abs() * 2 ** -8).all())
         assert bool(o_lo.abs().sum() > 0)
-    kf, qf = k.float().repeat_interleave(H // K, 2), q.float()
-    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
-    qpos = torch.arange(T, device="cuda")[:, None] + (S - T)
-    kpos = torch.arange(S, device="cuda")[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device="cuda")
+    want, seen = _plain_lse(q, k, causal, window)
+    assert bool((lse[~seen] == float("-inf")).all())
+    _close(lse[seen], want[seen], 1e-4)
+
+
+def _plain_lse(q, k, causal, window):
+    """Each row's log-sum-exp of its scaled, masked scores in f32, (B,H,T),
+    and which rows see a key (the others' log-sum-exp is -inf)."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // K, 2)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), kf) * D ** -0.5
+    qpos = torch.arange(T, device=q.device)[:, None] + (S - T)
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kpos <= qpos
     if window > 0:
         mask &= kpos > qpos - window
-    want = torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
-    seen = mask.any(-1).expand_as(want)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), -1)
+    return lse, mask.any(-1).expand_as(lse)
+
+
+# The wgmma forward's tiles (128 query rows, 128 keys) at head dims 64 and
+# 128: T and S ragged against both, T > S so that rows see no key, a window
+# of 200 that leaves whole 128-key tiles unseen by a query tile, llama3's GQA
+# 16:1, and non-causal with T != S.  tests/test_torch_attn_tc.py holds its
+# CPU emulation of the kernel's rounding on the same cases.
+WGMMA_FWD_CASES = [case for D in (64, 128) for case in (
+    (1, 200, 330, 4, 2, D, True, 0),
+    (1, 300, 140, 4, 1, D, True, 0),
+    (1, 640, 640, 4, 2, D, True, 200),
+    (1, 256, 256, 16, 1, D, True, 0),
+    (2, 150, 400, 4, 2, D, False, 0),
+)]
+# Those, then the main paths' shapes: qwen3-32b prefill, starcoder2-3b
+# training, whisper-small's encoder and cross-attention, llama3-405b
+# prefill, phi3.5-moe and granite-moe prefill.
+WGMMA_CASES = WGMMA_FWD_CASES + [
+    (4, 1024, 1024, 64, 8, 128, True, 0),
+    (4, 1024, 1024, 24, 2, 128, True, 0),
+    (4, 1500, 1500, 12, 12, 64, False, 0),
+    (4, 448, 1500, 12, 12, 64, False, 0),
+    (4, 1024, 1024, 128, 8, 128, True, 0),
+    (4, 1024, 1024, 32, 8, 128, True, 0),
+    (4, 1024, 1024, 16, 8, 64, True, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_flash_attention_wgmma_vs_plain(case):
+    """Path 2 against plain: o at 2e-2; lse against a plain logsumexp at
+    1e-4 and -inf on rows that see no key; o + o_lo, the f32 result, at
+    2e-2 with o_lo within bf16's rounding of o; o bit-equal with and
+    without lse, and all three bit-equal on a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, T, S, H, K, D, causal, window = case
+    rng = np.random.default_rng(15)
+    q, k, v = (_cuda(rng, shape, torch.bfloat16)
+               for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+    assert fa.fwd_path(q.dtype, D, fa._aligned(q, k, v)) == 2
+    before = fa.LAUNCHES
+    serve_out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    first = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
+    second = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    out, lse, o_lo = first
+    assert torch.equal(out, serve_out)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                             window=window)
+    _close(out, want, 2e-2)
+    _close(out.float() + o_lo.float(), want, 2e-2)
+    assert bool((o_lo.float().abs() <= out.float().abs() * 2 ** -8).all())
+    want_lse, seen = _plain_lse(q, k, causal, window)
     assert bool((lse[~seen] == float("-inf")).all())
-    _close(lse[seen], want[seen], 1e-4)
+    assert bool((out.transpose(1, 2)[~seen] == 0).all())
+    _close(lse[seen], want_lse[seen], 1e-4)
 
 
 # The scans' backward kernels against autograd of the plain scans in f32, on

@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
-"""Where the scans' backward kernels spend their instructions, on one CUDA card.
+"""Where a kernel spends its instructions and its time, on one CUDA card.
 
-    python3 tools/ablate_scan_bwd.py [--src DIR] [--sass-only] [--dump DIR]
+    python3 tools/ablate_kernels.py --kernel scan_bwd|flash_fwd [--src DIR]
+        [--sass-only] [--dump DIR]
 
-For ``ssm_scan_bwd.cu`` and ``rglru_scan_bwd.cu`` of the tree at DIR
-(default: this checkout's ``src/``):
+For the kernel's sources in the tree at DIR (default: this checkout's
+``src/``), one table of ``TARGETS``:
 
-1. SASS counts.  Builds the library, disassembles it (``cuobjdump -sass``)
-   and, in the bf16 kernel (the ``NMAX = 16`` one for the selective scan),
-   counts the instructions of each innermost loop that holds an
-   exponential (``MUFU.EX2``): the state loop of a chunk (two in the earlier
-   selective scan, for full chunks and for the masked last one; the chunk
-   loop, loads and stores included, in the RG-LRU).  Counts are by class (shared
-   loads and stores, shuffles, special functions, f32 arithmetic, barriers)
-   and per element, an element being one (step, state) of one lane: a
-   loop iteration covers ``SEG`` steps times ``GROUP`` states (``GROUP`` is
-   1 where the source does not state it).
-2. Ablations.  Copies the tree's ``csrc/`` under ``build/ablate/<name>/``,
-   applies the text substitutions listed in ``ABLATIONS`` for that source
-   (an ablation whose text is not in the source is reported as not
-   applicable), builds each copy, and times it at the training shape with
-   ``bench_scans``' calls, beside the unchanged source, in turns.  An
-   ablated kernel computes wrong values on purpose: its time says what the
-   removed work costs, nothing else.
+- ``scan_bwd``: ``ssm_scan_bwd.cu`` and ``rglru_scan_bwd.cu``, timed at the
+  training shapes with ``bench_scans``' calls.
+- ``flash_fwd``: the bf16 wgmma forward of ``flash_attention.cu``, timed
+  through its C entry point (serving's call, no log-sum-exp) at qwen3-32b's
+  prefill, starcoder2-3b's training shape, whisper-small's encoder and
+  granite-moe's prefill, with ``chip_smoke``'s inputs.
+
+1. What ptxas says (``-Xptxas -v``) of the counted kernels: registers,
+   spills and any warning, such as wgmma instructions it had to serialize.
+2. SASS counts (``cuobjdump -sass``) of the counted kernels.  ``scan_bwd``:
+   by class (shared loads and stores, shuffles, special functions, f32
+   arithmetic, barriers), of each innermost loop that holds an exponential
+   (``MUFU.EX2``) in the bf16 kernel (the ``NMAX = 16`` one for the
+   selective scan), and per element, an element being one (step, state) of
+   one lane: a loop iteration covers ``SEG`` steps times ``GROUP`` states
+   (``GROUP`` is 1 where the source does not state it).  ``flash_fwd``: the
+   whole of each wgmma kernel's HGMMA, warpgroup arrive and dependency
+   barriers, MUFU.EX2, SHFL, SYNCS (the mbarrier operations) and BAR.
+3. Ablations.  Copies the tree's ``csrc/`` under ``build/ablate/<name>/``,
+   applies the text substitutions the table lists for that source (an
+   ablation whose text is not in the source is reported as not
+   applicable), builds the copies in parallel and times each beside the
+   unchanged source, in turns.  An ablated kernel computes wrong values on
+   purpose: its time says what the removed work costs, nothing else.
 
 The copies live under ``build/`` and are never part of the repository.
 Prints the card's name and power limit, then one JSON line.
@@ -44,7 +52,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # name -> (source file, [(text, replacement), ...]).  Each text must occur in
 # the source; every occurrence is replaced.
-ABLATIONS = {
+SCAN_BWD_ABLATIONS = {
     # The earlier selective-scan backward (16-step segments, one state per
     # pass of the state loop), for --src on a tree that has it.
     "ssm: no dB/dC reduce-scatter": ("ssm_scan_bwd.cu", [
@@ -102,14 +110,34 @@ ABLATIONS = {
         ("__launch_bounds__(THREADS, 2) rglru_scan_bwd_kernel(",
          "__launch_bounds__(THREADS, 1) rglru_scan_bwd_kernel(")]),
 }
+FA = "flash_attention.cu"
+FLASH_FWD_ABLATIONS = {
+    "no exp2 in the softmax": (FA, [
+        ("const float p = exp2_ftz(fmaf(sc[4 * n + i], scale_log2, -mb[r]));",
+         "const float p = fmaf(sc[4 * n + i], scale_log2, -mb[r]);")]),
+    "no softmax (P = S)": (FA, [
+        ("const float p = exp2_ftz(fmaf(sc[4 * n + i], scale_log2, -mb[r]));",
+         "const float p = sc[4 * n + i];"),
+        ("const bool full = k0 >= full_lo && k0 + BN <= full_hi;",
+         "const bool full = true;"),
+        ("corr[r] = exp2_ftz(m[r] * scale_log2 - mb[r]);", "corr[r] = 1.f;")]),
+    "no P.V products": (FA, [
+        ("if constexpr (D == 64) wgmma_m64n64k16_rs_tn(acc, pa[kk], dv, 1);", ""),
+        ("else wgmma_m64n128k16_rs_tn(acc, pa[kk], dv, 1);", "(void)dv;")]),
+    "no Q.K products": (FA, [
+        ("        wgmma_m64n128k16_ss(\n"
+         "            sc, desc_sw128(Qs + c * BM * 128 + wq * 64 * 128 + off, 16, 1024),\n"
+         "            desc_sw128(Ks + c * BN * 128 + off, 16, 1024), kk > 0);",
+         "        (void)c; (void)off;")]),
+}
 
 # Instruction classes by opcode prefix, in the order they are tried.
 CLASSES = (("LDS", ("LDS", "LDSM")), ("STS", ("STS",)), ("SHFL", ("SHFL",)),
            ("MUFU", ("MUFU",)), ("FP32", ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL",
                                           "FSETP", "FSWZADD")),
            ("BAR", ("BAR",)), ("global", ("LDG", "STG", "LDGSTS", "LDGDEPBAR")))
-KERNELS = {"ssm_scan_bwd.cu": r"ssm_scan_bwd_kernel<__nv_bfloat16, (\(int\))?16>",
-           "rglru_scan_bwd.cu": r"rglru_scan_bwd_kernel<__nv_bfloat16"}
+FLASH_COUNTED = ("HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "MUFU.EX2", "SHFL",
+                 "SYNCS", "BAR")
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
 
 
@@ -132,9 +160,10 @@ def sass_functions(lib: Path, tools) -> dict:
     return dict(zip(names, funcs.values()))
 
 
-def loop_counts(code, per_iteration: int) -> list:
+def loop_counts(code, source_text: str) -> dict:
     """Counts by class, and per element, of each innermost loop (a backward
     branch's span) that holds a MUFU.EX2."""
+    per_iteration = constant(source_text, "SEG", 1) * constant(source_text, "GROUP", 1)
     loops = []
     for addr, op, rest in code:
         m = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
@@ -153,7 +182,13 @@ def loop_counts(code, per_iteration: int) -> list:
         out.append({"span": [hex(lo), hex(hi)], "count": counts,
                     "per_element": {k: round(v / per_iteration, 3)
                                     for k, v in counts.items()}})
-    return out
+    return {"elements_per_iteration": per_iteration, "loops": out}
+
+
+def op_counts(code, source_text: str) -> dict:
+    """Counts of ``FLASH_COUNTED``'s opcodes over a whole kernel."""
+    return {k: sum(1 for _, op, _ in code if op == k or op.startswith(k + "."))
+            for k in FLASH_COUNTED}
 
 
 def constant(src: str, name: str, default: int) -> int:
@@ -161,8 +196,74 @@ def constant(src: str, name: str, default: int) -> int:
     return int(m.group(1)) if m else default
 
 
+def scan_bwd_calls(torch, cs) -> dict:
+    """{label: (source, call with a library, iterations)}: each scan backward
+    at its training shape, the library loaded in place of the wrapper's."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    from bench_scans import backward_calls
+    from repro_torch.kernels import _build, rglru_scan, ssm_scan
+
+    def with_lib(call, source):
+        def bind(lib: Path):
+            _build._LOADED[source] = ctypes.CDLL(str(lib))
+            ssm_scan._bwd_fns.cache_clear()
+            rglru_scan._bwd_fn.cache_clear()
+            return call
+        return bind
+
+    return {name: (f"{name}.cu", with_lib(call, f"{name}.cu"), iters) for name, (call, iters)
+            in backward_calls(torch, cs, ssm_scan, rglru_scan).items()}
+
+
+def flash_fwd_calls(torch, cs) -> dict:
+    """{label: (source, call with a library, iterations)}: the forward's C
+    entry point of a library at four head-dim 64 and 128 main shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, shape in (("qwen3", cs.MAIN_SHAPE), ("starcoder2_train", cs.TRAIN_SHAPE),
+                         ("whisper_encoder", cs.WHISPER_ENC_SHAPE),
+                         ("granite", cs.GRANITE_SHAPE)):
+        B, T, S, H, K, D, causal, window = shape
+        q, k, v = cs.attn_inputs(torch, shape, torch.bfloat16, seed=99)
+        o = torch.empty_like(q)
+
+        def bind(lib: Path, q=q, k=k, v=v, o=o, B=B, T=T, S=S, H=H, K=K, D=D,
+                 causal=causal, window=window):
+            fn = ctypes.CDLL(str(lib)).repro_flash_attention_fwd
+            fn.argtypes = fa.ARGTYPES
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+                         None, 1, B, T, S, H, K, D, int(causal), window, D ** -0.5,
+                         stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed: {err}")
+            return call
+
+        out[f"{label} {list(shape)}"] = (FA, bind, 20)
+    return out
+
+
+# kernel -> its ablations, the kernels whose SASS is counted (source ->
+# demangled-name pattern), how, which ptxas lines are kept, and its calls.
+TARGETS = {
+    "scan_bwd": dict(
+        ablations=SCAN_BWD_ABLATIONS,
+        kernels={"ssm_scan_bwd.cu": r"ssm_scan_bwd_kernel<__nv_bfloat16, (\(int\))?16>",
+                 "rglru_scan_bwd.cu": r"rglru_scan_bwd_kernel<__nv_bfloat16"},
+        count=loop_counts, ptxas=r"spill|warning", calls=scan_bwd_calls),
+    "flash_fwd": dict(
+        ablations=FLASH_FWD_ABLATIONS,
+        kernels={FA: r"fa_fwd_wgmma_kernel"},
+        count=op_counts, ptxas=r"wgmma|warning|setmaxnreg", calls=flash_fwd_calls),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", required=True, choices=sorted(TARGETS))
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--sass-only", action="store_true",
                     help="count instructions of the tree's sources; build and time no ablation")
@@ -171,12 +272,13 @@ def main() -> int:
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
-        print("ablate_scan_bwd: no CUDA device", file=sys.stderr)
+        print("ablate_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
     import chip_smoke as cs
-    from repro_torch.kernels import _build, rglru_scan, ssm_scan
+    from repro_torch.kernels import _build
 
+    target = TARGETS[args.kernel]
     torch.set_grad_enabled(False)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -184,11 +286,12 @@ def main() -> int:
     bindir = Path(_build.find_nvcc()).parent
     tools = {t: str(bindir / t) for t in ("cuobjdump", "cu++filt")}
     csrc = _build.CSRC
-    out = {"src": args.src, "sass": {}, "ablations": {}}
+    out = {"src": args.src, "kernel": args.kernel, "ptxas": {}, "sass": {},
+           "ablations": {}}
 
     # Every variant's csrc: the tree's own and one copy per ablation.
-    variants = {"as is": csrc}
-    for name, (source, subs) in ({} if args.sass_only else ABLATIONS).items():
+    variants = {"as is": (csrc, tuple(target["kernels"]))}
+    for name, (source, subs) in ({} if args.sass_only else target["ablations"]).items():
         text = (csrc / source).read_text()
         missing = [old for old, _ in subs if old not in text]
         if missing:
@@ -201,65 +304,63 @@ def main() -> int:
             shutil.rmtree(d)
         shutil.copytree(csrc, d)
         (d / source).write_text(text)
-        variants[name] = d
+        variants[name] = (d, (source,))
 
     def compile_one(item):
         """Build one variant's sources with nvcc, into build/ablate/."""
-        name, d = item
-        libs = {}
-        for s in KERNELS:
-            if name != "as is" and ABLATIONS[name][0] != s:
-                continue
+        name, (d, sources) = item
+        libs, logs = {}, {}
+        for s in sources:
             lib = ROOT / "build" / "ablate" / (
                 re.sub(r"\W+", "-", f"{name}-{Path(s).stem}").strip("-") + ".so")
             lib.parent.mkdir(parents=True, exist_ok=True)
-            cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(d / s)]
+            cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                   str(lib), str(d / s)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {name} {s}:\n{proc.stderr}")
-            libs[s] = lib
-        return name, libs
+                raise RuntimeError(f"nvcc failed on {name} {s}:\n{proc.stderr[-3000:]}")
+            libs[s], logs[s] = lib, proc.stderr
+        return name, libs, logs
 
     with ThreadPoolExecutor(max_workers=len(variants)) as pool:
-        libs = dict(pool.map(compile_one, variants.items()))
+        built = list(pool.map(compile_one, variants.items()))
+    libs = {name: by_source for name, by_source, _ in built}
 
+    for source, log in built[0][2].items():
+        out["ptxas"][source] = [ln.strip() for ln in log.splitlines()
+                                if re.search(target["ptxas"], ln, re.IGNORECASE)]
+        for ln in out["ptxas"][source]:
+            print("ptxas:", ln[:300], flush=True)
     for name, by_source in libs.items():
         for source, lib in by_source.items():
-            text = (variants[name] / source).read_text()
-            per_it = constant(text, "SEG", 1) * constant(text, "GROUP", 1)
+            text = (variants[name][0] / source).read_text()
             funcs = sass_functions(lib, tools)
-            fn = next((f for f in funcs if re.search(KERNELS[source], f)), None)
-            out["sass"][f"{name}: {source}"] = (
-                {"kernel": fn, "elements_per_iteration": per_it,
-                 "loops": loop_counts(funcs[fn], per_it)} if fn else "kernel not found")
-            if fn and args.dump:
-                dump = Path(args.dump) / (re.sub(r"\W+", "-", f"{name}-{source}") + ".sass")
-                dump.parent.mkdir(parents=True, exist_ok=True)
-                dump.write_text("\n".join(f"{a:06x} {o}{r}" for a, o, r in funcs[fn]))
+            pattern = target["kernels"][source]
+            found = [f for f in funcs if re.search(pattern, f)]
+            for fn in found:
+                out["sass"][f"{name}: {fn}"] = target["count"](funcs[fn], text)
+                if args.dump:
+                    dump = Path(args.dump) / (re.sub(r"\W+", "-", f"{name}-{fn}")[:120]
+                                              + ".sass")
+                    dump.parent.mkdir(parents=True, exist_ok=True)
+                    dump.write_text("\n".join(f"{a:06x} {o}{r}" for a, o, r in funcs[fn]))
+            if not found:
+                out["sass"][f"{name}: {source}"] = "kernel not found"
 
     if args.sass_only:
         print(json.dumps(out), flush=True)
         return 0
-    # Times: each variant's library loaded in place of the wrapper's.
-    sys.path.insert(0, str(ROOT / "tools"))
-    from bench_scans import backward_calls
-    calls = {f"{name}.cu": call for name, call in
-             backward_calls(torch, cs, ssm_scan, rglru_scan).items()}
-
-    def time_with(lib: Path, source: str) -> float:
-        _build._LOADED[source] = ctypes.CDLL(str(lib))
-        ssm_scan._bwd_fns.cache_clear()
-        rglru_scan._bwd_fn.cache_clear()
-        call, iters = calls[source]
-        return cs.time_ms(torch, call, iters=iters)
-
+    calls = target["calls"](torch, cs)
     times = {}
     order = [n for n in libs if n != "as is"]
     for rnd in range(2):                     # as is, variants, ..., in turns
         for name in ["as is"] + (order if rnd == 0 else order[::-1]):
-            for source, lib in libs[name].items():
-                times.setdefault(f"{name}: {source}", []).append(
-                    time_with(lib, source))
+            for label, (source, bind, iters) in calls.items():
+                if source in libs[name]:
+                    times.setdefault(f"{name}: {label}", []).append(
+                        cs.time_ms(torch, bind(libs[name][source]), iters=iters))
+    for key, ms in times.items():
+        print(f"{key}: {', '.join(f'{t:.4f}' for t in ms)} ms", flush=True)
     out["ablations"].update(times)
     print(json.dumps(out), flush=True)
     return 0
