@@ -38,9 +38,12 @@ without the final result line:
    main shapes (qwen3, llama3 (H/K 16, forward only), recurrentgemma-local
    and starcoder2 forward, starcoder2 and recurrentgemma-local backward, the
    five new shapes forward and backward) on the tensor cores (the forward
-   on the wgmma kernel at head dims 64 and 128, on the mma.sync kernel at
-   256) and f32 on the FMA kernels, and the backward's group split must be
-   the one each case expects.  The scans' backward kernels, through autograd,
+   on the wgmma kernel at head dims 64, 128 and 256: paligemma's training
+   shape and recurrentgemma's local serving and training shapes among
+   them; the backward on the mma.sync kernels) and f32 on the FMA kernels,
+   and the backward's group split must be the one each case expects; the
+   head-dim 256 backward runs on the wgmma forward's log-sum-exp and
+   rounding residual.  The scans' backward kernels, through autograd,
    against f32 autograd of the plain scans over the same cases and the
    training shapes (falcon-mamba-7b (4, 1024, 8192, 16), recurrentgemma-9b
    (2, 3000, 4096)): per-element gradients (dx, ddt, da_gate, di_gate,
@@ -189,14 +192,17 @@ without the final result line:
    the card could take (bound, from the bytes moved and the operations
    done) and one PyTorch library call as a yardstick where one computes
    the same function (the port never calls it); each flash line names the
-   path it took, and each scan line the time of the scan kernel it
-   replaced (one thread per channel walking all T).  The scans' backward
-   kernels and the flash backward at the recurrentgemma local training
-   shape (head dim 256, the tensor cores' warp-pair kernels) against
-   autograd of plain and of SDPA; the flash forward and backward at
-   whisper's encoder shape and paligemma's training shape; the flash
-   forward alone at whisper's cross-attention, llama3's, phi3.5's and
-   granite's prefill shapes.
+   path it took (``wgmma`` for every bf16 forward, head dim 256 included)
+   beside SDPA's time from the same run, and each scan line the time of
+   the scan kernel it replaced (one thread per channel walking all T).
+   The scans' backward kernels and the flash backward at the
+   recurrentgemma local training shape (head dim 256, the tensor cores'
+   warp-pair kernels) against autograd of plain and of SDPA; the flash
+   forward at recurrentgemma's local serving shape (SDPA with a boolean
+   mask for the window); the flash forward and backward at whisper's
+   encoder shape and paligemma's training shape; the flash forward alone
+   at whisper's cross-attention, llama3's, phi3.5's and granite's prefill
+   shapes.
 7. The ``kernels`` JSON line (the scans' entries with their tile sizes;
    ``launches`` sums the main paths' runs, the mesh phase's summed over its
    ranks),
@@ -253,9 +259,10 @@ EXTRA_CASES = [
     (1, 70, 70, 4, 4, 32, False, 0),
     (1, 50, 50, 2, 1, 96, True, 0),
 ]
-# Head dim 256: T ragged against the 64-row query tile and the 32-key KV
-# tile, rows that see no key (T > S), non-causal T != S, a window that
-# empties whole KV tiles, suffix queries; H/K in {1, 2, 16}.
+# Head dim 256: T ragged against the forward's 128-row query tile and
+# 64-key KV tile (the backward's 32-row tiles too), rows that see no key
+# (T > S), non-causal T != S, a window that empties whole KV tiles, suffix
+# queries; H/K in {1, 2, 16}.
 D256_CASES = [
     (1, 100, 100, 2, 2, 256, True, 0),
     (2, 40, 24, 4, 2, 256, True, 0),
@@ -302,9 +309,10 @@ ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
 FWD_ONLY = [LLAMA3_SHAPE]
 BWD_TC_GROUPS.update({TRAIN_SHAPE: 4, LOCAL_SHAPE: 3, LOCAL_TRAIN_SHAPE: 6,
                       **ARCH_SHAPES})
-# Shapes whose bf16 forward must take the tensor cores: the wgmma kernel at
-# head dims 64 and 128, the mma.sync kernel at 256.
-TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, *ARCH_SHAPES)
+# Shapes whose bf16 forward must take the wgmma kernel (head dims 64, 128
+# and 256; the mma.sync kernel keeps 16 and 32, which no main path uses).
+TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, LOCAL_TRAIN_SHAPE,
+              *ARCH_SHAPES)
 # Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
 # ties, and the largest gradient leaf of the starcoder2-3b main path (the
 # (3072, 12288) FFN matrix cut into 1024-wide rows by grad_compress._rows).
@@ -1657,6 +1665,8 @@ def main() -> int:
             ("qwen3 forward", paths[("flash_attention", MAIN_SHAPE)]),
             ("llama3 forward", paths[("flash_attention", LLAMA3_SHAPE)]),
             ("recurrentgemma-local forward", paths[("flash_attention", LOCAL_SHAPE)]),
+            ("recurrentgemma-local train forward",
+             paths[("flash_attention", LOCAL_TRAIN_SHAPE)]),
             ("starcoder2 forward", paths[("flash_attention", TRAIN_SHAPE)]),
             ("starcoder2 backward", paths[("flash_attention_bwd", TRAIN_SHAPE)]),
             ("recurrentgemma-local backward",

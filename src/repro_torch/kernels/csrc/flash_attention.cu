@@ -26,52 +26,55 @@
 //
 // Three paths, chosen from the inputs by repro_flash_attention_fwd_path
 // (exported, so callers can ask which one a call takes):
-// * 2: bf16 with D in {64, 128} and 16-byte aligned pointers (every
-//   forward of qwen3, qwen2, llama3, starcoder2, granite-moe, phi3.5-moe
-//   and whisper): wgmma fed by TMA, warp-specialised (namespace wg; helpers
-//   in wgmma_tma.cuh).  A block of 384 threads owns 128 query rows of one
-//   (batch, head): one producer warpgroup, which drops to 24 registers a
-//   thread with setmaxnreg and whose one thread issues every copy, and two
-//   consumer warpgroups of 64 rows, which rise to 240.  The host encodes a
-//   tensor map per call for q, k and v, each seen as 4-d (D, heads, rows,
-//   B), so a box of 64 head-dim columns by 128 rows of one (batch, head)
-//   zero-fills rows past a ragged T or S and never reads the next batch;
-//   128-byte swizzled, which is the layout wgmma reads without bank
-//   conflicts.  Q is loaded once; K and V tiles of 128 keys pass through a
-//   ring of STAGES slots (2 at D=128, 3 at D=64, where tiles are half the
-//   bytes) with a full barrier per slot for K and for V (armed with the
-//   tile's bytes) and an empty barrier that both consumers release.  A
-//   consumer computes S = Q K^T as m64n128k16 wgmmas with both operands
-//   from shared memory (K-major), runs the online softmax on the
-//   accumulator (quad shuffles for the row max and sum; masks only in tiles
-//   that the diagonal, the window or S cut), packs P to bf16 in place as
-//   the register A operand and accumulates O += P V as m64nDk16 wgmmas with
-//   V read MN-major (transposed) from shared memory.  The softmax is what
-//   binds (ablations in PERF.md): per score it takes one max, one FFMA that
-//   scales and subtracts the max, one flush-to-zero EX2 and one add, with
-//   no select for rows that have seen no key (their max term is 0 instead);
-//   with exp2f, a separate scale and a select per score the kernel took
-//   1.5x as long at qwen3's shape on an H100.  Blocks start heaviest first.
-//   Each product waits for its own completion before the next step: the
-//   overlap of one warpgroup's softmax with the other's products is left to
-//   the hardware's scheduling of the two consumers, and FlashAttention-3's
-//   intra-warpgroup overlap and ping-pong, persistent blocks and clusters
-//   are not used (see ROADMAP.md).  128 keys a tile at D=64 too: 192 and
-//   256 measured 19-24% slower there on an H100.  Registers: 168 at launch
-//   (ptxas -v), no spills.
-// * 1: bf16 with D in {16, 32, 256} and 16-byte aligned pointers
-//   (recurrentgemma's local layers and paligemma at D=256): mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate; helpers in mma_bf16.cuh), 128
-//   threads a block, each warp owning 16 query rows of a 64-row tile.  The
-//   scores of a 32-key tile come back in the accumulator layout, the
-//   softmax runs on them in registers and they are repacked as bf16 A
-//   fragments for P.V without touching shared memory; Q and K fragments
-//   come from ldmatrix, V fragments from ldmatrix.trans, and the KV tiles
-//   are double-buffered with cp.async.  At D=256 the output accumulator is
-//   128 f32 registers a thread, so Q's fragments are read from shared
-//   memory for each k-chunk and not held; Q plus two stages of K and V is
-//   101 KB (two blocks per SM).  The recurrentgemma local forward runs
-//   faster than SDPA this way (PERF.md); D=256 on wgmma is open (ROADMAP).
+// * 2: bf16 with D in {64, 128, 256} and 16-byte aligned pointers (every
+//   forward of every arch on the card: qwen3, qwen2, llama3, starcoder2,
+//   granite-moe, phi3.5-moe and whisper at 64 and 128, recurrentgemma's
+//   local layers and paligemma at 256): wgmma fed by TMA, warp-specialised
+//   (namespace wg; helpers in wgmma_tma.cuh).  A block of 384 threads owns
+//   128 query rows of one (batch, head): one producer warpgroup, which
+//   drops to 24 registers a thread with setmaxnreg and whose one thread
+//   issues every copy, and two consumer warpgroups of 64 rows, which rise
+//   to 240.  The host encodes a tensor map per call for q, k and v, each
+//   seen as 4-d (D, heads, rows, B), so a box of 64 head-dim columns by a
+//   tile's rows of one (batch, head) zero-fills rows past a ragged T or S
+//   and never reads the next batch; 128-byte swizzled, which is the layout
+//   wgmma reads without bank conflicts.  Q is loaded once; K and V tiles of
+//   BN keys pass through a ring of STAGES slots with a full barrier per
+//   slot for K and for V (armed with the tile's bytes) and an empty barrier
+//   that both consumers release.  Tiles (Tiles<D> below): 128 keys and 3
+//   stages at D=64, 128 keys and 2 stages at D=128, 64 keys and 2 stages at
+//   D=256, where the output accumulator alone takes 128 f32 registers a
+//   thread, so the scores (32) and P (16) must stay small: Q (64 KB) and
+//   two stages of K and V (128 KB) take 193 KB of shared memory.  A
+//   consumer computes S = Q K^T as m64nBNk16 wgmmas with both operands from
+//   shared memory (K-major), runs the online softmax on the accumulator
+//   (quad shuffles for the row max and sum; masks only in tiles that the
+//   diagonal, the window or S cut), packs P to bf16 in place as the
+//   register A operand and accumulates O += P V as m64nDk16 wgmmas (two
+//   m64n128k16 at D=256, one per half of the accumulator) with V read
+//   MN-major (transposed) from shared memory.  The softmax is what binds at
+//   D <= 128 (ablations in PERF.md): per score it takes one max, one FFMA
+//   that scales and subtracts the max, one flush-to-zero EX2 and one add,
+//   with no select for rows that have seen no key (their max term is 0
+//   instead); with exp2f, a separate scale and a select per score the
+//   kernel took 1.5x as long at qwen3's shape on an H100.  Blocks start
+//   heaviest first.  Each product waits for its own completion before the
+//   next step: the overlap of one warpgroup's softmax with the other's
+//   products is left to the hardware's scheduling of the two consumers, and
+//   FlashAttention-3's intra-warpgroup overlap and ping-pong, persistent
+//   blocks and clusters are not used (see ROADMAP.md).  128 keys a tile at
+//   D=64 too: 192 and 256 measured 19-24% slower there on an H100; 64 at
+//   D=256: 80 (FlashAttention-3's choice, m64n80k16) measured 2-13% slower.
+//   Registers: 168 at launch (ptxas -v), no spills, at all three.
+// * 1: bf16 with D in {16, 32} and 16-byte aligned pointers (no arch on the
+//   card uses them; the tests do): mma.sync m16n8k16 (bf16 in, f32
+//   accumulate; helpers in mma_bf16.cuh), 128 threads a block, each warp
+//   owning 16 query rows of a 64-row tile.  The scores of a 32-key tile
+//   come back in the accumulator layout, the softmax runs on them in
+//   registers and they are repacked as bf16 A fragments for P.V without
+//   touching shared memory; Q and K fragments come from ldmatrix, V
+//   fragments from ldmatrix.trans, and the KV tiles are double-buffered
+//   with cp.async.
 // * 0: everything else (f32, other head dims up to 256, unaligned
 //   pointers): f32 FMAs on the CUDA cores, bound by their 67 TFLOP/s at
 //   best.  Each query row of a 32-row tile is owned by 4 lanes of one warp
@@ -282,7 +285,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// bf16 mma.sync path, head dims 16, 32 and 256
+// bf16 mma.sync path, head dims 16 and 32
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -503,7 +506,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// bf16 wgmma path, head dims 64 and 128 (helpers in wgmma_tma.cuh)
+// bf16 wgmma path, head dims 64, 128 and 256 (helpers in wgmma_tma.cuh)
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -515,6 +518,7 @@ using namespace hopper;
 template <int D> struct Tiles;
 template <> struct Tiles<64> { static constexpr int BM = 128, BN = 128, STAGES = 3; };
 template <> struct Tiles<128> { static constexpr int BM = 128, BN = 128, STAGES = 2; };
+template <> struct Tiles<256> { static constexpr int BM = 128, BN = 64, STAGES = 2; };
 
 // 2^x with a subnormal result flushed to zero: one MUFU.EX2 (exp2f adds
 // three instructions around it to keep subnormals).
@@ -659,9 +663,10 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk / 4, off = (kk % 4) * 32;
-        wgmma_m64n128k16_ss(
-            sc, desc_sw128(Qs + c * BM * 128 + wq * 64 * 128 + off, 16, 1024),
-            desc_sw128(Ks + c * BN * 128 + off, 16, 1024), kk > 0);
+        const uint64_t dq = desc_sw128(Qs + c * BM * 128 + wq * 64 * 128 + off, 16, 1024);
+        const uint64_t dk = desc_sw128(Ks + c * BN * 128 + off, 16, 1024);
+        if constexpr (BN == 64) wgmma_m64n64k16_ss(sc, dq, dk, kk > 0);
+        else wgmma_m64n128k16_ss(sc, dq, dk, kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -726,7 +731,9 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // O += P V: P in registers as the A operand (key blocks 2k and 2k+1
-      // are k-step k), V (BN keys x D) MN-major from shared memory.
+      // are k-step k), V (BN keys x D) MN-major from shared memory.  At
+      // D=256 two m64n128k16 products a k-step, one per half of the
+      // accumulator: V's 64-column tiles 0-1 and 2-3.
       uint32_t pa[BN / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
@@ -742,8 +749,15 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         const uint64_t dv = desc_sw128(Vs + kk * 16 * 128, BN * 128, 1024);
-        if constexpr (D == 64) wgmma_m64n64k16_rs_tn(acc, pa[kk], dv, 1);
-        else wgmma_m64n128k16_rs_tn(acc, pa[kk], dv, 1);
+        if constexpr (D == 64) {
+          wgmma_m64n64k16_rs_tn(acc, pa[kk], dv, 1);
+        } else if constexpr (D == 128) {
+          wgmma_m64n128k16_rs_tn(acc, pa[kk], dv, 1);
+        } else {
+          const uint64_t dv_hi = desc_sw128(Vs + 2 * BN * 128 + kk * 16 * 128, BN * 128, 1024);
+          wgmma_m64n128k16_rs_tn(*reinterpret_cast<float(*)[64]>(acc), pa[kk], dv, 1);
+          wgmma_m64n128k16_rs_tn(*reinterpret_cast<float(*)[64]>(acc + 64), pa[kk], dv_hi, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -847,14 +861,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace wg
 
 // Which kernel a forward call takes: 2 = the bf16 wgmma kernel (head dims
-// 64 and 128), 1 = the bf16 mma.sync kernel (head dims 16, 32 and 256), 0 =
+// 64, 128 and 256), 1 = the bf16 mma.sync kernel (head dims 16 and 32), 0 =
 // the f32-FMA kernel.  dtype as below; `aligned` is nonzero when q, k, v and
 // o all start on 16 bytes (TMA and the 16-byte cp.async copies need it).
 // repro_flash_attention_fwd dispatches by this function.
 extern "C" int repro_flash_attention_fwd_path(int dtype, int D, int aligned) {
   if (dtype != 1 || !aligned) return 0;
-  if (D == 64 || D == 128) return 2;
-  return D == 16 || D == 32 || D == 256 ? 1 : 0;
+  if (D == 64 || D == 128 || D == 256) return 2;
+  return D == 16 || D == 32 ? 1 : 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  All tensors are
@@ -878,11 +892,11 @@ extern "C" int repro_flash_attention_fwd(
   switch (repro_flash_attention_fwd_path(dtype, D, aligned)) {
     case 2:
       if (D == 64) return (int)wg::launch<64>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-      return (int)wg::launch<128>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      if (D == 128) return (int)wg::launch<128>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      return (int)wg::launch<256>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
     case 1:
       if (D == 16) return (int)tc::launch<16>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-      if (D == 32) return (int)tc::launch<32>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
-      return (int)tc::launch<256>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
+      return (int)tc::launch<32>(q, k, v, o, ls, o_lo, B, T, S, H, K, causal, window, scale, st);
   }
   if (dtype == 0)
     return (int)dispatch_d<float>(q, k, v, o, ls, o_lo, B, T, S, H, K, D, causal, window, scale, st);

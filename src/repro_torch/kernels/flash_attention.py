@@ -50,12 +50,12 @@ BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
 PATH_ARGTYPES = [ctypes.c_int] * 3
 # ``repro_flash_attention_bwd_groups``: B, S, H, K.
 GROUPS_ARGTYPES = [ctypes.c_int] * 4
-# What the path queries return: the forward takes 2 for bf16 at head dims 64
-# and 128, 1 for bf16 at 16, 32 and 256; the backward takes 1 for bf16.
+# What the path queries return: the forward takes 2 for bf16 at head dims
+# 64, 128 and 256, 1 for bf16 at 16 and 32; the backward takes 1 for bf16.
 PATHS = {0: "fma", 1: "tensor cores", 2: "wgmma"}
 # Tiles of the forward's wgmma kernel (namespace wg of ``SOURCE``), by head
 # dim: query rows a block, keys a KV tile, KV tiles in the ring.
-WGMMA_TILES = {64: (128, 128, 3), 128: (128, 128, 2)}
+WGMMA_TILES = {64: (128, 128, 3), 128: (128, 128, 2), 256: (128, 64, 2)}
 # Keys a KV tile of the forward's mma.sync kernel (``tc::BK``).
 MMA_TILE_KEYS = 32
 

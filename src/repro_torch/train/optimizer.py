@@ -16,7 +16,7 @@ reference's "matrices only".  The port's leaves are per layer, so its norm
 scales and biases are 1-d and never decayed.  The reference stacks each
 block's leaves along ``n_super``, which makes those vectors 2-d there, so it
 decays them in ``blocks`` (but not in ``rem{i}`` or ``final_norm``); the port
-does not copy that (ROADMAP.md §4).
+does not copy that (ROADMAP.md §3, "Defects found in the reference").
 """
 
 from __future__ import annotations

@@ -41,9 +41,10 @@ CASES = [
     (2, 24, 8, 4, 2, 32, True, 0),
 ]
 # Head dim 256 (recurrentgemma's local layers), on the tensor-core path in
-# bf16: T ragged against the 64-row query tile and the 32-key KV tile,
-# rows that see no key (T > S), non-causal with T != S, a window that
-# empties whole KV tiles, suffix queries, and H/K in {1, 2, 16}.
+# bf16: T ragged against the forward's 128-row query tile and 64-key KV
+# tile (the backward's 32-row tiles too), rows that see no key (T > S),
+# non-causal with T != S, a window that empties whole KV tiles, suffix
+# queries, and H/K in {1, 2, 16}.
 D256_CASES = [
     (1, 100, 100, 2, 2, 256, True, 0),
     (2, 40, 24, 4, 2, 256, True, 0),
@@ -94,7 +95,7 @@ ARCH_SHAPES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_flash_attention_at_the_new_arch_shapes(case, dtype):
     """Forward against plain; bf16 on the tensor cores (wgmma at head dims
-    64 and 128, mma.sync at 256), f32 on the FMA kernel."""
+    64, 128 and 256), f32 on the FMA kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, T, S, H, K, D, causal, window = case
@@ -348,14 +349,14 @@ def test_flash_attention_bwd_is_deterministic(case):
 
 @pytest.mark.gpu
 def test_flash_attention_paths():
-    """The bf16 forward takes the wgmma kernel at head dims 64 and 128 and
-    the mma.sync kernel at 16, 32 and 256; the bf16 backward takes the
+    """The bf16 forward takes the wgmma kernel at head dims 64, 128 and 256
+    and the mma.sync kernel at 16 and 32; the bf16 backward takes the
     tensor cores at all five; f32, head dims the tensor-core kernels do not
     instantiate, and unaligned pointers take the FMA kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     bf16, f32 = torch.bfloat16, torch.float32
-    assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1, 1, 2, 2, 1]
+    assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1, 1, 2, 2, 2]
     assert fa.PATHS[2] == "wgmma"
     assert [fa.bwd_path(bf16, D) for D in (16, 32, 64, 128)] == [1] * 4
     assert fa.bwd_path(bf16, 256) == 1
@@ -450,12 +451,13 @@ def _plain_lse(q, k, causal, window):
     return lse, mask.any(-1).expand_as(lse)
 
 
-# The wgmma forward's tiles (128 query rows, 128 keys) at head dims 64 and
-# 128: T and S ragged against both, T > S so that rows see no key, a window
-# of 200 that leaves whole 128-key tiles unseen by a query tile, llama3's GQA
-# 16:1, and non-causal with T != S.  tests/test_torch_attn_tc.py holds its
-# CPU emulation of the kernel's rounding on the same cases.
-WGMMA_FWD_CASES = [case for D in (64, 128) for case in (
+# The wgmma forward's tiles (128 query rows; 128 keys at head dims 64 and
+# 128, 64 keys at 256): T and S ragged against both, T > S so that rows see
+# no key, a window of 200 that leaves whole KV tiles unseen by a query tile,
+# llama3's and recurrentgemma's GQA 16:1, and non-causal with T != S.
+# tests/test_torch_attn_tc.py holds its CPU emulation of the kernel's
+# rounding on the same cases.
+WGMMA_FWD_CASES = [case for D in (64, 128, 256) for case in (
     (1, 200, 330, 4, 2, D, True, 0),
     (1, 300, 140, 4, 1, D, True, 0),
     (1, 640, 640, 4, 2, D, True, 200),
@@ -464,7 +466,8 @@ WGMMA_FWD_CASES = [case for D in (64, 128) for case in (
 )]
 # Those, then the main paths' shapes: qwen3-32b prefill, starcoder2-3b
 # training, whisper-small's encoder and cross-attention, llama3-405b
-# prefill, phi3.5-moe and granite-moe prefill.
+# prefill, phi3.5-moe and granite-moe prefill; at head dim 256 paligemma-3b's
+# training shape and recurrentgemma-9b's local serving and training shapes.
 WGMMA_CASES = WGMMA_FWD_CASES + [
     (4, 1024, 1024, 64, 8, 128, True, 0),
     (4, 1024, 1024, 24, 2, 128, True, 0),
@@ -473,6 +476,9 @@ WGMMA_CASES = WGMMA_FWD_CASES + [
     (4, 1024, 1024, 128, 8, 128, True, 0),
     (4, 1024, 1024, 32, 8, 128, True, 0),
     (4, 1024, 1024, 16, 8, 64, True, 0),
+    (4, 768, 768, 8, 1, 256, True, 0),
+    (4, 3000, 3000, 16, 1, 256, True, 2048),
+    (2, 3000, 3000, 16, 1, 256, True, 2048),
 ]
 
 

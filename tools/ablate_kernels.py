@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kernel spends its instructions and its time, on one CUDA card.
 
-    python3 tools/ablate_kernels.py --kernel scan_bwd|flash_fwd [--src DIR]
+    python3 tools/ablate_kernels.py --kernel scan_bwd|flash_fwd|flash_bwd [--src DIR]
         [--sass-only] [--dump DIR]
 
 For the kernel's sources in the tree at DIR (default: this checkout's
@@ -11,8 +11,15 @@ For the kernel's sources in the tree at DIR (default: this checkout's
   training shapes with ``bench_scans``' calls.
 - ``flash_fwd``: the bf16 wgmma forward of ``flash_attention.cu``, timed
   through its C entry point (serving's call, no log-sum-exp) at qwen3-32b's
-  prefill, starcoder2-3b's training shape, whisper-small's encoder and
-  granite-moe's prefill, with ``chip_smoke``'s inputs.
+  prefill, starcoder2-3b's training shape, whisper-small's encoder,
+  granite-moe's prefill (head dims 128 and 64), paligemma-3b's training
+  shape and recurrentgemma-9b's local shape (head dim 256), with
+  ``chip_smoke``'s inputs.
+- ``flash_bwd``: the bf16 tensor-core backward of
+  ``flash_attention_bwd.cu``, timed through its C entry point from one
+  forward's saved tensors at whisper-small's encoder (head dim 64),
+  starcoder2-3b's training shape (128), paligemma-3b's and
+  recurrentgemma-9b's local training shapes (256).
 
 1. What ptxas says (``-Xptxas -v``) of the counted kernels: registers,
    spills and any warning, such as wgmma instructions it had to serialize.
@@ -25,6 +32,8 @@ For the kernel's sources in the tree at DIR (default: this checkout's
    (``GROUP`` is 1 where the source does not state it).  ``flash_fwd``: the
    whole of each wgmma kernel's HGMMA, warpgroup arrive and dependency
    barriers, MUFU.EX2, SHFL, SYNCS (the mbarrier operations) and BAR.
+   ``flash_bwd``: the whole of each dK/dV and dQ kernel's HMMA, LDSM,
+   MUFU.EX2, LDGSTS, STS, LDS and BAR.
 3. Ablations.  Copies the tree's ``csrc/`` under ``build/ablate/<name>/``,
    applies the text substitutions the table lists for that source (an
    ablation whose text is not in the source is reported as not
@@ -122,13 +131,73 @@ FLASH_FWD_ABLATIONS = {
          "const bool full = true;"),
         ("corr[r] = exp2_ftz(m[r] * scale_log2 - mb[r]);", "corr[r] = 1.f;")]),
     "no P.V products": (FA, [
-        ("if constexpr (D == 64) wgmma_m64n64k16_rs_tn(acc, pa[kk], dv, 1);", ""),
-        ("else wgmma_m64n128k16_rs_tn(acc, pa[kk], dv, 1);", "(void)dv;")]),
+        ("wgmma_m64n64k16_rs_tn(acc, pa[kk], dv, 1);", "(void)dv;"),
+        ("wgmma_m64n128k16_rs_tn(acc, pa[kk], dv, 1);", "(void)dv;"),
+        ("wgmma_m64n128k16_rs_tn(*reinterpret_cast<float(*)[64]>(acc), pa[kk], dv, 1);",
+         "(void)dv;"),
+        ("wgmma_m64n128k16_rs_tn(*reinterpret_cast<float(*)[64]>(acc + 64), pa[kk], dv_hi, 1);",
+         "(void)dv_hi;")]),
     "no Q.K products": (FA, [
-        ("        wgmma_m64n128k16_ss(\n"
-         "            sc, desc_sw128(Qs + c * BM * 128 + wq * 64 * 128 + off, 16, 1024),\n"
-         "            desc_sw128(Ks + c * BN * 128 + off, 16, 1024), kk > 0);",
-         "        (void)c; (void)off;")]),
+        ("if constexpr (BN == 64) wgmma_m64n64k16_ss(sc, dq, dk, kk > 0);\n"
+         "        else wgmma_m64n128k16_ss(sc, dq, dk, kk > 0);",
+         "(void)dq; (void)dk;")]),
+}
+FAB = "flash_attention_bwd.cu"
+# The backward's five products and the pieces around them, each taken out of
+# both code sets: the one-warp kernels (D <= 128) and the warp-pair kernels
+# (D = 256), where role 0 of a pair computes S and P and role 1 dP.
+FLASH_BWD_ABLATIONS = {
+    "no softmax recompute (P = S)": (FAB, [
+        ("const float p = ok ? exp2f(sT[n][i] * scale_log2 - l * LOG2E) : 0.f;",
+         "const float p = sT[n][i]; (void)ok;"),
+        ("const float p = ok ? exp2f(sc[n][i] * scale_log2 - l2[r]) : 0.f;",
+         "const float p = sc[n][i]; (void)ok;"),
+        ("x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l * LOG2E) : 0.f;", "(void)ok;"),
+        ("x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l2[r]) : 0.f;", "(void)ok;")]),
+    "no S = Q.K^T products": (FAB, [
+        ("        mma_bf16(sT[n], ka, qb[0], qb[1]);\n"
+         "        mma_bf16(sT[n + 1], ka, qb[2], qb[3]);\n", ""),
+        ("        mma_bf16(sc[n], qa, kb[0], kb[1]);\n"
+         "        mma_bf16(sc[n + 1], qa, kb[2], kb[3]);\n", ""),
+        ("        mma_bf16(x[n], a, bq[0], bq[1]);\n"
+         "        mma_bf16(x[n + 1], a, bq[2], bq[3]);\n",
+         "        if (role) { mma_bf16(x[n], a, bq[0], bq[1]);"
+         " mma_bf16(x[n + 1], a, bq[2], bq[3]); }\n"),
+        ("        mma_bf16(x[n], a, kb[0], kb[1]);\n"
+         "        mma_bf16(x[n + 1], a, kb[2], kb[3]);\n",
+         "        if (role) { mma_bf16(x[n], a, kb[0], kb[1]);"
+         " mma_bf16(x[n + 1], a, kb[2], kb[3]); }\n")]),
+    "no dP = dO.V^T products": (FAB, [
+        ("        mma_bf16(dpT[n], va, ob[0], ob[1]);\n"
+         "        mma_bf16(dpT[n + 1], va, ob[2], ob[3]);\n", ""),
+        ("        mma_bf16(dp[n], oa, vb[0], vb[1]);\n"
+         "        mma_bf16(dp[n + 1], oa, vb[2], vb[3]);\n", ""),
+        ("        mma_bf16(x[n], a, bq[0], bq[1]);\n"
+         "        mma_bf16(x[n + 1], a, bq[2], bq[3]);\n",
+         "        if (!role) { mma_bf16(x[n], a, bq[0], bq[1]);"
+         " mma_bf16(x[n + 1], a, bq[2], bq[3]); }\n"),
+        ("        mma_bf16(x[n], a, kb[0], kb[1]);\n"
+         "        mma_bf16(x[n + 1], a, kb[2], kb[3]);\n",
+         "        if (!role) { mma_bf16(x[n], a, kb[0], kb[1]);"
+         " mma_bf16(x[n + 1], a, kb[2], kb[3]); }\n")]),
+    "no dV = P^T.dO products": (FAB, [
+        ("        mma_bf16(dv[n], pa, ob[0], ob[1]);\n"
+         "        mma_bf16(dv[n + 1], pa, ob[2], ob[3]);\n", "")]),
+    "no dK = dS^T.Q products": (FAB, [
+        ("        mma_bf16(dk[n], da, qb[0], qb[1]);\n"
+         "        mma_bf16(dk[n + 1], da, qb[2], qb[3]);\n", "")]),
+    "no dQ = dS.K products": (FAB, [
+        ("        mma_bf16(acc[n], da, kb[0], kb[1]);\n"
+         "        mma_bf16(acc[n + 1], da, kb[2], kb[3]);\n", "")]),
+    "no dQ pass (its kernel not launched)": (FAB, [
+        ("  q_kern<<<dim3((T_ + BQ_DQ - 1) / BQ_DQ, B * H), threads, q_smem, stream>>>(\n"
+         "      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dq), T_, S, H, K, causal,\n"
+         "      window, scale * LOG2E, scale);\n", "")]),
+    "no dK/dV group sum (reduce not launched)": (FAB, [
+        ("  bwd_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(\n"
+         "      reinterpret_cast<const float4*>(dk_part),\n"
+         "      reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),\n"
+         "      static_cast<uint2*>(dv), n4, groups, scale);\n", "(void)blocks;\n")]),
 }
 
 # Instruction classes by opcode prefix, in the order they are tried.
@@ -138,6 +207,7 @@ CLASSES = (("LDS", ("LDS", "LDSM")), ("STS", ("STS",)), ("SHFL", ("SHFL",)),
            ("BAR", ("BAR",)), ("global", ("LDG", "STG", "LDGSTS", "LDGDEPBAR")))
 FLASH_COUNTED = ("HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "MUFU.EX2", "SHFL",
                  "SYNCS", "BAR")
+FLASH_BWD_COUNTED = ("HMMA", "LDSM", "MUFU.EX2", "LDGSTS", "STS", "LDS", "BAR")
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
 
 
@@ -185,10 +255,11 @@ def loop_counts(code, source_text: str) -> dict:
     return {"elements_per_iteration": per_iteration, "loops": out}
 
 
-def op_counts(code, source_text: str) -> dict:
-    """Counts of ``FLASH_COUNTED``'s opcodes over a whole kernel."""
+def op_counts(code, source_text: str, counted=FLASH_COUNTED) -> dict:
+    """Counts of ``counted`` opcodes (``FLASH_COUNTED`` by default) over a
+    whole kernel."""
     return {k: sum(1 for _, op, _ in code if op == k or op.startswith(k + "."))
-            for k in FLASH_COUNTED}
+            for k in counted}
 
 
 def constant(src: str, name: str, default: int) -> int:
@@ -217,13 +288,15 @@ def scan_bwd_calls(torch, cs) -> dict:
 
 def flash_fwd_calls(torch, cs) -> dict:
     """{label: (source, call with a library, iterations)}: the forward's C
-    entry point of a library at four head-dim 64 and 128 main shapes."""
+    entry point of a library at six main shapes (head dims 64, 128, 256)."""
     from repro_torch.kernels import flash_attention as fa
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
     for label, shape in (("qwen3", cs.MAIN_SHAPE), ("starcoder2_train", cs.TRAIN_SHAPE),
                          ("whisper_encoder", cs.WHISPER_ENC_SHAPE),
-                         ("granite", cs.GRANITE_SHAPE)):
+                         ("granite", cs.GRANITE_SHAPE),
+                         ("paligemma_train", cs.PALI_TRAIN_SHAPE),
+                         ("recurrentgemma_local", cs.LOCAL_SHAPE)):
         B, T, S, H, K, D, causal, window = shape
         q, k, v = cs.attn_inputs(torch, shape, torch.bfloat16, seed=99)
         o = torch.empty_like(q)
@@ -246,6 +319,48 @@ def flash_fwd_calls(torch, cs) -> dict:
     return out
 
 
+def flash_bwd_calls(torch, cs) -> dict:
+    """{label: (source, call with a library, iterations)}: the backward's C
+    entry point of a library, from one forward's saved tensors (the tree's
+    forward kernel), at whisper-small's encoder, starcoder2-3b's training
+    shape, paligemma-3b's and recurrentgemma-9b's local training shape."""
+    from repro_torch.kernels import flash_attention as fa
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for label, shape, iters in (("whisper_encoder", cs.WHISPER_ENC_SHAPE, 20),
+                                ("starcoder2_train", cs.TRAIN_SHAPE, 20),
+                                ("paligemma_train", cs.PALI_TRAIN_SHAPE, 20),
+                                ("recurrentgemma_local_train", cs.LOCAL_TRAIN_SHAPE, 5)):
+        B, T, S, H, K, D, causal, window = shape
+        q, k, v = cs.attn_inputs(torch, shape, torch.bfloat16, seed=96)
+        dout = cs.randn(torch, torch.Generator(device="cuda").manual_seed(95),
+                        q.shape, torch.bfloat16)
+        o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
+        groups = fa.bwd_groups(B, S, H, K)
+        partial = torch.empty(2 * groups * B * S * K * D, dtype=torch.float32,
+                              device="cuda")
+        delta = torch.empty((B, H, T), dtype=torch.float32, device="cuda")
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        ptrs = [x.data_ptr() for x in (q, k, v, o, o_lo, dout, lse, delta, partial,
+                                       *grads)]
+
+        def bind(lib: Path, ptrs=ptrs, B=B, T=T, S=S, H=H, K=K, D=D, groups=groups,
+                 causal=causal, window=window):
+            fn = ctypes.CDLL(str(lib)).repro_flash_attention_bwd
+            fn.argtypes = fa.BWD_ARGTYPES
+            fn.restype = ctypes.c_int
+
+            def call():
+                err = fn(*ptrs, 1, B, T, S, H, K, D, groups, int(causal), window,
+                         D ** -0.5, stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed: {err}")
+            return call
+
+        out[f"{label} {list(shape)}"] = (FAB, bind, iters)
+    return out
+
+
 # kernel -> its ablations, the kernels whose SASS is counted (source ->
 # demangled-name pattern), how, which ptxas lines are kept, and its calls.
 TARGETS = {
@@ -258,6 +373,11 @@ TARGETS = {
         ablations=FLASH_FWD_ABLATIONS,
         kernels={FA: r"fa_fwd_wgmma_kernel"},
         count=op_counts, ptxas=r"wgmma|warning|setmaxnreg", calls=flash_fwd_calls),
+    "flash_bwd": dict(
+        ablations=FLASH_BWD_ABLATIONS,
+        kernels={FAB: r"bwd_(dkdv|dq)_(mma|pair)_kernel<(\(int\))?(64|128|256)>"},
+        count=lambda code, text: op_counts(code, text, FLASH_BWD_COUNTED),
+        ptxas=r"warning", calls=flash_bwd_calls),
 }
 
 

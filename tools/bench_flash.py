@@ -8,18 +8,21 @@ Imports ``flash_attention`` from the tree at DIR (default: this checkout's
 with ``chip_smoke``'s inputs and timer.  With neither flag, both parts run.
 
 - ``--fwd``: the forward (serving's call, no log-sum-exp), twice at each
-  head-dim 64 and 128 main shape: qwen3-32b's prefill, starcoder2-3b's
-  training shape, whisper-small's encoder and cross-attention,
-  llama3-405b's, phi3.5-moe's and granite-moe's prefill.  Beside each: the
-  path the call took, its max abs error against the plain attention in
-  f32, SDPA's time (``enable_gqa``; a yardstick the port never calls) and
-  the bound (4·D flops per visible pair at 989 TFLOP/s against q, k, v and
-  o at 3.35 TB/s); then the host time of one call at a small shape, where
-  the card does not hold the host back.
+  main shape: qwen3-32b's prefill, starcoder2-3b's training shape,
+  whisper-small's encoder and cross-attention, llama3-405b's, phi3.5-moe's
+  and granite-moe's prefill (head dims 64 and 128), paligemma-3b's
+  training shape and recurrentgemma-9b's local serving shape (head dim
+  256, window 2048).  Beside each: the path the call took, its max abs
+  error against the plain attention in f32, SDPA's time (``enable_gqa``,
+  with a boolean mask where there is a window; a yardstick the port never
+  calls) and the bound (4·D flops per visible pair at 989 TFLOP/s against
+  q, k, v and o at 3.35 TB/s); then the host time of one call at a small
+  shape, where the card does not hold the host back.
 - ``--bwd``: the backward alone, from one forward's saved tensors, twice at
-  starcoder2-3b's training shape (head dim 128) and at recurrentgemma-9b's
-  local training shape (head dim 256, window 2048), with each kernel's
-  device time from one more call under ``torch.profiler``.
+  starcoder2-3b's training shape (head dim 128), recurrentgemma-9b's local
+  training shape and paligemma-3b's training shape (head dim 256, the
+  first with window 2048), with each kernel's device time from one more
+  call under ``torch.profiler``.
 
 To compare two commits on one card, unpack the other under ``build/``
 (``git archive``) and run parent, change, change, parent on one card, one
@@ -44,7 +47,9 @@ def forward(torch, cs, fa, ref) -> dict:
                         ("whisper_encoder", cs.WHISPER_ENC_SHAPE),
                         ("whisper_cross", cs.WHISPER_CROSS_SHAPE),
                         ("llama3", cs.LLAMA3_SHAPE), ("phi3.5", cs.PHI_SHAPE),
-                        ("granite", cs.GRANITE_SHAPE)):
+                        ("granite", cs.GRANITE_SHAPE),
+                        ("paligemma_train", cs.PALI_TRAIN_SHAPE),
+                        ("recurrentgemma_local", cs.LOCAL_SHAPE)):
         B, T, S, H, K, D, causal, window = shape
         q, k, v = cs.attn_inputs(torch, shape, torch.bfloat16, seed=99)
         path = fa.PATHS[fa.fwd_path(q.dtype, D, fa._aligned(q, k, v))]
@@ -58,8 +63,14 @@ def forward(torch, cs, fa, ref) -> dict:
         del want
         ms = [cs.time_ms(torch, call, iters=20) for _ in range(2)]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window > 0:
+            qpos = torch.arange(T, device="cuda")[:, None] + (S - T)
+            kpos = torch.arange(S, device="cuda")[None, :]
+            sdpa_args = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
+        else:
+            sdpa_args = dict(is_causal=causal)
         sdpa_ms = cs.time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20)
+            qt, kt, vt, enable_gqa=True, **sdpa_args), iters=20)
         flops = 4 * D * cs.visible_pairs(T, S, causal, window) * B * H
         b_ms, b_by, _ = cs.bound(flops, cs.PEAK_BF16_FLOPS, 0, cs.nbytes(q, k, v, q))
         out[name] = {"shape": list(shape), "path": path, "max_abs_err": err,
@@ -67,11 +78,11 @@ def forward(torch, cs, fa, ref) -> dict:
         print(f"forward {name} {shape} ({path}): {ms[0]:.4f} / {ms[1]:.4f} ms, sdpa "
               f"{sdpa_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, max abs err "
               f"{err:.3e}", flush=True)
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, sdpa_args
         torch.cuda.empty_cache()
     # Host time of one call (the wrapper, the C entry point and the launch),
     # at a shape too small for the card to hold the host back.
-    for D in (64, 128):
+    for D in (64, 128, 256):
         shape = (1, 128, 128, 2, 1, D, True, 0)
         q, k, v = cs.attn_inputs(torch, shape, torch.bfloat16, seed=98)
         for _ in range(20):
@@ -90,7 +101,8 @@ def forward(torch, cs, fa, ref) -> dict:
 def backward(torch, cs, fa) -> dict:
     out = {}
     for name, shape, iters in (("starcoder2_train", cs.TRAIN_SHAPE, 20),
-                               ("recurrentgemma_local_train", cs.LOCAL_TRAIN_SHAPE, 5)):
+                               ("recurrentgemma_local_train", cs.LOCAL_TRAIN_SHAPE, 5),
+                               ("paligemma_train", cs.PALI_TRAIN_SHAPE, 20)):
         B, T, S, H, K, D, causal, window = shape
         q, k, v = cs.attn_inputs(torch, shape, torch.bfloat16, seed=96)
         dout = cs.randn(torch, torch.Generator(device="cuda").manual_seed(95),
