@@ -270,21 +270,33 @@ D256_CASES = [
     (1, 300, 300, 16, 1, 256, True, 64),
     (1, 130, 200, 4, 2, 256, True, 48),
 ]
-# The tensor-core backward's GQA group splits: case -> the number of groups
-# G its dK/dV pass splits a KV head's H/K query heads into.  Group sizes 1,
-# 3 and 12; G = 2 over a group of 3, which it does not divide; ragged T and
-# S, T > S, suffix queries, a window, non-causal T != S; at head dim 256
-# (the warp-pair kernels) recurrentgemma's group of 16 whole (G = 16) and
-# split 12 ways, which does not divide it.
+# The tensor-core backward's paths and GQA group splits: case -> (path, G),
+# path 2 the wgmma kernels (head dims 64 and 128), 1 the mma.sync ones, and
+# G the number of groups its dK/dV pass splits a KV head's H/K query heads
+# into.  Group sizes 1, 3 and 12; G = 2 over a group of 3, which it does not
+# divide; ragged T and S, T > S, suffix queries, a window, non-causal T != S;
+# at head dim 256 (the warp-pair kernels) recurrentgemma's group of 16 whole
+# (G = 16) and split 12 ways, which does not divide it.  Then the wgmma
+# kernels' tile edges (128 keys a dK/dV block, 128 or 64 queries a stage;
+# 128 dQ rows a block, 128 keys a stage): T and S ragged, T > S, a window of
+# 200 that leaves whole stages unseen, non-causal T != S, granite's GQA 2:1
+# and phi3.5's 4:1.
 BWD_TC_GROUPS = {
-    (1, 100, 100, 4, 4, 64, True, 0): 1,
-    (2, 70, 90, 6, 2, 32, True, 0): 3,
-    (1, 40, 24, 12, 4, 64, True, 0): 3,
-    (1, 130, 130, 12, 1, 128, True, 48): 12,
-    (1, 200, 150, 12, 1, 32, False, 0): 12,
-    (4, 1024, 1024, 12, 4, 64, True, 0): 2,
-    (1, 256, 256, 16, 1, 256, True, 0): 16,
-    (4, 700, 700, 16, 1, 256, True, 0): 12,
+    (1, 100, 100, 4, 4, 64, True, 0): (2, 1),
+    (2, 70, 90, 6, 2, 32, True, 0): (1, 3),
+    (1, 40, 24, 12, 4, 64, True, 0): (2, 3),
+    (1, 130, 130, 12, 1, 128, True, 48): (2, 12),
+    (1, 200, 150, 12, 1, 32, False, 0): (1, 12),
+    (4, 1024, 1024, 12, 4, 64, True, 0): (2, 2),
+    (1, 256, 256, 16, 1, 256, True, 0): (1, 16),
+    (4, 700, 700, 16, 1, 256, True, 0): (1, 12),
+    **{case: (2, groups) for D in (64, 128) for case, groups in (
+        ((1, 200, 330, 4, 2, D, True, 0), 2),
+        ((1, 300, 140, 4, 1, D, True, 0), 4),
+        ((1, 640, 640, 4, 2, D, True, 200), 2),
+        ((2, 150, 400, 4, 2, D, False, 0), 2))},
+    (1, 256, 256, 16, 8, 64, True, 0): (2, 2),
+    (1, 256, 256, 32, 8, 128, True, 0): (2, 4),
 }
 MAIN_SHAPE = (4, 1024, 1024, 64, 8, 128, True, 0)      # qwen3-32b prefill, B=4
 LOCAL_SHAPE = (4, 3000, 3000, 16, 1, 256, True, 2048)  # recurrentgemma local
@@ -307,8 +319,9 @@ ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
             + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LOCAL_TRAIN_SHAPE]
             + list(ARCH_SHAPES))
 FWD_ONLY = [LLAMA3_SHAPE]
-BWD_TC_GROUPS.update({TRAIN_SHAPE: 4, LOCAL_SHAPE: 3, LOCAL_TRAIN_SHAPE: 6,
-                      **ARCH_SHAPES})
+BWD_TC_GROUPS.update({TRAIN_SHAPE: (2, 4), LOCAL_SHAPE: (1, 3), LOCAL_TRAIN_SHAPE: (1, 6),
+                      **{case: (2 if case[5] < 256 else 1, groups)
+                         for case, groups in ARCH_SHAPES.items()}})
 # Shapes whose bf16 forward must take the wgmma kernel (head dims 64, 128
 # and 256; the mma.sync kernel keeps 16 and 32, which no main path uses).
 TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, LOCAL_TRAIN_SHAPE,
@@ -1544,11 +1557,16 @@ def main() -> int:
             check(dtype == torch.bfloat16 or path == 0,
                   f"flash_attention backward {case} f32: path {path}, not the "
                   "FMA kernels")
+            check(dtype != torch.bfloat16 or D not in fa.WGMMA_BWD_TILES or path == 2,
+                  f"flash_attention backward {case} bf16: path {fa.PATHS[path]}, "
+                  "not wgmma")
             if dtype == torch.bfloat16 and case in BWD_TC_GROUPS:
-                check(path == 1 and fa.bwd_groups(B, S, H, K) == BWD_TC_GROUPS[case],
+                want_path, want_groups = BWD_TC_GROUPS[case]
+                groups = fa.bwd_groups(B, S, H, K, D)
+                check(path == want_path and groups == want_groups,
                       f"flash_attention backward {case} bf16: path "
-                      f"{fa.PATHS[path]}, {fa.bwd_groups(B, S, H, K)} groups; "
-                      f"expected the tensor cores, {BWD_TC_GROUPS[case]} groups")
+                      f"{fa.PATHS[path]}, {groups} groups; expected "
+                      f"{fa.PATHS[want_path]}, {want_groups} groups")
             if dtype == torch.bfloat16 and case in (TRAIN_SHAPE, LOCAL_TRAIN_SHAPE):
                 paths[("flash_attention_bwd", case)] = path
             qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
@@ -2259,9 +2277,9 @@ def main() -> int:
             o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
                                        with_lse=True)
         path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
-        check(path == "tensor cores",
-              f"flash backward {shape}: path {path}, not the tensor cores")
-        groups = fa.bwd_groups(B, S, H, K)
+        want = fa.PATHS[2 if D in fa.WGMMA_BWD_TILES else 1]
+        check(path == want, f"flash backward {shape}: path {path}, not {want}")
+        groups = fa.bwd_groups(B, S, H, K, D)
         ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
             q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo),
             iters=10)
@@ -2305,8 +2323,10 @@ def main() -> int:
         bwd_t, line = flash_bwd_times(shape, seed, plain_iters=3)
         lines.append(line)
         arch_times[label] = (shape, fwd_t, bwd_t)
-    # The forward alone at the other head-dim 64 and 128 main shapes.
-    fwd_times = {}
+    # The forward at the other head-dim 64 and 128 main shapes, and the
+    # backward at those that train: whisper's cross-attention, granite's and
+    # phi3.5's layers.
+    fwd_times, bwd_times = {}, {}
     for label, shape in (("whisper_cross", WHISPER_CROSS_SHAPE),
                          ("llama3_prefill", LLAMA3_SHAPE),
                          ("phi3.5_prefill", PHI_SHAPE),
@@ -2314,6 +2334,12 @@ def main() -> int:
         fwd_t, line = flash_times(shape)
         lines.append(line)
         fwd_times[label] = (shape, fwd_t)
+    for label, shape, seed in (("whisper_cross", WHISPER_CROSS_SHAPE, 83),
+                               ("granite_train", GRANITE_SHAPE, 81),
+                               ("phi3.5_train", PHI_SHAPE, 79)):
+        bwd_t, line = flash_bwd_times(shape, seed, plain_iters=3)
+        lines.append(line)
+        bwd_times[label] = (shape, bwd_t)
 
     # The flash backward at the starcoder2 training shape: each call is the
     # backward alone, from one forward's saved tensors.
@@ -2326,7 +2352,8 @@ def main() -> int:
         o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
                                    with_lse=True)
     path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
-    groups = fa.bwd_groups(B, S, H, K)
+    check(path == "wgmma", f"flash backward {TRAIN_SHAPE}: path {path}, not wgmma")
+    groups = fa.bwd_groups(B, S, H, K, D)
     ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
         q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo), iters=10)
 
@@ -2469,7 +2496,7 @@ def main() -> int:
     path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
     check(path == "tensor cores",
           f"flash backward {LOCAL_TRAIN_SHAPE}: path {path}, not the tensor cores")
-    groups = fa.bwd_groups(B, S, H, K)
+    groups = fa.bwd_groups(B, S, H, K, D)
     ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
         q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo), iters=10)
     plain_out = ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -2560,6 +2587,9 @@ def main() -> int:
             entry["at_recurrentgemma_local_train"] = dict(
                 shape=list(LOCAL_TRAIN_SHAPE), max_abs_err=main_err["flash_local_bwd"],
                 **times["flash_local_bwd"])
+            for label, (shape, bwd_t) in bwd_times.items():
+                entry[f"at_{label}"] = dict(
+                    shape=list(shape), max_abs_err=main_err[(name, shape)], **bwd_t)
         if name in ("ssm_scan_bwd", "rglru_scan_bwd"):
             fwd = name.removesuffix("_bwd")
             entry["note"] = (f"the backward of the function {fwd}'s Pallas kernel "

@@ -520,17 +520,8 @@ template <> struct Tiles<64> { static constexpr int BM = 128, BN = 128, STAGES =
 template <> struct Tiles<128> { static constexpr int BM = 128, BN = 128, STAGES = 2; };
 template <> struct Tiles<256> { static constexpr int BM = 128, BN = 64, STAGES = 2; };
 
-// 2^x with a subnormal result flushed to zero: one MUFU.EX2 (exp2f adds
-// three instructions around it to keep subnormals).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr int CONSUMERS = 2;                  // warpgroups of 64 query rows
 constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int BOX = 64;                       // head-dim columns per TMA box (128 bytes)
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 // Shared memory, from a 1024-byte-aligned base: Q (BM x D), STAGES K tiles,
@@ -790,51 +781,6 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that this library
-// needs no link against libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// A contiguous bf16 (B, N, heads, D) tensor seen as 4-d (D, heads, N, B),
-// innermost first; a box is 64 head-dim columns of `rows` rows of one
-// (batch, head), 128-byte swizzled.  Rows past N read as zeros, and a box
-// never reaches into the next batch.
-bool encode(CUtensorMap* map, const void* ptr, int B, int N, int heads, int D,
-            int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)N * heads * D * 2};
-  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

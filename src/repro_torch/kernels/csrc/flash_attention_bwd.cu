@@ -22,80 +22,99 @@
 // staged as zeros and masked.  Every launch is deterministic: no atomics,
 // every sum in a fixed order.
 //
-// Two paths, chosen by repro_flash_attention_bwd_path (exported, so callers
-// can ask which one a call takes):
+// Three paths, chosen by repro_flash_attention_bwd_path (exported, so
+// callers can ask which one a call takes).  Both tensor-core paths launch
+// the delta kernel (one warp per (b, t, h) row), then dK/dV and dQ (one
+// kernel of both kinds of block on the wgmma path, two kernels on
+// mma.sync), then a reduce kernel (on the wgmma path only when the GQA
+// group is split, below).
 //
-// * bf16 with D in {16, 32, 64, 128, 256} and 16-byte aligned pointers (the
-//   training path): tensor cores, mma.sync m16n8k16 with bf16 inputs and
-//   f32 accumulation, ldmatrix / ldmatrix.trans (helpers in mma_bf16.cuh).
-//   Four launches:
-//   - delta kernel: one warp per (b, t, h) row.
-//   - dK/dV kernel, one block per (64-key tile, b, kv head, group of query
-//     heads).  FA2's scheme with keys as the rows.  Up to D=128 (128
-//     threads) each warp owns 16 keys and computes S^T = K Q^T and
-//     dP^T = V dO^T, forms P^T and dS^T = P^T (dP^T - Delta) in f32
-//     registers, and repacks them as bf16 A fragments for dV += P^T dO and
-//     dK += dS^T Q, with no shared memory round trip (as the forward
-//     repacks P for P.V).  The dK and dV accumulators stay in registers
-//     for the whole block: 128 a thread at D=128, so query tiles are 32
-//     rows there (64 up to D=64).  The Q / dO tiles and their lse / Delta
-//     are double-buffered with cp.async, so the next tile's copies overlap
-//     the current tile's products.
-//   - At D=256 (recurrentgemma's local layers) one warp's dK and dV would
-//     be 256 registers a thread, over the 255 cap.  So the block has 256
-//     threads, and two warps share each 16-key slab, each owning 128 of
-//     the output columns (128 accumulators a thread, as at D=128).  The
-//     pair splits S^T and dP^T rather than both computing them: one warp
-//     computes S^T over all of D and forms P^T, the other dP^T; they swap
-//     the two 16 x 32 f32 tiles through shared memory behind a named
+// * 2, bf16 with D in {64, 128} and 16-byte aligned pointers (the training
+//   path of every arch but recurrentgemma's and paligemma's): Hopper's
+//   wgmma, fed by TMA copies into mbarrier rings (namespace wgb; helpers in
+//   wgmma_tma.cuh).  The forward's warp-specialised block: a producer
+//   warpgroup at 24 registers (setmaxnreg) whose first thread issues every
+//   copy, and two consumer warpgroups at 240.  Tensor maps see q, k, v and
+//   dO as 4-d (D, heads, rows, B), so TMA zero-fills rows past T or S.
+//   - dK/dV blocks: one per (128-key tile, b, kv head, group of query
+//     heads); each consumer warpgroup owns 64 keys and keeps their dK and
+//     dV in f32 registers for the whole block (128 a thread at D=128).  Q
+//     and dO stream through the ring in stages of 128 queries at D=64, 64
+//     at D=128 (the registers' limit), with the stage's -lse log2e and
+//     Delta, which 64 producer threads write.  Per stage S^T = K Q^T and
+//     dP^T = V dO^T (wgmma, both operands from shared memory, K-major),
+//     P^T and dS^T formed on the accumulators and packed in place to bf16
+//     as the register A of dV += P^T dO and dK += dS^T Q, dO and Q read
+//     MN-major from the same swizzled tiles.
+//   - dQ blocks: one per 128 query rows of one (b, h), Q and dO loaded
+//     once, K and V streaming through the ring in stages of 128 keys: S =
+//     Q K^T, dP = dO V^T, dS, dQ += dS K with K read MN-major; the
+//     forward's kernel with a second score product.
+//   - Both kinds of block run in one launch, dK/dV blocks first and each
+//     kind heaviest first, so the dQ blocks fill the last wave of the
+//     dK/dV blocks.
+//   - The softmax recompute is the forward's: -lse log2e is one constant
+//     per query (-inf past T or for a row that sees no key), so a score
+//     takes one FFMA and one ex2.approx.ftz and P = 0 needs no select;
+//     masks apply only in tiles the causal diagonal, the window or S cuts.
+//     A warpgroup skips a stage it sees none of.
+// * 1, bf16 with D in {16, 32, 256} and aligned pointers: mma.sync m16n8k16
+//   with bf16 inputs and f32 accumulation, ldmatrix / ldmatrix.trans and
+//   cp.async double buffers (namespace tc; helpers in mma_bf16.cuh).
+//   - dK/dV kernel, one block of 128 threads per (64-key tile, b, kv head,
+//     group of query heads).  FA2's scheme with keys as the rows: each
+//     warp owns 16 keys and computes S^T and dP^T, forms P^T and dS^T in
+//     f32 registers and repacks them as bf16 A fragments for dV and dK,
+//     with no shared memory round trip.  Q / dO tiles of 64 queries (and
+//     their lse / Delta) are double-buffered with cp.async.
+//   - At D=256 (recurrentgemma's local layers, paligemma) one warp's dK
+//     and dV would be 256 registers a thread, over the 255 cap.  So the
+//     block has 256 threads, and two warps share each 16-key slab, each
+//     owning 128 of the output columns.  The pair splits S^T and dP^T: one
+//     warp computes S^T over all of D and forms P^T, the other dP^T; they
+//     swap the two 16 x 32 f32 tiles through shared memory behind a named
 //     barrier of their 64 threads, and each forms dS^T and runs dV and dK
-//     on its columns.  So a pair does the 4 products of 2*D flops per
-//     (key, query) that one warp does at D <= 128, not 6.  Shared memory:
-//     K, V and two stages of Q and dO (32 queries) plus the exchange, 149
-//     KB, one block per SM; 238 registers, no spills (ptxas -v, PERF.md).
-//   - The H/K query heads of a KV head (GQA sums over them) are split into
-//     G groups, G from the shape (repro_flash_attention_bwd_groups: enough
-//     blocks for 512, at most H/K).  At the starcoder2-3b training shape
-//     that gives G=4 and 16 x 8 x 4 = 512 blocks instead of 128, and at
-//     recurrentgemma-9b's local training shape G=6 and 47 x 2 x 6 = 564.
-//     Each block writes its f32 partial dK / dV to scratch that the caller
-//     allocates (2 G B S K D floats: 34 MB and 74 MB there, written and
-//     read once, about 20 and 44 us), and a reduce kernel sums the G
-//     partials in a fixed order and rounds once.  The key tile is the
-//     slowest block index, so the heaviest causal tiles (the first keys)
-//     are issued first.
+//     on its columns.  149 KB of shared memory, one block per SM; 238
+//     registers, no spills (ptxas -v, PERF.md).
 //   - dQ kernel, one block per (64-query tile, b, h), heaviest tiles first,
-//     K / V tiles double-buffered with cp.async.  It recomputes S = Q K^T
-//     and dP = dO V^T (7 products in all instead of 5, about 90 GFLOP at
-//     the starcoder2 training shape) rather than reading dS back: writing
-//     dS would be B H T S bf16, about 100 MB each way at that shape, more
-//     than the whole bound, and accumulating dQ from the dK/dV blocks would
-//     need atomics and give up determinism.  At D=256 it takes the
-//     forward's budget and the warp pairs above: 32-key K / V tiles, Q and
-//     dO fragments read from shared memory per k-chunk, one warp of a pair
-//     computing S and P and the other dP, and each accumulating 128 of the
-//     256 dQ columns (64 registers a thread); 148 KB of shared memory, one
-//     block of 8 warps per SM, 129 registers.
-// * everything else (f32, other head dims up to 256, unaligned pointers):
-//   f32 FMAs on the CUDA cores, three launches (delta, dK/dV, dQ).  Each of
-//   the 32 rows of a tile is owned by 8 lanes of one warp that split its 32
-//   scores and its D output columns, so a row's P and dS go through shared
-//   memory only within the warp; one block per (32-key tile, b, kv head)
-//   sums the whole GQA group.  Staged rows are padded to D+1 floats so the
-//   dot products read shared memory without bank conflicts.
+//     K / V tiles double-buffered with cp.async; at D=256 warp pairs as
+//     above over 32-key K / V tiles (148 KB, 129 registers).
+// * 0, everything else (f32, other head dims up to 256, unaligned
+//   pointers): f32 FMAs on the CUDA cores, three launches (delta, dK/dV,
+//   dQ).  Each of the 32 rows of a tile is owned by 8 lanes of one warp
+//   that split its 32 scores and its D output columns, so a row's P and dS
+//   go through shared memory only within the warp; one block per (32-key
+//   tile, b, kv head) sums the whole GQA group.  Staged rows are padded to
+//   D+1 floats so the dot products read shared memory without bank
+//   conflicts.
+//
+// On both tensor-core paths the H/K query heads of a KV head (GQA sums over
+// them) are split into G groups, G from the shape
+// (repro_flash_attention_bwd_groups: enough dK/dV blocks for 256 of the
+// wgmma kernel's, or 512 of mma.sync's, at most H/K): G=4 at the
+// starcoder2-3b training shape, G=6 at recurrentgemma-9b's local one.  Each
+// block writes its f32 partial dK / dV to scratch that the caller allocates
+// (2 G B S K D floats), and the reduce kernel sums the G partials in a
+// fixed order and rounds once; with G = 1 a wgmma block writes dK and dV in
+// bf16 itself.  The key tile is the slowest block index, so the heaviest
+// causal tiles (the first keys) are issued first.  The dQ kernel recomputes
+// S = Q K^T and dP = dO V^T (7 products in all instead of 5) rather than
+// reading dS back: writing dS would be B H T S bf16, about 100 MB each way
+// at the starcoder2 training shape, more than the whole bound, and
+// accumulating dQ from the dK/dV blocks would need atomics and give up
+// determinism.
 //
 // Bound on an H100 SXM: the five products of 2*D flops per visible (query,
 // key) pair, at 989 TFLOP/s on the tensor cores, against the bytes (q, k,
 // v, o, dO, lse read once; dq, dk, dv written once) at 3.35 TB/s.  At the
 // starcoder2-3b training shape (B=4, T=S=1024, H=24, K=2, D=128, causal)
 // that is 64.5 GFLOP, 65 us (0.0652 ms), against 109 MB, 33 us; at
-// recurrentgemma-9b's local training shape (B=2, T=S=3000, H=16, K=1,
-// D=256, window 2048) 331.6 GFLOP, 0.3353 ms, against 209 MB, 62 us.
-// So both are bound by operations; the kernels do 7 products, not 5 (464
-// GFLOP at the local shape).  The tensor-core path runs mma.sync from each
-// warp in turn; wgmma, TMA and warp specialisation, which the card's full
-// rate needs, are later work (ROADMAP.md).  The FMA path is bound by the
-// CUDA cores' 67 TFLOP/s f32 rate at best.
+// whisper-small's encoder (B=4, T=S=1500, H=K=12, D=64, non-causal) 69.1
+// GFLOP, 0.0699 ms; at recurrentgemma-9b's local training shape (B=2,
+// T=S=3000, H=16, K=1, D=256, window 2048) 331.6 GFLOP, 0.3353 ms, against
+// 209 MB, 62 us.  So all are bound by operations; the kernels execute 7
+// products, not 5.  The FMA path is bound by the CUDA cores' 67 TFLOP/s f32
+// rate at best.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -103,6 +122,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
@@ -1278,23 +1298,604 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-// Which kernels a backward call takes: 1 = the bf16 tensor-core kernels, 0 =
-// the f32-FMA kernels.  dtype as below; `aligned` is nonzero when q, k, v,
-// dout, dq, dk and dv all start on 16 bytes.  repro_flash_attention_bwd
-// dispatches by this function.
+// ---------------------------------------------------------------------------
+// bf16 wgmma path, head dims 64 and 128 (helpers in wgmma_tma.cuh)
+// ---------------------------------------------------------------------------
+// The forward's warp-specialised block (flash_attention.cu, namespace wg):
+// one producer warpgroup at 24 registers whose first thread issues every
+// TMA copy into an mbarrier ring, and two consumer warpgroups at 240 that
+// run the products as wgmma.  Every operand tile is what a 4-d tensor map
+// (D, heads, rows, B) writes with a 128-byte swizzle: rows past T or S
+// arrive as zeros.  Boxes are 64 rows, so one map per tensor serves both
+// kernels, whatever their tiles.
+namespace wgb {
+
+using namespace hopper;
+using tc::LOG2E;
+using tc::pack_bf16;
+
+// Tiles per head dim.  dK/dV: BN keys a block (64 per consumer warpgroup),
+// BQ queries a stage of the Q / dO ring, STAGES stages.  dQ: DQ_BM query
+// rows a block (64 per consumer warpgroup), DQ_BN keys a stage of the K / V
+// ring, DQ_STAGES stages; chosen on the card (PERF.md).  Mirrored by
+// WGMMA_BWD_TILES in kernels/flash_attention.py.
+template <int D> struct Tiles;
+template <> struct Tiles<64> { static constexpr int BQ = 128, BN = 128, STAGES = 2, DQ_BM = 128, DQ_BN = 128, DQ_STAGES = 2; };
+template <> struct Tiles<128> { static constexpr int BQ = 64, BN = 128, STAGES = 2, DQ_BM = 128, DQ_BN = 128, DQ_STAGES = 2; };
+
+constexpr int CONSUMERS = 2;                  // warpgroups of 64 rows (keys or queries)
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int ROWS = 64;                      // rows per TMA box
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int TARGET_BLOCKS = 256;            // dK/dV blocks the group split aims at
+constexpr int LSE_THREADS = 64;               // producer threads that stage -lse log2e, Delta
+
+// Copies rows r0 .. r0 + N - 1 of one (b, head) of `map`, all D columns,
+// into a tile of N rows stored as D/64 column tiles of N x 128 bytes.
+template <int N, int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int head, int r0, int b) {
+#pragma unroll
+  for (int c = 0; c < D / BOX; ++c)
+#pragma unroll
+    for (int r = 0; r < N / ROWS; ++r)
+      tma_load_4d(dst + c * N * 128 + r * ROWS * 128, map, bar, c * BOX, head,
+                  r0 + r * ROWS, b);
+}
+
+// acc (64 x N, f32) = A B over D: A = 64 rows of a K-major tile at `a` (a
+// tile of MA rows), B = the N rows of a K-major tile at `b`.  Committed as
+// one group.
+template <int N, int D, int MA>
+__device__ __forceinline__ void product_ss(float (&acc)[N / 2], const unsigned char* a,
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / 4, off = (kk % 4) * 32;
+    const uint64_t da = desc_sw128(a + c * MA * 128 + off, 16, 1024);
+    const uint64_t db = desc_sw128(b + c * N * 128 + off, 16, 1024);
+    if constexpr (N == 64) wgmma_m64n64k16_ss(acc, da, db, kk > 0);
+    else wgmma_m64n128k16_ss(acc, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc (64 x D, f32) += A B: A (64 x KN) in registers, k-step kk in a[kk]; B
+// the KN x D tile at `b` read MN-major (its D columns contiguous).
+// Committed as one group.
+template <int KN, int D>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[KN / 16][4],
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < KN / 16; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 16 * 128, KN * 128, 1024);
+    if constexpr (D == 64) wgmma_m64n64k16_rs_tn(acc, a[kk], db, 1);
+    else wgmma_m64n128k16_rs_tn(acc, a[kk], db, 1);
+  }
+  wgmma_commit();
+}
+
+// Accumulator blocks 2k and 2k+1 packed to bf16: the A fragment of k-step k.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// dK/dV: K and V (BN x D each), then STAGES x {Q, dO (BQ x D each)}, then
+// STAGES x {BQ values of -lse log2e, BQ of Delta}, then the barriers.
+template <int D>
+struct KvLayout {
+  static constexpr int BQ = Tiles<D>::BQ, BN = Tiles<D>::BN, STAGES = Tiles<D>::STAGES;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int O_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int L_OFF = O_OFF + STAGES * Q_BYTES;
+  static constexpr int BAR_OFF = L_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int N_BARS = 1 + 2 * STAGES;   // kv_full, full[], empty[]
+  static constexpr size_t SMEM = BAR_OFF + N_BARS * 8 + 1024;   // + alignment slack
+};
+
+// dK/dV of one (BN-key tile, b, kv head, group of query heads).  Consumer
+// warpgroup w owns keys k0 + 64w .. + 63 and keeps their dK and dV in f32
+// registers for the whole block.  Per stage of BQ queries of one head:
+// S^T = K Q^T and dP^T = V dO^T (keys as rows), P^T = 2^(S^T scale log2e -
+// lse log2e) and dS^T = P^T (dP^T - Delta) on the accumulators, packed in
+// place as the A operand of dV += P^T dO and dK += dS^T Q.  64 producer
+// threads write each stage's -lse log2e (-inf for a query past T or one that
+// sees no key, so P = 0 there with no select) and Delta.  With one
+// group the block writes dk (scaled) and dv in bf16; else the unscaled f32
+// sums go to dk_part / dv_part (groups, B, S, K, D).
+template <int D>
+__device__ __forceinline__ void
+dkdv_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+           const CUtensorMap* tdo, const float* __restrict__ lse,
+           const float* __restrict__ delta, float* __restrict__ dk_part,
+           float* __restrict__ dv_part, __nv_bfloat16* __restrict__ dk,
+           __nv_bfloat16* __restrict__ dv, int B, int T_, int S, int H, int K,
+           int groups, int causal, int window, float scale_log2, float scale,
+           int block, unsigned char* smem) {
+  using L = KvLayout<D>;
+  constexpr int BQ = L::BQ, BN = L::BN, STAGES = L::STAGES;
+  static_assert(BQ % LSE_THREADS == 0 && LSE_THREADS <= 96, "lse / Delta threads");
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  // The key tile is the slowest index, so the blocks issued first hold the
+  // first key tiles: the heaviest under a causal mask.
+  const int per_tile = B * K * groups;
+  const int kt = block / per_tile;
+  int rest = block % per_tile;
+  const int grp = rest % groups;
+  rest /= groups;
+  const int kh = rest % K, b = rest / K;
+  const int rep = H / K;
+  const int h_begin = kh * rep + grp * rep / groups;
+  const int h_end = kh * rep + (grp + 1) * rep / groups;
+  const int k0 = kt * BN;
+  const int offs = S - T_;             // query t sits at key position offs+t
+
+  // Queries that can see some key of this tile, from a BQ-aligned start.
+  const int k_last = min(k0 + BN, S) - 1;
+  int t_begin = causal ? max(0, k0 - offs) : 0;
+  const int t_end = window > 0 ? min(T_, k_last - offs + window) : T_;
+  t_begin = (t_begin / BQ) * BQ;
+  const int n_qt = t_end > t_begin ? (t_end - t_begin + BQ - 1) / BQ : 0;
+  const int n_iter = n_qt * (h_end - h_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + LSE_THREADS);   // the TMA thread and the lse / Delta threads
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    // The producer's loops walk (head, query tile) and the ring with
+    // counters: no division in the 24 registers it keeps.
+    reg_dealloc<PRODUCER_REGS>();
+    const int pt = threadIdx.x - CONSUMERS * 128;
+    if (pt == 0) {
+      // One thread keeps the ring full with TMA copies.
+      tma_prefetch_map(tq);
+      tma_prefetch_map(tk);
+      tma_prefetch_map(tv);
+      tma_prefetch_map(tdo);
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+      load_tile<BN, D>(smem, tk, kv_full, kh, k0, b);
+      load_tile<BN, D>(smem + L::V_OFF, tv, kv_full, kh, k0, b);
+      int s = 0, ph = 0, h = h_begin, q0 = t_begin;
+      for (int j = 0; j < n_iter; ++j) {
+        // Stage s is free once both consumers released stage j - STAGES.
+        if (j >= STAGES) mbar_wait(&empty[s], ph ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::Q_BYTES);
+        load_tile<BQ, D>(smem + L::Q_OFF + s * L::Q_BYTES, tq, &full[s], h, q0, b);
+        load_tile<BQ, D>(smem + L::O_OFF + s * L::Q_BYTES, tdo, &full[s], h, q0, b);
+        if ((q0 += BQ) >= t_begin + n_qt * BQ) q0 = t_begin, ++h;
+        if (++s == STAGES) s = 0, ph ^= 1;
+      }
+    } else if (pt >= 32 && pt < 32 + LSE_THREADS) {
+      // The next 64 threads write each stage's -lse log2e and Delta, BQ/64
+      // queries each; off walks (b, h) rows of lse and delta (B H T < 2^31).
+      const int i = pt - 32;
+      const int q_end = t_begin + n_qt * BQ;
+      int s = 0, ph = 0, q0 = t_begin, off = (b * H + h_begin) * T_;
+      for (int j = 0; j < n_iter; ++j) {
+        if (j >= STAGES) mbar_wait(&empty[s], ph ^ 1);
+        float* nl = reinterpret_cast<float*>(smem + L::L_OFF) + s * 2 * BQ;
+#pragma unroll
+        for (int r = 0; r < BQ / LSE_THREADS; ++r) {
+          const int x = i + r * LSE_THREADS;
+          const bool in = q0 + x < T_;
+          const float l = in ? lse[off + q0 + x] : -INFINITY;
+          nl[x] = l == -INFINITY ? -INFINITY : -l * LOG2E;
+          nl[BQ + x] = in ? delta[off + q0 + x] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+        if ((q0 += BQ) >= q_end) q0 = t_begin, off += T_;
+        if (++s == STAGES) s = 0, ph ^= 1;
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw = k0 + 64 * wg;                     // this warpgroup's first key
+    const int kr = kw + 16 * warp + g;               // this thread's keys: kr, kr + 8
+    const unsigned char* Ks = smem + 64 * wg * 128;  // its 64 rows of K and of V
+    const unsigned char* Vs = smem + L::V_OFF + 64 * wg * 128;
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    int s = 0, ph = 0, qp0 = offs + t_begin;         // qp0: the stage's first query position
+    for (int j = 0; j < n_iter; ++j) {
+      const unsigned char* Qs = smem + L::Q_OFF + s * L::Q_BYTES;
+      const unsigned char* Os = smem + L::O_OFF + s * L::Q_BYTES;
+      const float* nl = reinterpret_cast<const float*>(smem + L::L_OFF) + s * 2 * BQ;
+      mbar_wait(&full[s], ph);
+      // A stage none of this warpgroup's keys is visible to, or keys all
+      // past S: nothing to add.
+      const bool none = kw >= S || (causal && qp0 + BQ - 1 < kw) ||
+                        (window > 0 && qp0 - window >= kw + 63);
+      if (!none) {
+        float st[BQ / 2], dpt[BQ / 2];
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+        product_ss<BQ, D, BN>(st, Ks, Qs);
+        product_ss<BQ, D, BN>(dpt, Vs, Os);
+        wgmma_wait<1>();
+        fence_regs(st);
+        // P^T in one FFMA and one EX2 a score.  The warp's 16 keys see every
+        // query of the stage unless the diagonal or the window cuts it.
+        const int kwarp = kw + 16 * warp;
+        const bool all = (!causal || kwarp + 15 <= qp0) &&
+                         (window <= 0 || kwarp > qp0 + BQ - 1 - window);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = n * 8 + 2 * t + (i & 1);
+            float p = exp2_ftz(fmaf(st[4 * n + i], scale_log2, nl[col]));
+            if (!all) {
+              const int kpos = kr + 8 * (i >> 1), qpos = qp0 + col;
+              if ((causal && kpos > qpos) || (window > 0 && kpos <= qpos - window)) p = 0.f;
+            }
+            st[4 * n + i] = p;
+          }
+        }
+        uint32_t pa[BQ / 16][4];
+        pack_a<BQ>(pa, st);
+        wgmma_wait<0>();
+        fence_regs(dpt);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            dpt[4 * n + i] = st[4 * n + i] * (dpt[4 * n + i] - nl[BQ + n * 8 + 2 * t + (i & 1)]);
+        uint32_t da[BQ / 16][4];
+        pack_a<BQ>(da, dpt);
+        // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major.
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pa);
+        fence_regs(da);
+        wgmma_fence();
+        product_rs<BQ, D>(dv_acc, pa, Os);
+        product_rs<BQ, D>(dk_acc, da, Qs);
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      mbar_arrive(&empty[s]);           // this stage's products are done
+      if ((qp0 += BQ) >= offs + t_begin + n_qt * BQ) qp0 = offs + t_begin;
+      if (++s == STAGES) s = 0, ph ^= 1;
+    }
+
+    // Every key of the tile below S gets its sums, zero if no query saw it.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = kr + 8 * r;
+      if (kpos >= S) continue;
+      if (groups == 1) {
+        const long row = ((long)(b * S + kpos) * K + kh) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<uint32_t*>(dk + row + n * 8 + 2 * t) =
+              pack_bf16(dk_acc[4 * n + 2 * r] * scale, dk_acc[4 * n + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + row + n * 8 + 2 * t) =
+              pack_bf16(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+        }
+      } else {
+        const long base = ((((long)grp * B + b) * S + kpos) * K + kh) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          *reinterpret_cast<float2*>(dk_part + base + n * 8 + 2 * t) =
+              make_float2(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
+          *reinterpret_cast<float2*>(dv_part + base + n * 8 + 2 * t) =
+              make_float2(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dQ: Q and dO (DQ_BM x D each), then DQ_STAGES K tiles and DQ_STAGES V
+// tiles (DQ_BN x D each), then the barriers.
+template <int D>
+struct QLayout {
+  static constexpr int BM = Tiles<D>::DQ_BM, BN = Tiles<D>::DQ_BN, STAGES = Tiles<D>::DQ_STAGES;
+  static constexpr uint32_t Q_BYTES = BM * D * 2;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;
+  static constexpr int O_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 3 * STAGES;   // q_full, k_full[], v_full[], empty[]
+  static constexpr size_t SMEM = BAR_OFF + N_BARS * 8 + 1024;
+};
+
+// dQ of DQ_BM query rows of one (b, h): the forward's kernel with a second
+// score product.  Consumer warpgroup w owns rows q0 + 64w .. + 63; per K / V
+// tile of the ring it computes S = Q K^T and dP = dO V^T, P = 2^(S scale
+// log2e - lse log2e) and dS = P (dP - Delta) on the accumulators, packed in
+// place as the A operand of dQ += dS K, K read MN-major.
+template <int D>
+__device__ __forceinline__ void
+dq_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+         const CUtensorMap* tdo, const float* __restrict__ lse,
+         const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B,
+         int T_, int S, int H, int K, int causal, int window, float scale_log2,
+         float scale, int lin, unsigned char* smem) {
+  using L = QLayout<D>;
+  constexpr int BM = L::BM, BN = L::BN, STAGES = L::STAGES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
+
+  // Blocks start in order of their index: the heaviest query tiles (the
+  // last rows, under a causal mask) of every (b, h) go first.
+  const int BH = B * H;
+  const int bh = lin % BH;
+  const int q0 = ((T_ + BM - 1) / BM - 1 - lin / BH) * BM;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  const int offs = S - T_;
+
+  // Keys any row of this block can see, from a BN-aligned start.
+  const int q_last = min(q0 + BM, T_) - 1;
+  const int pos_lo = offs + q0, pos_hi = offs + q_last;
+  int kv_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  const int kv_end = causal ? min(S, pos_hi + 1) : S;
+  kv_begin = (kv_begin / BN) * BN;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * 128);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      tma_prefetch_map(tq);
+      tma_prefetch_map(tk);
+      tma_prefetch_map(tv);
+      tma_prefetch_map(tdo);
+      mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+      load_tile<BM, D>(smem, tq, q_full, h, q0, b);
+      load_tile<BM, D>(smem + L::O_OFF, tdo, q_full, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        const int k0 = kv_begin + j * BN;
+        mbar_arrive_expect_tx(&k_full[s], L::KV_BYTES);
+        load_tile<BN, D>(smem + L::K_OFF + s * L::KV_BYTES, tk, &k_full[s], kh, k0, b);
+        mbar_arrive_expect_tx(&v_full[s], L::KV_BYTES);
+        load_tile<BN, D>(smem + L::V_OFF + s * L::KV_BYTES, tv, &v_full[s], kh, k0, b);
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    const int wq = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = 64 * wq + 16 * warp + g;          // and r0 + 8
+    const unsigned char* Qs = smem + 64 * wq * 128;  // this warpgroup's rows of Q, dO
+    const unsigned char* Os = smem + L::O_OFF + 64 * wq * 128;
+    // Per row: -lse log2e (-inf past T or where the row sees no key, so
+    // that P = 0 with no select), Delta and the key position.
+    float nl[2], dl[2];
+    int qpos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tq_ = q0 + r0 + 8 * r;
+      const float l = tq_ < T_ ? lse[(long)bh * T_ + tq_] : -INFINITY;
+      nl[r] = l == -INFINITY ? -INFINITY : -l * LOG2E;
+      dl[r] = tq_ < T_ ? delta[(long)bh * T_ + tq_] : 0.f;
+      qpos[r] = offs + tq_;
+    }
+    // This warpgroup's rows, and the keys every row of this warp sees.
+    const int gpos_lo = offs + q0 + 64 * wq, gpos_hi = gpos_lo + 63;
+    const int wpos_lo = gpos_lo + 16 * warp, wpos_hi = wpos_lo + 15;
+    const int full_lo = window > 0 ? wpos_hi - window + 1 : 0;
+    const int full_hi = causal ? min(S, wpos_lo + 1) : S;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const uint32_t ph = (j / STAGES) & 1;
+      const int k0 = kv_begin + j * BN;
+      const unsigned char* Ks = smem + L::K_OFF + s * L::KV_BYTES;
+      const unsigned char* Vs = smem + L::V_OFF + s * L::KV_BYTES;
+      mbar_wait(&k_full[s], ph);
+      mbar_wait(&v_full[s], ph);
+      // A tile none of this warpgroup's rows sees, or rows all past T.
+      const bool none = q0 + 64 * wq >= T_ || (causal && k0 > gpos_hi) ||
+                        (window > 0 && k0 + BN - 1 <= gpos_lo - window);
+      if (!none) {
+        float sc[BN / 2], dp[BN / 2];
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+        product_ss<BN, D, BM>(sc, Qs, Ks);
+        product_ss<BN, D, BM>(dp, Os, Vs);
+        wgmma_wait<1>();
+        fence_regs(sc);
+        // P in one FFMA and one EX2 a score; masks only where the diagonal,
+        // the window or S cuts the tile for this warp.
+        const bool all = k0 >= full_lo && k0 + BN <= full_hi;
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i >> 1;
+            float p = exp2_ftz(fmaf(sc[4 * n + i], scale_log2, nl[r]));
+            if (!all) {
+              const int kpos = k0 + n * 8 + 2 * t + (i & 1);
+              if (kpos >= S || (causal && kpos > qpos[r]) ||
+                  (window > 0 && kpos <= qpos[r] - window))
+                p = 0.f;
+            }
+            sc[4 * n + i] = p;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+        uint32_t da[BN / 16][4];
+        pack_a<BN>(da, dp);
+        fence_regs(acc);
+        fence_regs(da);
+        wgmma_fence();
+        product_rs<BN, D>(acc, da, Ks);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(da);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tq_ = q0 + r0 + 8 * r;
+      if (tq_ < T_) {
+        __nv_bfloat16* row = dq + ((long)(b * T_ + tq_) * H + h) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) =
+              pack_bf16(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+// One launch for both passes: blocks [0, kv_blocks) are dK/dV blocks, the
+// rest dQ blocks, each kind heaviest first.  So the dQ blocks fill the SMs
+// the last wave of dK/dV blocks leaves idle, and the last wave is the
+// lightest dQ blocks.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk_part, float* __restrict__ dv_part,
+                 __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int B, int T_, int S, int H, int K,
+                 int groups, int causal, int window, float scale_log2, float scale,
+                 int kv_blocks) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int block = blockIdx.x;
+  if (block < kv_blocks)
+    dkdv_block<D>(&tq, &tk, &tv, &tdo, lse, delta, dk_part, dv_part, dk, dv, B, T_, S,
+                  H, K, groups, causal, window, scale_log2, scale, block, smem);
+  else
+    dq_block<D>(&tq, &tk, &tv, &tdo, lse, delta, dq, B, T_, S, H, K, causal, window,
+                scale_log2, scale, block - kv_blocks, smem);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* o_lo, const void* dout,
+                   const float* lse, float* delta, float* partial, void* dq, void* dk,
+                   void* dv, int B, int T_, int S, int H, int K, int groups, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  using KL = KvLayout<D>;
+  using QL = QLayout<D>;
+  cudaError_t err = launch_delta<bf16>(o, o_lo, dout, delta, B, T_, H, D, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode(&tq, q, B, T_, H, D, ROWS) || !encode(&tk, k, B, S, K, D, ROWS) ||
+      !encode(&tv, v, B, S, K, D, ROWS) || !encode(&tdo, dout, B, T_, H, D, ROWS))
+    return cudaErrorInvalidValue;
+
+  const long n = (long)B * S * K * D;           // elements of dk (and dv)
+  float* dk_part = partial;
+  float* dv_part = groups > 1 ? partial + (long)groups * n : nullptr;
+  auto kern = bwd_wgmma_kernel<D>;
+  constexpr size_t smem = KL::SMEM > QL::SMEM ? KL::SMEM : QL::SMEM;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const long kv_blocks = (long)((S + KL::BN - 1) / KL::BN) * B * K * groups;
+  const long q_blocks = (long)((T_ + QL::BM - 1) / QL::BM) * B * H;
+  kern<<<(unsigned)(kv_blocks + q_blocks), THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, dk_part, dv_part, static_cast<bf16*>(dq),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, T_, S, H, K, groups, causal,
+      window, scale * LOG2E, scale, (int)kv_blocks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || groups == 1) return err;
+
+  const long n4 = n / 4;                        // D is a multiple of 16
+  const long want = (n4 + tc::REDUCE_THREADS - 1) / tc::REDUCE_THREADS;
+  const long blocks = want < 132L * 16 ? want : 132L * 16;
+  tc::bwd_reduce_kernel<<<(unsigned)blocks, tc::REDUCE_THREADS, 0, stream>>>(
+      reinterpret_cast<const float4*>(dk_part),
+      reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),
+      static_cast<uint2*>(dv), n4, groups, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wgb
+
+// Which kernels a backward call takes: 2 = the bf16 wgmma kernels (head
+// dims 64 and 128), 1 = the bf16 mma.sync kernels (16, 32 and the warp
+// pairs at 256), 0 = the f32-FMA kernels.  dtype as below; `aligned` is
+// nonzero when q, k, v, dout, dq, dk and dv all start on 16 bytes.
+// repro_flash_attention_bwd dispatches by this function.
 extern "C" int repro_flash_attention_bwd_path(int dtype, int D, int aligned) {
-  return dtype == 1 && aligned &&
-         (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
+  if (dtype != 1 || !aligned) return 0;
+  if (D == 64 || D == 128) return 2;
+  return D == 16 || D == 32 || D == 256 ? 1 : 0;
 }
 
 // The number of groups G the H/K query heads of a KV head are split into
-// on the tensor-core path: enough (key tile, b, kv head, group) blocks for
-// TARGET_BLOCKS, at most one group per query head.  The caller allocates
-// the f32 partials, 2 * G * B * S * K * D values, and passes G back.
-extern "C" int repro_flash_attention_bwd_groups(int B, int S, int H, int K) {
+// on the tensor-core paths: enough (key tile, b, kv head, group) blocks for
+// the target of the kernels a bf16 call at head dim D takes (128-key tiles
+// and 256 blocks on the wgmma path, 64-key tiles and 512 blocks on
+// mma.sync), at most one group per query head.  The caller allocates the
+// f32 partials, 2 * G * B * S * K * D values (none for G = 1 on the wgmma
+// path), and passes G back.
+extern "C" int repro_flash_attention_bwd_groups(int B, int S, int H, int K, int D) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return 1;
-  const long base = (long)((S + tc::BKV - 1) / tc::BKV) * B * K;
-  const long want = (tc::TARGET_BLOCKS + base - 1) / base;
+  const bool wgmma = repro_flash_attention_bwd_path(1, D, 1) == 2;
+  const int tile = !wgmma ? tc::BKV : D == 64 ? wgb::Tiles<64>::BN : wgb::Tiles<128>::BN;
+  const int target = wgmma ? wgb::TARGET_BLOCKS : tc::TARGET_BLOCKS;
+  const long base = (long)((S + tile - 1) / tile) * B * K;
+  const long want = (target + base - 1) / base;
   const long g = want < H / K ? want : H / K;
   return (int)(g > 1 ? g : 1);
 }
@@ -1303,9 +1904,10 @@ extern "C" int repro_flash_attention_bwd_groups(int B, int S, int H, int K) {
 // All tensors are contiguous: q, o, dout, dq (B,T,H,D); k, v, dk, dv
 // (B,S,K,D); lse (B,H,T) f32 from the forward; o_lo (B,T,H,D), the
 // forward's rounding residual of o, or null; delta (B,H,T) f32 scratch
-// that this call fills.  On the tensor-core path `partial` is f32 scratch
+// that this call fills.  On the tensor-core paths `partial` is f32 scratch
 // of 2 * groups * B * S * K * D values, with 1 <= groups <= H/K (see
-// repro_flash_attention_bwd_groups); the FMA path reads neither.  Returns
+// repro_flash_attention_bwd_groups), or null on the wgmma path with one
+// group; the FMA path reads neither.  Returns
 // the first failing launch's cudaError_t (0 on success); the kernels run
 // asynchronously on `stream`.
 extern "C" int repro_flash_attention_bwd(
@@ -1324,15 +1926,16 @@ extern "C" int repro_flash_attention_bwd(
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
         reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
         reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
-  if (repro_flash_attention_bwd_path(dtype, D, aligned)) {
-    if (groups < 1 || groups > H / K || partial == nullptr)
+  const int path = repro_flash_attention_bwd_path(dtype, D, aligned);
+  if (path != 0) {
+    if (groups < 1 || groups > H / K || (partial == nullptr && (path == 1 || groups > 1)))
       return (int)cudaErrorInvalidValue;
     float* part = static_cast<float*>(partial);
     switch (D) {
       case 16: return (int)tc::launch<16>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
       case 32: return (int)tc::launch<32>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
-      case 64: return (int)tc::launch<64>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
-      case 128: return (int)tc::launch<128>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+      case 64: return (int)wgb::launch<64>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+      case 128: return (int)wgb::launch<128>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
       case 256: return (int)tc::launch<256>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
     }
   }

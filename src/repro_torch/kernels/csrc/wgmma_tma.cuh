@@ -2,8 +2,9 @@
 // copies into shared memory that complete on an mbarrier, the mbarrier
 // itself (init, arrive, expect_tx, try_wait), wgmma shared-memory
 // descriptors for 128-byte-swizzled tiles, the wgmma instructions the
-// flash-attention forward uses, its fences, and setmaxnreg.  In the style of
-// mma_bf16.cuh; used by flash_attention.cu.
+// flash-attention kernels use, their fences, setmaxnreg, a one-instruction
+// exp2, and the host's encoding of the tensor maps.  In the style of
+// mma_bf16.cuh; used by flash_attention.cu and flash_attention_bwd.cu.
 //
 // Tiles in shared memory are what a TMA box with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r stored at
@@ -99,6 +100,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---- ex2 -------------------------------------------------------------------------
+
+// 2^x with a subnormal result flushed to zero: one MUFU.EX2 (exp2f adds
+// three instructions around it to keep subnormals).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- setmaxnreg -------------------------------------------------------------------
@@ -242,6 +253,56 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tn(float (&d)[64], const uin
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ---- tensor maps (host) -------------------------------------------------------------
+
+constexpr int BOX = 64;   // head-dim columns per TMA box: 128 bytes of bf16
+
+// cuTensorMapEncodeTiled, reached through the runtime so that a library
+// needs no link against libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous bf16 (B, N, heads, D) tensor seen as 4-d (D, heads, N, B),
+// innermost first; a box is 64 head-dim columns of `rows` rows of one
+// (batch, head), 128-byte swizzled.  Rows past N read as zeros (a box wholly
+// past N too, its bytes still counted), and a box never reaches into the
+// next batch.
+inline bool encode(CUtensorMap* map, const void* ptr, int B, int N, int heads, int D,
+                   int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)N * heads * D * 2};
+  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

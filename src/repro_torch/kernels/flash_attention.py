@@ -48,14 +48,19 @@ BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_void_p])
 # ``repro_flash_attention_fwd_path`` / ``_bwd_path``: dtype, D, aligned.
 PATH_ARGTYPES = [ctypes.c_int] * 3
-# ``repro_flash_attention_bwd_groups``: B, S, H, K.
-GROUPS_ARGTYPES = [ctypes.c_int] * 4
+# ``repro_flash_attention_bwd_groups``: B, S, H, K, D.
+GROUPS_ARGTYPES = [ctypes.c_int] * 5
 # What the path queries return: the forward takes 2 for bf16 at head dims
-# 64, 128 and 256, 1 for bf16 at 16 and 32; the backward takes 1 for bf16.
+# 64, 128 and 256, 1 for bf16 at 16 and 32; the backward 2 for bf16 at 64
+# and 128, 1 for bf16 at 16, 32 and 256.
 PATHS = {0: "fma", 1: "tensor cores", 2: "wgmma"}
 # Tiles of the forward's wgmma kernel (namespace wg of ``SOURCE``), by head
 # dim: query rows a block, keys a KV tile, KV tiles in the ring.
 WGMMA_TILES = {64: (128, 128, 3), 128: (128, 128, 2), 256: (128, 64, 2)}
+# Tiles of the backward's wgmma kernels (namespace wgb of ``BWD_SOURCE``),
+# by head dim: dK/dV query rows a stage, keys a block, stages in the ring;
+# dQ query rows a block, keys a stage, stages in the ring.
+WGMMA_BWD_TILES = {64: (128, 128, 2, 128, 128, 2), 128: (64, 128, 2, 128, 128, 2)}
 # Keys a KV tile of the forward's mma.sync kernel (``tc::BK``).
 MMA_TILE_KEYS = 32
 
@@ -97,11 +102,11 @@ def bwd_path(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> int:
                   tuple(PATH_ARGTYPES))(_DTYPES[dtype], head_dim, int(aligned))
 
 
-def bwd_groups(B: int, S: int, H: int, K: int) -> int:
-    """How many groups the tensor-core backward splits each KV head's H/K
-    query heads into at this shape."""
+def bwd_groups(B: int, S: int, H: int, K: int, D: int) -> int:
+    """How many groups the tensor-core backward at head dim D splits each
+    KV head's H/K query heads into at this shape."""
     return _query(BWD_SOURCE, "repro_flash_attention_bwd_groups",
-                  tuple(GROUPS_ARGTYPES))(B, S, H, K)
+                  tuple(GROUPS_ARGTYPES))(B, S, H, K, D)
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
@@ -235,11 +240,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if q.numel() == 0 or S == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    # The tensor-core path sums each group of query heads' f32 partial dK /
-    # dV in this scratch; the FMA path needs none.
+    # The tensor-core paths sum each group of query heads' f32 partial dK /
+    # dV in this scratch; the FMA path needs none, nor the wgmma path with
+    # one group, which writes dK and dV itself.
     groups, partial = 0, None
-    if bwd_path(q.dtype, D, _aligned(q, k, v, dout, dq, dk, dv)):
-        groups = bwd_groups(B, S, H, K)
+    path = bwd_path(q.dtype, D, _aligned(q, k, v, dout, dq, dk, dv))
+    if path:
+        groups = bwd_groups(B, S, H, K, D)
+    if path == 1 or groups > 1:
         partial = torch.empty(2 * groups * B * S * K * D, dtype=torch.float32,
                               device=q.device)
     fn = _bwd_fn()

@@ -8,10 +8,12 @@ softmax: on the wgmma path 128-key tiles at head dims 64 and 128 and
 32), as the wrapper's mirror of the kernels' constants says
 (``WGMMA_TILES``, ``MMA_TILE_KEYS``, checked against the ``.cu`` file
 below).  The backward rounds P and dS to bf16 before dV = Pᵀ·dO,
-dK = dSᵀ·Q and dQ = dS·K, accumulates in f32, sums each group of query
-heads' dK / dV partials in f32 and rounds once; its Δ = rowsum(dO·O)
-reads O as the forward's bf16 output plus the residual the forward lost
-in rounding it.  The emulations below do that arithmetic in plain torch, on
+dK = dSᵀ·Q and dQ = dS·K, accumulates in f32 (on the wgmma path at head
+dims 64 and 128 dK / dV over stages of 128 or 64 queries, dQ over stages
+of 128 keys, as ``WGMMA_BWD_TILES`` says), sums each group of query heads'
+dK / dV partials in f32 and rounds once; its Δ = rowsum(dO·O) reads O as
+the forward's bf16 output plus the residual the forward lost in rounding
+it.  The emulations below do that arithmetic in plain torch, on
 bf16 inputs, and are held against the JAX reference in f32 (the forward
 against ``repro.kernels.ref.attention_ref``, the gradients against
 ``jax.grad`` of the reference's chunked attention) at the bf16 tolerance,
@@ -34,7 +36,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from test_torch_cuda import WGMMA_FWD_CASES  # noqa: E402
+from test_torch_cuda import WGMMA_BWD_CASES, WGMMA_FWD_CASES  # noqa: E402
 
 TOL = 2e-2
 LOG2E = 1.4426950408889634
@@ -100,15 +102,28 @@ def tc_forward(q, k, v, causal, window):
     return _bf16(o), lse, _bf16(o - _bf16(o))
 
 
+def bwd_stages(D, T, S):
+    """(queries a dK/dV stage, keys a dQ stage) of the bf16 backward at
+    head dim D: the wgmma kernels' tiles, from the wrapper's mirror; else
+    one stage (the mma.sync kernels' tiles move only the f32 sum order)."""
+    if D in fa.WGMMA_BWD_TILES:
+        bq, _, _, _, dq_bn, _ = fa.WGMMA_BWD_TILES[D]
+        return bq, dq_bn
+    return T, S
+
+
 def tc_backward(q, k, v, o, o_lo, lse, dout, causal, window, groups):
     """The backward kernels' arithmetic: Δ = rowsum(dO·(o + o_lo)),
     P = exp(S·scale − lse) and dS = P·(dP − Δ) in f32, rounded to bf16
-    before their products, f32 accumulation, each of ``groups`` groups of
-    a KV head's query heads summed into an f32 partial, the partials
-    summed in order and rounded to bf16 once.  Returns (dq, dk, dv)."""
+    before their products; f32 accumulation stage by stage (``bwd_stages``:
+    dK / dV over query stages, head by head of a group, dQ over key
+    stages); each of ``groups`` groups of a KV head's query heads summed
+    into an f32 partial, the partials summed in order and rounded to bf16
+    once.  Returns (dq, dk, dv)."""
     B, T, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     rep, scale = H // K, D ** -0.5
+    bq, bk = bwd_stages(D, T, S)
     delta = (dout * (o + o_lo)).sum(-1).permute(0, 2, 1)        # (B,H,T)
     visible = _mask(T, S, causal, window) & torch.isfinite(lse)[..., None]
     p = torch.where(visible, torch.exp2(_scores(q, k) * (scale * LOG2E)
@@ -117,17 +132,23 @@ def tc_backward(q, k, v, o, o_lo, lse, dout, causal, window, groups):
     dp = _scores(dout, v)
     ds = p * (dp - delta[..., None])
     pb, dsb = _bf16(p), _bf16(ds)
-    dq = scale * torch.einsum("bhts,bshd->bthd", dsb, k.repeat_interleave(rep, 2))
-    dv_h = torch.einsum("bhts,bthd->bshd", pb, dout)            # per query head
-    dk_h = torch.einsum("bhts,bthd->bshd", dsb, q)
+    kf = k.repeat_interleave(rep, 2)
+    dq = torch.zeros_like(q)
+    for k0 in range(0, S, bk):
+        dq += torch.einsum("bhts,bshd->bthd", dsb[..., k0:k0 + bk], kf[:, k0:k0 + bk])
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     for kh in range(K):
         for grp in range(groups):
-            heads = range(kh * rep + grp * rep // groups,
-                          kh * rep + (grp + 1) * rep // groups)
-            dk[:, :, kh] += sum(dk_h[:, :, h] for h in heads)
-            dv[:, :, kh] += sum(dv_h[:, :, h] for h in heads)
-    return _bf16(dq), _bf16(dk * scale), _bf16(dv)
+            part_k, part_v = torch.zeros_like(k[:, :, kh]), torch.zeros_like(v[:, :, kh])
+            for h in range(kh * rep + grp * rep // groups,
+                           kh * rep + (grp + 1) * rep // groups):
+                for q0 in range(0, T, bq):
+                    rows = slice(q0, q0 + bq)
+                    part_v += torch.einsum("bts,btd->bsd", pb[:, h, rows], dout[:, rows, h])
+                    part_k += torch.einsum("bts,btd->bsd", dsb[:, h, rows], q[:, rows, h])
+            dk[:, :, kh] += part_k
+            dv[:, :, kh] += part_v
+    return _bf16(dq * scale), _bf16(dk * scale), _bf16(dv)
 
 
 def _inputs(seed, B, T, S, H, K, D):
@@ -207,9 +228,35 @@ def test_forward_tile_constants_match_the_wrapper():
     assert int(re.search(r"constexpr int BK = (\d+);", mma).group(1)) == fa.MMA_TILE_KEYS
 
 
+def test_backward_tile_constants_match_the_wrapper():
+    """``flash_attention_bwd.cu`` states the wgmma backward's tiles once; the
+    wrapper mirrors them, ``tc_backward`` reads the wrapper's, and the path
+    query sends exactly those head dims to the wgmma kernels (path 2)."""
+    src = (_build.CSRC / fa.BWD_SOURCE).read_text()
+    tiles = {int(d): tuple(map(int, rest)) for d, *rest in re.findall(
+        r"struct Tiles<(\d+)> \{ static constexpr int BQ = (\d+), BN = (\d+), "
+        r"STAGES = (\d+), DQ_BM = (\d+), DQ_BN = (\d+), DQ_STAGES = (\d+); \};", src)}
+    assert tiles == fa.WGMMA_BWD_TILES
+    wgb = src[src.index("namespace wgb {"):src.index("}  // namespace wgb")]
+    consumers = int(re.search(r"constexpr int CONSUMERS = (\d+);", wgb).group(1))
+    rows = int(re.search(r"constexpr int ROWS = (\d+);", wgb).group(1))
+    for bq, bn, _, dq_bm, dq_bn, _ in tiles.values():
+        # A consumer warpgroup owns 64 keys (dK/dV) or 64 query rows (dQ),
+        # and every tile is whole TMA boxes.
+        assert bn == dq_bm == 64 * consumers
+        assert all(x % rows == 0 for x in (bq, bn, dq_bm, dq_bn))
+    path = src[src.index('extern "C" int repro_flash_attention_bwd_path'):]
+    dims = " || ".join(f"D == {d}" for d in sorted(tiles))
+    assert path.index(f"if ({dims}) return 2;") < path.index("}")
+    assert bwd_stages(64, 300, 300) == (tiles[64][0], tiles[64][4])
+
+
 # D in {64, 128} at T = S = 256 and GQA 12:1, causal and windowed; the
 # group counts are the split of the starcoder2-3b training shape (4) and
-# one group per head (12).  Head dim 256 (the warp-pair kernels) at
+# one group per head (12).  The wgmma kernels' tile edges at D in {64, 128}
+# (WGMMA_BWD_CASES, with the split the kernels take there), and granite's
+# GQA 2:1 (D=64) and phi3.5's GQA 4:1 (D=128) in one group, their split at
+# their training shapes.  Head dim 256 (the warp-pair kernels) at
 # recurrentgemma's GQA 16:1: T = S = 256, causal, windowed, G = 6 (its
 # training shape's split) and 16; T > S, so some rows see no key; and a
 # non-causal case with T != S.  Head dim 64, non-causal, T != S: whisper's
@@ -225,7 +272,9 @@ BWD_CASES = ([(1, 256, 256, 12, 1, D, True, window, groups)
              + [(2, 70, 130, 12, 12, 64, False, 0, 1),
                 (1, 150, 90, 4, 4, 64, False, 0, 1),
                 (1, 96, 200, 4, 2, 64, False, 0, 2)]
-             + [(1, 256, 256, 8, 1, 256, True, 0, groups) for groups in (8, 4)])
+             + [(1, 256, 256, 8, 1, 256, True, 0, groups) for groups in (8, 4)]
+             + [case + (groups,) for case, groups in WGMMA_BWD_CASES]
+             + [(1, 256, 256, 16, 8, 64, True, 0, 1), (1, 256, 256, 32, 8, 128, True, 0, 1)])
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=str)

@@ -291,6 +291,20 @@ BWD_TC_CASES = [
     ((4, 1024, 1024, 16, 8, 64, True, 0), 1),
     ((4, 1024, 1024, 32, 8, 128, True, 0), 1),
 ]
+# The wgmma backward's tiles (head dims 64 and 128: dK/dV 128 keys a block
+# and 128 or 64 queries a stage, dQ 128 rows a block and 128 keys a stage),
+# with the split G the kernels take at each shape: T and S ragged against
+# all of them, T > S so that rows see no key, a window of 200 that leaves
+# whole stages unseen, non-causal T != S; granite's GQA 2:1 at D=64 and
+# phi3.5's 4:1 at D=128.  tests/test_torch_attn_tc.py holds its CPU
+# emulation of the kernels' rounding on the same cases.
+WGMMA_BWD_CASES = [case for D in (64, 128) for case in (
+    ((1, 200, 330, 4, 2, D, True, 0), 2),
+    ((1, 300, 140, 4, 1, D, True, 0), 4),
+    ((1, 640, 640, 4, 2, D, True, 200), 2),
+    ((2, 150, 400, 4, 2, D, False, 0), 2),
+)] + [((1, 256, 256, 16, 8, 64, True, 0), 2), ((1, 256, 256, 32, 8, 128, True, 0), 4)]
+BWD_TC_CASES += WGMMA_BWD_CASES
 
 
 def _bwd_vs_plain(case, dtype, seed):
@@ -315,8 +329,8 @@ def test_flash_attention_bwd_tensor_cores_vs_autograd_of_plain(case, groups):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, T, S, H, K, D, causal, window = case
-    assert fa.bwd_path(torch.bfloat16, D) == 1
-    assert fa.bwd_groups(B, S, H, K) == groups
+    assert fa.bwd_path(torch.bfloat16, D) == (2 if D in fa.WGMMA_BWD_TILES else 1)
+    assert fa.bwd_groups(B, S, H, K, D) == groups
     before = fa.BWD_LAUNCHES
     got, want = _bwd_vs_plain(case, torch.bfloat16, 12)
     torch.cuda.synchronize()
@@ -350,15 +364,16 @@ def test_flash_attention_bwd_is_deterministic(case):
 @pytest.mark.gpu
 def test_flash_attention_paths():
     """The bf16 forward takes the wgmma kernel at head dims 64, 128 and 256
-    and the mma.sync kernel at 16 and 32; the bf16 backward takes the
-    tensor cores at all five; f32, head dims the tensor-core kernels do not
-    instantiate, and unaligned pointers take the FMA kernels."""
+    and the mma.sync kernel at 16 and 32; the bf16 backward the wgmma
+    kernels at 64 and 128 and the mma.sync kernels at 16, 32 and 256; f32,
+    head dims the tensor-core kernels do not instantiate, and unaligned
+    pointers take the FMA kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     bf16, f32 = torch.bfloat16, torch.float32
     assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1, 1, 2, 2, 2]
     assert fa.PATHS[2] == "wgmma"
-    assert [fa.bwd_path(bf16, D) for D in (16, 32, 64, 128)] == [1] * 4
+    assert [fa.bwd_path(bf16, D) for D in (16, 32, 64, 128)] == [1, 1, 2, 2]
     assert fa.bwd_path(bf16, 256) == 1
     assert fa.fwd_path(bf16, 96) == fa.bwd_path(bf16, 96) == 0
     assert fa.fwd_path(f32, 128) == fa.bwd_path(f32, 128) == 0

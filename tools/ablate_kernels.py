@@ -16,7 +16,8 @@ For the kernel's sources in the tree at DIR (default: this checkout's
   shape and recurrentgemma-9b's local shape (head dim 256), with
   ``chip_smoke``'s inputs.
 - ``flash_bwd``: the bf16 tensor-core backward of
-  ``flash_attention_bwd.cu``, timed through its C entry point from one
+  ``flash_attention_bwd.cu`` (the wgmma kernels at head dims 64 and 128,
+  the warp pairs at 256), timed through its C entry point from one
   forward's saved tensors at whisper-small's encoder (head dim 64),
   starcoder2-3b's training shape (128), paligemma-3b's and
   recurrentgemma-9b's local training shapes (256).
@@ -32,8 +33,10 @@ For the kernel's sources in the tree at DIR (default: this checkout's
    (``GROUP`` is 1 where the source does not state it).  ``flash_fwd``: the
    whole of each wgmma kernel's HGMMA, warpgroup arrive and dependency
    barriers, MUFU.EX2, SHFL, SYNCS (the mbarrier operations) and BAR.
-   ``flash_bwd``: the whole of each dK/dV and dQ kernel's HMMA, LDSM,
-   MUFU.EX2, LDGSTS, STS, LDS and BAR.
+   ``flash_bwd``: the whole of each wgmma kernel (dK/dV and dQ blocks
+   in one launch) and each warp-pair dK/dV and dQ kernel: HGMMA,
+   warpgroup arrive and dependency barriers, SYNCS, HMMA, LDSM, MUFU.EX2,
+   LDGSTS, STS, LDS, BAR, and STL / LDL (local memory: spills).
 3. Ablations.  Copies the tree's ``csrc/`` under ``build/ablate/<name>/``,
    applies the text substitutions the table lists for that source (an
    ablation whose text is not in the source is reported as not
@@ -143,9 +146,12 @@ FLASH_FWD_ABLATIONS = {
          "(void)dq; (void)dk;")]),
 }
 FAB = "flash_attention_bwd.cu"
-# The backward's five products and the pieces around them, each taken out of
-# both code sets: the one-warp kernels (D <= 128) and the warp-pair kernels
-# (D = 256), where role 0 of a pair computes S and P and role 1 dP.
+# The backward's products and the pieces around them, each taken out of the
+# mma.sync code sets: the one-warp kernels (D <= 128 before the wgmma
+# kernels, 16 and 32 since) and the warp-pair kernels (D = 256), where role
+# 0 of a pair computes S and P and role 1 dP; then ("wgmma: ...") out of the
+# wgmma kernels at D in {64, 128}.  A removed product keeps its commit, so
+# the waits still count the same groups.
 FLASH_BWD_ABLATIONS = {
     "no softmax recompute (P = S)": (FAB, [
         ("const float p = ok ? exp2f(sT[n][i] * scale_log2 - l * LOG2E) : 0.f;",
@@ -198,6 +204,34 @@ FLASH_BWD_ABLATIONS = {
          "      reinterpret_cast<const float4*>(dk_part),\n"
          "      reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),\n"
          "      static_cast<uint2*>(dv), n4, groups, scale);\n", "(void)blocks;\n")]),
+    "wgmma: no softmax recompute (P = S)": (FAB, [
+        ("float p = exp2_ftz(fmaf(st[4 * n + i], scale_log2, nl[col]));",
+         "float p = st[4 * n + i];"),
+        ("float p = exp2_ftz(fmaf(sc[4 * n + i], scale_log2, nl[r]));",
+         "float p = sc[4 * n + i];"),
+        ("const bool all = (!causal || kwarp + 15 <= qp0) &&\n"
+         "                         (window <= 0 || kwarp > qp0 + BQ - 1 - window);",
+         "const bool all = true;"),
+        ("const bool all = k0 >= full_lo && k0 + BN <= full_hi;", "const bool all = true;")]),
+    "wgmma: no S products": (FAB, [
+        ("product_ss<BQ, D, BN>(st, Ks, Qs);", "wgmma_commit();"),
+        ("product_ss<BN, D, BM>(sc, Qs, Ks);", "wgmma_commit();")]),
+    "wgmma: no dP products": (FAB, [
+        ("product_ss<BQ, D, BN>(dpt, Vs, Os);", "wgmma_commit();"),
+        ("product_ss<BN, D, BM>(dp, Os, Vs);", "wgmma_commit();")]),
+    "wgmma: no dV products": (FAB, [
+        ("product_rs<BQ, D>(dv_acc, pa, Os);", "wgmma_commit();")]),
+    "wgmma: no dK products": (FAB, [
+        ("product_rs<BQ, D>(dk_acc, da, Qs);", "wgmma_commit();")]),
+    "wgmma: no dQ products": (FAB, [
+        ("product_rs<BN, D>(acc, da, Ks);", "wgmma_commit();")]),
+    "wgmma: no dQ pass (its blocks not launched)": (FAB, [
+        ("kern<<<(unsigned)(kv_blocks + q_blocks), THREADS", "kern<<<(unsigned)kv_blocks, THREADS")]),
+    "wgmma: no dK/dV group sum (reduce not launched)": (FAB, [
+        ("  tc::bwd_reduce_kernel<<<(unsigned)blocks, tc::REDUCE_THREADS, 0, stream>>>(\n"
+         "      reinterpret_cast<const float4*>(dk_part),\n"
+         "      reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),\n"
+         "      static_cast<uint2*>(dv), n4, groups, scale);\n", "(void)blocks;\n")]),
 }
 
 # Instruction classes by opcode prefix, in the order they are tried.
@@ -207,7 +241,8 @@ CLASSES = (("LDS", ("LDS", "LDSM")), ("STS", ("STS",)), ("SHFL", ("SHFL",)),
            ("BAR", ("BAR",)), ("global", ("LDG", "STG", "LDGSTS", "LDGDEPBAR")))
 FLASH_COUNTED = ("HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "MUFU.EX2", "SHFL",
                  "SYNCS", "BAR")
-FLASH_BWD_COUNTED = ("HMMA", "LDSM", "MUFU.EX2", "LDGSTS", "STS", "LDS", "BAR")
+FLASH_BWD_COUNTED = ("HGMMA", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "SYNCS", "HMMA", "LDSM",
+                     "MUFU.EX2", "LDGSTS", "STS", "LDS", "BAR", "STL", "LDL")
 LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
 
 
@@ -336,7 +371,7 @@ def flash_bwd_calls(torch, cs) -> dict:
         dout = cs.randn(torch, torch.Generator(device="cuda").manual_seed(95),
                         q.shape, torch.bfloat16)
         o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
-        groups = fa.bwd_groups(B, S, H, K)
+        groups = fa.bwd_groups(B, S, H, K, D)
         partial = torch.empty(2 * groups * B * S * K * D, dtype=torch.float32,
                               device="cuda")
         delta = torch.empty((B, H, T), dtype=torch.float32, device="cuda")
@@ -375,9 +410,9 @@ TARGETS = {
         count=op_counts, ptxas=r"wgmma|warning|setmaxnreg", calls=flash_fwd_calls),
     "flash_bwd": dict(
         ablations=FLASH_BWD_ABLATIONS,
-        kernels={FAB: r"bwd_(dkdv|dq)_(mma|pair)_kernel<(\(int\))?(64|128|256)>"},
+        kernels={FAB: r"bwd_((dkdv|dq)_pair|wgmma)_kernel<(\(int\))?(64|128|256)>"},
         count=lambda code, text: op_counts(code, text, FLASH_BWD_COUNTED),
-        ptxas=r"warning", calls=flash_bwd_calls),
+        ptxas=r"wgmma|warning|setmaxnreg", calls=flash_bwd_calls),
 }
 
 

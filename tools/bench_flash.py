@@ -19,10 +19,16 @@ with ``chip_smoke``'s inputs and timer.  With neither flag, both parts run.
   q, k, v and o at 3.35 TB/s); then the host time of one call at a small
   shape, where the card does not hold the host back.
 - ``--bwd``: the backward alone, from one forward's saved tensors, twice at
-  starcoder2-3b's training shape (head dim 128), recurrentgemma-9b's local
-  training shape and paligemma-3b's training shape (head dim 256, the
-  first with window 2048), with each kernel's device time from one more
-  call under ``torch.profiler``.
+  starcoder2-3b's training shape (head dim 128), whisper-small's encoder
+  and cross-attention and granite-moe's layer (64), phi3.5-moe's layer
+  (128), recurrentgemma-9b's local training shape and paligemma-3b's
+  training shape (256, the first with window 2048), with each kernel's
+  device time from one more call under ``torch.profiler``, the bound (the
+  five products of 2·D flops per visible pair at 989 TFLOP/s against q, k,
+  v, o, dO, lse, dq, dk, dv at 3.35 TB/s) and autograd of SDPA's time (a
+  yardstick the port never calls), by CUDA events around the calls and as
+  the device time of its kernels under ``torch.profiler``.  The local shape takes fewer
+  iterations and no SDPA.
 
 To compare two commits on one card, unpack the other under ``build/``
 (``git archive``) and run parent, change, change, parent on one card, one
@@ -98,9 +104,25 @@ def forward(torch, cs, fa, ref) -> dict:
     return out
 
 
+def device_ms(torch, fn, calls: int) -> float:
+    """Device time of the kernels ``fn`` launches, per call, over ``calls``
+    calls under ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / calls / 1e3
+
+
 def backward(torch, cs, fa) -> dict:
     out = {}
     for name, shape, iters in (("starcoder2_train", cs.TRAIN_SHAPE, 20),
+                               ("whisper_encoder", cs.WHISPER_ENC_SHAPE, 20),
+                               ("whisper_cross", cs.WHISPER_CROSS_SHAPE, 20),
+                               ("granite_train", cs.GRANITE_SHAPE, 20),
+                               ("phi3.5_train", cs.PHI_SHAPE, 20),
                                ("recurrentgemma_local_train", cs.LOCAL_TRAIN_SHAPE, 5),
                                ("paligemma_train", cs.PALI_TRAIN_SHAPE, 20)):
         B, T, S, H, K, D, causal, window = shape
@@ -121,10 +143,32 @@ def backward(torch, cs, fa) -> dict:
             torch.cuda.synchronize()
         by_kernel = {e.key[:60]: e.device_time_total / 1e3
                      for e in prof.key_averages() if e.device_time_total > 0}
+        # SDPA's backward through autograd: CUDA events around the calls (the
+        # host's autograd work included), and the device time of its kernels.
+        sdpa_ms = sdpa_device_ms = None
+        if window == 0:
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                    *(x.transpose(1, 2) for x in leaves), is_causal=causal,
+                    enable_gqa=True).transpose(1, 2)
+
+                def sdpa_call():
+                    return torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)
+
+                sdpa_ms = cs.time_ms(torch, sdpa_call, iters=iters)
+                sdpa_device_ms = device_ms(torch, sdpa_call, 5)
+                del leaves, sdpa_out
+        flops = 10 * D * cs.visible_pairs(T, S, causal, window) * B * H
+        b_ms, b_by, _ = cs.bound(flops, cs.PEAK_BF16_FLOPS, 0,
+                                 cs.nbytes(q, k, v, o, dout, lse, q, k, v))
         out[name] = {"shape": list(shape), "path": path, "ms": ms,
+                     "device_ms": sum(by_kernel.values()), "sdpa_ms": sdpa_ms,
+                     "sdpa_device_ms": sdpa_device_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "device_ms_by_kernel": by_kernel}
-        print(f"backward {name} {shape} ({path}): {ms[0]:.4f} / {ms[1]:.4f} ms",
-              flush=True)
+        print(f"backward {name} {shape} ({path}): {ms[0]:.4f} / {ms[1]:.4f} ms "
+              f"(device {sum(by_kernel.values()):.4f}), sdpa backward {sdpa_ms} "
+              f"(device {sdpa_device_ms}), bound {b_ms:.4f} ms by {b_by}", flush=True)
         del q, k, v, dout, o, lse, o_lo
         torch.cuda.empty_cache()
     return out
