@@ -32,7 +32,9 @@ without the final result line:
    against a plain logsumexp at 1e-4, with its output bit-identical to the
    forward without it; the flash backward's dQ, dK, dV against autograd of
    the plain attention at the same f32 / bf16 tolerances, and bit for bit
-   equal on a second call, as are both scans at their main shapes;
+   equal on a second call (every bf16 head-dim 256 case, the edges of the
+   wgmma kernel's 64-key tiles and both training shapes among them), as are
+   both scans at their main shapes;
    quantization's int8 codes exactly equal and its
    scales within 1e-6.  The flash kernels' path queries must put the bf16
    main shapes (qwen3, llama3 (H/K 16, forward only), recurrentgemma-local
@@ -40,7 +42,8 @@ without the final result line:
    five new shapes forward and backward) on the tensor cores (the forward
    on the wgmma kernel at head dims 64, 128 and 256: paligemma's training
    shape and recurrentgemma's local serving and training shapes among
-   them; the backward on the mma.sync kernels) and f32 on the FMA kernels,
+   them; the backward on the wgmma kernel too, at every head dim the main
+   paths use, 256 included) and f32 on the FMA kernels,
    and the backward's group split must be the one each case expects; the
    head-dim 256 backward runs on the wgmma forward's log-sum-exp and
    rounding residual.  The scans' backward kernels, through autograd,
@@ -196,8 +199,8 @@ without the final result line:
    beside SDPA's time from the same run, and each scan line the time of
    the scan kernel it replaced (one thread per channel walking all T).
    The scans' backward kernels and the flash backward at the
-   recurrentgemma local training shape (head dim 256, the tensor cores'
-   warp-pair kernels) against autograd of plain and of SDPA; the flash
+   recurrentgemma local training shape (head dim 256, the wgmma kernel's
+   64-key dK/dV blocks) against autograd of plain and of SDPA; the flash
    forward at recurrentgemma's local serving shape (SDPA with a boolean
    mask for the window); the flash forward and backward at whisper's
    encoder shape and paligemma's training shape; the flash forward alone
@@ -271,16 +274,17 @@ D256_CASES = [
     (1, 130, 200, 4, 2, 256, True, 48),
 ]
 # The tensor-core backward's paths and GQA group splits: case -> (path, G),
-# path 2 the wgmma kernels (head dims 64 and 128), 1 the mma.sync ones, and
-# G the number of groups its dK/dV pass splits a KV head's H/K query heads
-# into.  Group sizes 1, 3 and 12; G = 2 over a group of 3, which it does not
-# divide; ragged T and S, T > S, suffix queries, a window, non-causal T != S;
-# at head dim 256 (the warp-pair kernels) recurrentgemma's group of 16 whole
-# (G = 16) and split 12 ways, which does not divide it.  Then the wgmma
-# kernels' tile edges (128 keys a dK/dV block, 128 or 64 queries a stage;
-# 128 dQ rows a block, 128 keys a stage): T and S ragged, T > S, a window of
-# 200 that leaves whole stages unseen, non-causal T != S, granite's GQA 2:1
-# and phi3.5's 4:1.
+# path 2 the wgmma kernel (head dims 64, 128 and 256), 1 the mma.sync ones,
+# and G the number of groups its dK/dV pass splits a KV head's H/K query
+# heads into.  Group sizes 1, 3 and 12; G = 2 over a group of 3, which it
+# does not divide; ragged T and S, T > S, suffix queries, a window,
+# non-causal T != S; at head dim 256 recurrentgemma's group of 16 whole
+# (G = 16) and split 6 ways, which does not divide it.  Then the wgmma
+# kernel's tile edges (at head dims 64 and 128: 128 keys a dK/dV block, 128
+# or 64 queries a stage, 128 dQ rows a block, 128 keys a stage; at 256: 64
+# keys a dK/dV block, 64 queries a stage, 128 dQ rows a block, 64 keys a
+# stage): T and S ragged, T > S, a window of 200 that leaves whole stages
+# unseen, non-causal T != S, granite's GQA 2:1 and phi3.5's 4:1.
 BWD_TC_GROUPS = {
     (1, 100, 100, 4, 4, 64, True, 0): (2, 1),
     (2, 70, 90, 6, 2, 32, True, 0): (1, 3),
@@ -288,9 +292,9 @@ BWD_TC_GROUPS = {
     (1, 130, 130, 12, 1, 128, True, 48): (2, 12),
     (1, 200, 150, 12, 1, 32, False, 0): (1, 12),
     (4, 1024, 1024, 12, 4, 64, True, 0): (2, 2),
-    (1, 256, 256, 16, 1, 256, True, 0): (1, 16),
-    (4, 700, 700, 16, 1, 256, True, 0): (1, 12),
-    **{case: (2, groups) for D in (64, 128) for case, groups in (
+    (1, 256, 256, 16, 1, 256, True, 0): (2, 16),
+    (4, 700, 700, 16, 1, 256, True, 0): (2, 6),
+    **{case: (2, groups) for D in (64, 128, 256) for case, groups in (
         ((1, 200, 330, 4, 2, D, True, 0), 2),
         ((1, 300, 140, 4, 1, D, True, 0), 4),
         ((1, 640, 640, 4, 2, D, True, 200), 2),
@@ -313,15 +317,14 @@ WHISPER_CROSS_SHAPE = (4, 448, 1500, 12, 12, 64, False, 0)
 PALI_TRAIN_SHAPE = (4, 768, 768, 8, 1, 256, True, 0)
 GRANITE_SHAPE = (4, 1024, 1024, 16, 8, 64, True, 0)
 PHI_SHAPE = (4, 1024, 1024, 32, 8, 128, True, 0)
-ARCH_SHAPES = {WHISPER_ENC_SHAPE: 1, WHISPER_CROSS_SHAPE: 1, PALI_TRAIN_SHAPE: 8,
+ARCH_SHAPES = {WHISPER_ENC_SHAPE: 1, WHISPER_CROSS_SHAPE: 1, PALI_TRAIN_SHAPE: 6,
                GRANITE_SHAPE: 1, PHI_SHAPE: 1}
 ALL_ATTN = (ATTN_CASES + EXTRA_CASES + D256_CASES + list(BWD_TC_GROUPS)
             + [MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LOCAL_TRAIN_SHAPE]
             + list(ARCH_SHAPES))
 FWD_ONLY = [LLAMA3_SHAPE]
-BWD_TC_GROUPS.update({TRAIN_SHAPE: (2, 4), LOCAL_SHAPE: (1, 3), LOCAL_TRAIN_SHAPE: (1, 6),
-                      **{case: (2 if case[5] < 256 else 1, groups)
-                         for case, groups in ARCH_SHAPES.items()}})
+BWD_TC_GROUPS.update({TRAIN_SHAPE: (2, 4), LOCAL_SHAPE: (2, 2), LOCAL_TRAIN_SHAPE: (2, 3),
+                      **{case: (2, groups) for case, groups in ARCH_SHAPES.items()}})
 # Shapes whose bf16 forward must take the wgmma kernel (head dims 64, 128
 # and 256; the mma.sync kernel keeps 16 and 32, which no main path uses).
 TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, LOCAL_TRAIN_SHAPE,
@@ -1583,14 +1586,21 @@ def main() -> int:
             if dtype == torch.bfloat16 and case in ARCH_SHAPES:
                 main_err[("flash_attention_bwd", case)] = max(errs)
                 paths[("flash_attention_bwd", case)] = path
+            if dtype == torch.bfloat16 and D == 256:
+                again = torch.autograd.grad(
+                    fa.flash_attention_cuda(q, k, v, causal=causal, window=window),
+                    (q, k, v), dout)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"flash_attention backward {case} bf16: two calls differ")
+                del again
             n_cases += 1
             del q, k, v, qf, kf, vf, dout, got, want
             free()
     # The backward is deterministic: a second call gives the same bits (G=4
-    # at the training shape, G=2 over a group of 3, G=6 at recurrentgemma's
-    # local training shape on the warp-pair kernels).
+    # at the training shape, G=2 over a group of 3, G=3 at recurrentgemma's
+    # local training shape and G=6 at paligemma's, head dim 256).
     for i, case in enumerate((TRAIN_SHAPE, (4, 1024, 1024, 12, 4, 64, True, 0),
-                              LOCAL_TRAIN_SHAPE)):
+                              LOCAL_TRAIN_SHAPE, PALI_TRAIN_SHAPE)):
         B, T, S, H, K, D, causal, window = case
         q, k, v = attn_inputs(torch, case, torch.bfloat16, seed=600 + i)
         dout = randn(torch, torch.Generator(device="cuda").manual_seed(700 + i),
@@ -2484,7 +2494,7 @@ def main() -> int:
     free()
 
     # The flash backward at recurrentgemma's local training shape: head dim
-    # 256 on the tensor cores, in the warp-pair kernels.
+    # 256 on the wgmma kernel.
     B, T, S, H, K, D, causal, window = LOCAL_TRAIN_SHAPE
     q, k, v = (x.requires_grad_() for x in
                attn_inputs(torch, LOCAL_TRAIN_SHAPE, torch.bfloat16, seed=89))
@@ -2494,8 +2504,7 @@ def main() -> int:
         o, lse, o_lo = fa._forward(q, k, v, causal, window, D ** -0.5,
                                    with_lse=True)
     path = fa.PATHS[fa.bwd_path(q.dtype, D, fa._aligned(q, k, v, dout))]
-    check(path == "tensor cores",
-          f"flash backward {LOCAL_TRAIN_SHAPE}: path {path}, not the tensor cores")
+    check(path == "wgmma", f"flash backward {LOCAL_TRAIN_SHAPE}: path {path}, not wgmma")
     groups = fa.bwd_groups(B, S, H, K, D)
     ms = time_ms(torch, lambda: fa.flash_attention_bwd_cuda(
         q, k, v, o, lse, dout, causal=causal, window=window, o_lo=o_lo), iters=10)

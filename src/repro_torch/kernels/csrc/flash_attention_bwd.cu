@@ -29,27 +29,37 @@
 // mma.sync), then a reduce kernel (on the wgmma path only when the GQA
 // group is split, below).
 //
-// * 2, bf16 with D in {64, 128} and 16-byte aligned pointers (the training
-//   path of every arch but recurrentgemma's and paligemma's): Hopper's
-//   wgmma, fed by TMA copies into mbarrier rings (namespace wgb; helpers in
-//   wgmma_tma.cuh).  The forward's warp-specialised block: a producer
-//   warpgroup at 24 registers (setmaxnreg) whose first thread issues every
-//   copy, and two consumer warpgroups at 240.  Tensor maps see q, k, v and
-//   dO as 4-d (D, heads, rows, B), so TMA zero-fills rows past T or S.
-//   - dK/dV blocks: one per (128-key tile, b, kv head, group of query
-//     heads); each consumer warpgroup owns 64 keys and keeps their dK and
-//     dV in f32 registers for the whole block (128 a thread at D=128).  Q
-//     and dO stream through the ring in stages of 128 queries at D=64, 64
-//     at D=128 (the registers' limit), with the stage's -lse log2e and
-//     Delta, which 64 producer threads write.  Per stage S^T = K Q^T and
-//     dP^T = V dO^T (wgmma, both operands from shared memory, K-major),
-//     P^T and dS^T formed on the accumulators and packed in place to bf16
-//     as the register A of dV += P^T dO and dK += dS^T Q, dO and Q read
-//     MN-major from the same swizzled tiles.
+// * 2, bf16 with D in {64, 128, 256} and 16-byte aligned pointers (the
+//   training path of every arch): Hopper's wgmma, fed by TMA copies into
+//   mbarrier rings (namespace wgb; helpers in wgmma_tma.cuh).  The forward's
+//   warp-specialised block: a producer warpgroup at 24 registers
+//   (setmaxnreg) whose first thread issues every copy, and two consumer
+//   warpgroups at 240.  Tensor maps see q, k, v and dO as 4-d (D, heads,
+//   rows, B), so TMA zero-fills rows past T or S.
+//   - dK/dV blocks: one per (key tile, b, kv head, group of query heads).
+//     At D in {64, 128} a block has 128 keys, each consumer warpgroup owns
+//     64 and keeps their dK and dV in f32 registers for the whole block (128
+//     a thread at D=128).  Q and dO stream through the ring in stages of 128
+//     queries at D=64, 64 at D=128 (the registers' limit), with the stage's
+//     -lse log2e and Delta, which 64 producer threads write.  Per stage S^T =
+//     K Q^T and dP^T = V dO^T (wgmma, both operands from shared memory,
+//     K-major), P^T and dS^T formed on the accumulators and packed in place
+//     to bf16 as the register A of dV += P^T dO and dK += dS^T Q, dO and Q
+//     read MN-major from the same swizzled tiles.
+//   - At D=256 (recurrentgemma's local layers, paligemma) one warpgroup's dK
+//     and dV of 64 keys would be 256 registers a thread.  So a block has 64
+//     keys, which both consumers share, each owning 128 of the output
+//     columns (128 registers a thread again), over stages of 64 queries.
+//     Each score product runs once over all of D: consumer 0 computes S^T
+//     and P^T, consumer 1 dP^T; they swap the 64 x 64 f32 tiles through
+//     shared memory behind a barrier of their 256 threads, both form dS^T
+//     from the same bits, and each runs dV and dK on its columns.
 //   - dQ blocks: one per 128 query rows of one (b, h), Q and dO loaded
-//     once, K and V streaming through the ring in stages of 128 keys: S =
-//     Q K^T, dP = dO V^T, dS, dQ += dS K with K read MN-major; the
-//     forward's kernel with a second score product.
+//     once, K and V streaming through the ring in stages of 128 keys (64 at
+//     D=256, where the ring is three slots that V and K tiles take in turn,
+//     each released as soon as its products are done): S = Q K^T, dP = dO
+//     V^T, dS, dQ += dS K with K read MN-major; the forward's kernel with a
+//     second score product.
 //   - Both kinds of block run in one launch, dK/dV blocks first and each
 //     kind heaviest first, so the dQ blocks fill the last wave of the
 //     dK/dV blocks.
@@ -57,28 +67,19 @@
 //     per query (-inf past T or for a row that sees no key), so a score
 //     takes one FFMA and one ex2.approx.ftz and P = 0 needs no select;
 //     masks apply only in tiles the causal diagonal, the window or S cuts.
-//     A warpgroup skips a stage it sees none of.
-// * 1, bf16 with D in {16, 32, 256} and aligned pointers: mma.sync m16n8k16
-//   with bf16 inputs and f32 accumulation, ldmatrix / ldmatrix.trans and
-//   cp.async double buffers (namespace tc; helpers in mma_bf16.cuh).
+//     A block or warpgroup skips a stage it sees none of.
+// * 1, bf16 with D in {16, 32} and aligned pointers (no arch's path):
+//   mma.sync m16n8k16 with bf16 inputs and f32 accumulation, ldmatrix /
+//   ldmatrix.trans and cp.async double buffers (namespace tc; helpers in
+//   mma_bf16.cuh).
 //   - dK/dV kernel, one block of 128 threads per (64-key tile, b, kv head,
 //     group of query heads).  FA2's scheme with keys as the rows: each
 //     warp owns 16 keys and computes S^T and dP^T, forms P^T and dS^T in
 //     f32 registers and repacks them as bf16 A fragments for dV and dK,
 //     with no shared memory round trip.  Q / dO tiles of 64 queries (and
 //     their lse / Delta) are double-buffered with cp.async.
-//   - At D=256 (recurrentgemma's local layers, paligemma) one warp's dK
-//     and dV would be 256 registers a thread, over the 255 cap.  So the
-//     block has 256 threads, and two warps share each 16-key slab, each
-//     owning 128 of the output columns.  The pair splits S^T and dP^T: one
-//     warp computes S^T over all of D and forms P^T, the other dP^T; they
-//     swap the two 16 x 32 f32 tiles through shared memory behind a named
-//     barrier of their 64 threads, and each forms dS^T and runs dV and dK
-//     on its columns.  149 KB of shared memory, one block per SM; 238
-//     registers, no spills (ptxas -v, PERF.md).
 //   - dQ kernel, one block per (64-query tile, b, h), heaviest tiles first,
-//     K / V tiles double-buffered with cp.async; at D=256 warp pairs as
-//     above over 32-key K / V tiles (148 KB, 129 registers).
+//     K / V tiles double-buffered with cp.async.
 // * 0, everything else (f32, other head dims up to 256, unaligned
 //   pointers): f32 FMAs on the CUDA cores, three launches (delta, dK/dV,
 //   dQ).  Each of the 32 rows of a tile is owned by 8 lanes of one warp
@@ -92,7 +93,8 @@
 // them) are split into G groups, G from the shape
 // (repro_flash_attention_bwd_groups: enough dK/dV blocks for 256 of the
 // wgmma kernel's, or 512 of mma.sync's, at most H/K): G=4 at the
-// starcoder2-3b training shape, G=6 at recurrentgemma-9b's local one.  Each
+// starcoder2-3b training shape, G=3 at recurrentgemma-9b's local one, G=6
+// at paligemma-3b's.  Each
 // block writes its f32 partial dK / dV to scratch that the caller allocates
 // (2 G B S K D floats), and the reduce kernel sums the G partials in a
 // fixed order and rounds once; with G = 1 a wgmma block writes dK and dV in
@@ -473,23 +475,18 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 namespace tc {
 
+// Instantiated at head dims 16 and 32 only.
 constexpr int THREADS = 128;      // 4 warps x 16 rows
 constexpr int BKV = 64;           // keys per dK/dV block and per dQ KV tile
+constexpr int BQ_KV = 64;         // queries per Q / dO tile of the dK/dV pass
 constexpr int BQ_DQ = 64;         // queries per dQ block
 constexpr int TARGET_BLOCKS = 512;  // dK/dV blocks the group split aims at
 constexpr int REDUCE_THREADS = 256;
 
-// Queries per tile of the dK/dV pass.  A warp owns 16 keys and keeps their
-// dK and dV accumulators (2 * D/2 f32 registers a thread) for the whole
-// block; at D=128 that is 128 registers, so the tiles hold 32 queries
-// (S^T and dP^T 16 registers each) and not 64.
-template <int D>
-__host__ __device__ constexpr int dkdv_bq() { return D <= 64 ? 64 : 32; }
-
 template <int D>
 __host__ __device__ constexpr size_t dkdv_smem() {
-  return sizeof(__nv_bfloat16) * (size_t)(2 * BKV + 4 * dkdv_bq<D>()) * (D + PAD) +
-         sizeof(float) * 4 * dkdv_bq<D>();
+  return sizeof(__nv_bfloat16) * (size_t)(2 * BKV + 4 * BQ_KV) * (D + PAD) +
+         sizeof(float) * 4 * BQ_KV;
 }
 
 template <int D>
@@ -516,7 +513,7 @@ bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                     float* __restrict__ dk_part, float* __restrict__ dv_part,
                     int B, int T_, int S, int H, int K, int groups, int causal,
                     int window, float scale_log2) {
-  constexpr int BQ = dkdv_bq<D>();
+  constexpr int BQ = BQ_KV;
   constexpr int DP = D + PAD;
   constexpr int KC = D / 16;        // k-chunks of S^T and dP^T over D
   constexpr int NQ = BQ / 8;        // query n-tiles of S^T and dP^T
@@ -820,396 +817,6 @@ bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Head dim 256: pairs of warps split the output columns
-// ---------------------------------------------------------------------------
-// A warp that owns 16 rows cannot hold their outputs at D=256: dK and dV
-// would be 256 f32 registers a thread.  So two warps share each 16-row
-// slab, and each owns D/2 of the output columns: dK and dV are then 128
-// registers a thread, as at D=128, and dQ 64.  The pair splits the two
-// score products, each over all of D, rather than both recomputing them:
-// role 0 computes the scores and turns them into P, role 1 the score
-// gradients dP.  Each writes its 16 x N f32 tile to shared memory in the
-// accumulator's lane order, a named barrier of the pair's 64 threads
-// orders the exchange, and each reads the other's.  Both form
-// dS = P (dP - Delta) in f32 from the same bits, round P and dS to bf16 as
-// the kernels above do, and run the output products on their columns.
-
-constexpr int PAIR_THREADS = 256;   // 4 pairs of warps, one 16-row slab each
-constexpr int PAIR_BQ = 32;         // queries per Q / dO tile of the dK/dV pass
-constexpr int PAIR_BK = 32;         // keys per K / V tile of the dQ pass
-
-// The f32 exchange tiles: 8 warps x (N/8 n-tiles x 4 values x 32 lanes).
-__host__ __device__ constexpr size_t xchg_floats(int N) { return 8 * 16 * (size_t)N; }
-
-template <int D>
-__host__ __device__ constexpr size_t dkdv_pair_smem() {
-  return sizeof(__nv_bfloat16) * (size_t)(2 * BKV + 4 * PAIR_BQ) * (D + PAD) +
-         sizeof(float) * (4 * PAIR_BQ + xchg_floats(PAIR_BQ));
-}
-
-template <int D>
-__host__ __device__ constexpr size_t dq_pair_smem() {
-  return sizeof(__nv_bfloat16) * (size_t)(2 * BQ_DQ + 4 * PAIR_BK) * (D + PAD) +
-         sizeof(float) * xchg_floats(PAIR_BK);
-}
-
-// This warp's NT n-tiles `x` to its slot of `xchg`, its partner's back in
-// `y`, behind the pair's named barrier (ids 1-4; 0 is __syncthreads).  The
-// block barrier that ends each tile frees the slots for the next.
-template <int NT>
-__device__ __forceinline__ void pair_exchange(float* xchg, int pair, int role,
-                                              const float (&x)[NT][4],
-                                              float (&y)[NT][4]) {
-  const int lane = threadIdx.x % 32;
-  float4* mine = reinterpret_cast<float4*>(xchg) + (pair * 2 + role) * NT * 32;
-  const float4* theirs =
-      reinterpret_cast<const float4*>(xchg) + (pair * 2 + (role ^ 1)) * NT * 32;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    mine[n * 32 + lane] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
-  asm volatile("bar.sync %0, 64;\n" :: "r"(pair + 1) : "memory");
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const float4 o = theirs[n * 32 + lane];
-    y[n][0] = o.x; y[n][1] = o.y; y[n][2] = o.z; y[n][3] = o.w;
-  }
-}
-
-// Role 0's x (P) and role 1's x (dP) after the exchange: P into x and
-// dS = P (dP - Delta) into y, in f32, the same bits in both warps.
-// dl(n, i) is the Delta of accumulator element (n, i).
-template <int NT, typename DeltaAt>
-__device__ __forceinline__ void pair_p_ds(int role, float (&x)[NT][4],
-                                          float (&y)[NT][4], DeltaAt dl) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float p = role ? y[n][i] : x[n][i];
-      const float dp = role ? x[n][i] : y[n][i];
-      x[n][i] = p;
-      y[n][i] = p * (dp - dl(n, i));
-    }
-}
-
-// dK/dV partials of one (64-key tile, b, kv head, group of query heads),
-// as bwd_dkdv_mma_kernel: pair w/2 owns keys k0+16(w/2) .. +15 and warp w
-// columns (w%2) D/2 .. +D/2-1 of their dK and dV.  Per 32-query tile, role
-// 0 computes S^T = K Q^T and P^T, role 1 dP^T = V dO^T; after the
-// exchange each accumulates dV += P^T dO and dK += dS^T Q on its columns.
-template <int D>
-__global__ void __launch_bounds__(PAIR_THREADS)
-bwd_dkdv_pair_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dk_part, float* __restrict__ dv_part,
-                     int B, int T_, int S, int H, int K, int groups, int causal,
-                     int window, float scale_log2) {
-  constexpr int BQ = PAIR_BQ;
-  constexpr int DP = D + PAD;
-  constexpr int KC = D / 16;        // k-chunks of S^T and dP^T over D
-  constexpr int NQ = BQ / 8;        // query n-tiles of S^T and dP^T
-  constexpr int NH = D / 16;        // n-tiles of a warp's half of dK and dV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BKV * DP;
-  __nv_bfloat16* Qbuf = Vs + BKV * DP;          // two stages
-  __nv_bfloat16* dObuf = Qbuf + 2 * BQ * DP;    // two stages
-  float* lse_buf = reinterpret_cast<float*>(dObuf + 2 * BQ * DP);
-  float* dl_buf = lse_buf + 2 * BQ;
-  float* xchg = dl_buf + 2 * BQ;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int pair = warp >> 1, role = warp & 1;
-  const int per_tile = B * K * groups;
-  const int kt = blockIdx.x / per_tile;
-  int rest = blockIdx.x % per_tile;
-  const int grp = rest % groups;
-  rest /= groups;
-  const int kh = rest % K, b = rest / K;
-  const int rep = H / K;
-  const int h_begin = kh * rep + grp * rep / groups;
-  const int h_end = kh * rep + (grp + 1) * rep / groups;
-  const int k0 = kt * BKV;
-  const int offs = S - T_;
-
-  const int k_last = min(k0 + BKV, S) - 1;
-  int t_begin = causal ? max(0, k0 - offs) : 0;
-  const int t_end = window > 0 ? min(T_, k_last - offs + window) : T_;
-  t_begin = (t_begin / BQ) * BQ;
-  const int n_qt = t_end > t_begin ? (t_end - t_begin + BQ - 1) / BQ : 0;
-  const int n_iter = n_qt * (h_end - h_begin);
-
-  auto issue = [&](int it) {
-    const int h = h_begin + it / n_qt, q0 = t_begin + (it % n_qt) * BQ;
-    const int st = it & 1;
-    load_rows_async<BQ, D, PAIR_THREADS>(Qbuf + st * BQ * DP, q, b, q0, T_, H, h);
-    load_rows_async<BQ, D, PAIR_THREADS>(dObuf + st * BQ * DP, dout, b, q0, T_, H, h);
-    if (tid < BQ) {
-      const int tq = q0 + tid;
-      const long i = ((long)b * H + h) * T_ + min(tq, T_ - 1);
-      cp_async_4(lse_buf + st * BQ + tid, lse + i, tq < T_);
-      cp_async_4(dl_buf + st * BQ + tid, delta + i, tq < T_);
-    }
-  };
-
-  load_rows_async<BKV, D, PAIR_THREADS>(Ks, k, b, k0, S, K, kh);
-  load_rows_async<BKV, D, PAIR_THREADS>(Vs, v, b, k0, S, K, kh);
-  if (n_iter > 0) issue(0);
-  cp_async_commit();
-
-  const int kr0 = pair * 16;
-  const int kpos[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
-  const int c0 = role * (D / 2);              // this warp's output columns
-  const __nv_bfloat16* rows = role ? Vs : Ks;  // A of this warp's score product
-  float dk[NH][4], dv[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int q0 = t_begin + (it % n_qt) * BQ;
-    const int st = it & 1;
-    if (it + 1 < n_iter) issue(it + 1);   // that stage was freed by the last barrier
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* Qs = Qbuf + st * BQ * DP;
-    const __nv_bfloat16* dOs = dObuf + st * BQ * DP;
-    const float* lse_s = lse_buf + st * BQ;
-    const float* dl_s = dl_buf + st * BQ;
-    const __nv_bfloat16* cols = role ? dOs : Qs;
-
-    float x[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t a[4];
-      ldmatrix_x4(a, a_frag_addr(rows, DP, kr0, kc * 16));
-#pragma unroll
-      for (int n = 0; n < NQ; n += 2) {
-        uint32_t bq[4];
-        ldmatrix_x4(bq, bt_frag_addr(cols, DP, n * 8, kc * 16));
-        mma_bf16(x[n], a, bq[0], bq[1]);
-        mma_bf16(x[n + 1], a, bq[2], bq[3]);
-      }
-    }
-    if (role == 0) {
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          const int qi = n * 8 + 2 * t + (i & 1);
-          const int tq = q0 + qi, qpos = offs + tq;
-          const float l = lse_s[qi];
-          bool ok = tq < T_ && kpos[r] < S && l != -INFINITY;
-          if (causal) ok = ok && kpos[r] <= qpos;
-          if (window > 0) ok = ok && kpos[r] > qpos - window;
-          x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l * LOG2E) : 0.f;
-        }
-      }
-    }
-    float y[NQ][4];
-    pair_exchange<NQ>(xchg, pair, role, x, y);
-    pair_p_ds<NQ>(role, x, y, [&](int n, int i) {
-      return dl_s[n * 8 + 2 * t + (i & 1)];
-    });
-
-#pragma unroll
-    for (int j = 0; j < BQ / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(x[2 * j][0], x[2 * j][1]),
-                              pack_bf16(x[2 * j][2], x[2 * j][3]),
-                              pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]),
-                              pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3])};
-      const uint32_t da[4] = {pack_bf16(y[2 * j][0], y[2 * j][1]),
-                              pack_bf16(y[2 * j][2], y[2 * j][3]),
-                              pack_bf16(y[2 * j + 1][0], y[2 * j + 1][1]),
-                              pack_bf16(y[2 * j + 1][2], y[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NH; n += 2) {
-        uint32_t ob[4], qb[4];
-        ldmatrix_x4_trans(ob, b_frag_addr(dOs, DP, j * 16, c0 + n * 8));
-        mma_bf16(dv[n], pa, ob[0], ob[1]);
-        mma_bf16(dv[n + 1], pa, ob[2], ob[3]);
-        ldmatrix_x4_trans(qb, b_frag_addr(Qs, DP, j * 16, c0 + n * 8));
-        mma_bf16(dk[n], da, qb[0], qb[1]);
-        mma_bf16(dk[n + 1], da, qb[2], qb[3]);
-      }
-    }
-    __syncthreads();            // this stage and the exchange slots are free
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (kpos[r] < S) {
-      const long base = ((((long)grp * B + b) * S + kpos[r]) * K + kh) * D + c0;
-#pragma unroll
-      for (int n = 0; n < NH; ++n) {
-        *reinterpret_cast<float2*>(dk_part + base + n * 8 + 2 * t) =
-            make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
-        *reinterpret_cast<float2*>(dv_part + base + n * 8 + 2 * t) =
-            make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
-      }
-    }
-  }
-}
-
-// dQ of one (64-query tile, b, h), as bwd_dq_mma_kernel with the forward's
-// D=256 budget: 32-key K / V tiles double-buffered with cp.async, Q and dO
-// fragments read from shared memory per k-chunk.  Pair w/2 owns queries
-// q0+16(w/2) .. +15 and warp w columns (w%2) D/2 .. +D/2-1 of their dQ;
-// role 0 computes S = Q K^T and P, role 1 dP = dO V^T, and after the
-// exchange each accumulates dQ += dS K on its columns.
-template <int D>
-__global__ void __launch_bounds__(PAIR_THREADS)
-bwd_dq_pair_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dq, int T_, int S, int H, int K,
-                   int causal, int window, float scale_log2, float scale) {
-  constexpr int BQ = BQ_DQ;
-  constexpr int BK = PAIR_BK;
-  constexpr int DP = D + PAD;
-  constexpr int KC = D / 16;
-  constexpr int NS = BK / 8;        // key n-tiles of S and dP
-  constexpr int NH = D / 16;        // n-tiles of a warp's half of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + BQ * DP;
-  __nv_bfloat16* Kbuf = dOs + BQ * DP;          // two stages
-  __nv_bfloat16* Vbuf = Kbuf + 2 * BK * DP;     // two stages
-  float* xchg = reinterpret_cast<float*>(Vbuf + 2 * BK * DP);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int pair = warp >> 1, role = warp & 1;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kh = h / (H / K);
-  // Heaviest causal tiles (last queries) are scheduled first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int offs = S - T_;
-
-  const int q_last = min(q0 + BQ, T_) - 1;
-  int kv_begin = window > 0 ? max(0, offs + q0 - window + 1) : 0;
-  const int kv_end = causal ? min(S, offs + q_last + 1) : S;
-  kv_begin = (kv_begin / BK) * BK;
-  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK : 0;
-
-  int tq[2], qpos[2];
-  float l2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    tq[r] = q0 + pair * 16 + g + 8 * r;
-    qpos[r] = offs + tq[r];
-    const bool in = tq[r] < T_;
-    l2[r] = in ? lse[(long)bh * T_ + tq[r]] * LOG2E : -INFINITY;
-    dl[r] = in ? delta[(long)bh * T_ + tq[r]] : 0.f;
-  }
-
-  load_rows_async<BQ, D, PAIR_THREADS>(Qs, q, b, q0, T_, H, h);
-  load_rows_async<BQ, D, PAIR_THREADS>(dOs, dout, b, q0, T_, H, h);
-  if (n_tiles > 0) {
-    load_rows_async<BK, D, PAIR_THREADS>(Kbuf, k, b, kv_begin, S, K, kh);
-    load_rows_async<BK, D, PAIR_THREADS>(Vbuf, v, b, kv_begin, S, K, kh);
-  }
-  cp_async_commit();
-
-  const int c0 = role * (D / 2);              // this warp's output columns
-  const __nv_bfloat16* rows = role ? dOs : Qs; // A of this warp's score product
-  float acc[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = kv_begin + it * BK;
-    const __nv_bfloat16* Ks = Kbuf + (it & 1) * BK * DP;
-    const __nv_bfloat16* Vs = Vbuf + (it & 1) * BK * DP;
-    if (it + 1 < n_tiles) {     // that stage was freed by the last barrier
-      load_rows_async<BK, D, PAIR_THREADS>(Kbuf + ((it + 1) & 1) * BK * DP, k, b,
-                                           k0 + BK, S, K, kh);
-      load_rows_async<BK, D, PAIR_THREADS>(Vbuf + ((it + 1) & 1) * BK * DP, v, b,
-                                           k0 + BK, S, K, kh);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* cols = role ? Vs : Ks;
-
-    float x[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t a[4];
-      ldmatrix_x4(a, a_frag_addr(rows, DP, pair * 16, kc * 16));
-#pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, bt_frag_addr(cols, DP, n * 8, kc * 16));
-        mma_bf16(x[n], a, kb[0], kb[1]);
-        mma_bf16(x[n + 1], a, kb[2], kb[3]);
-      }
-    }
-    if (role == 0) {
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          const int kpos = k0 + n * 8 + 2 * t + (i & 1);
-          bool ok = kpos < S && l2[r] != -INFINITY;
-          if (causal) ok = ok && kpos <= qpos[r];
-          if (window > 0) ok = ok && kpos > qpos[r] - window;
-          x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l2[r]) : 0.f;
-        }
-      }
-    }
-    float y[NS][4];
-    pair_exchange<NS>(xchg, pair, role, x, y);
-    pair_p_ds<NS>(role, x, y, [&](int, int i) { return dl[i >> 1]; });
-
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t da[4] = {pack_bf16(y[2 * j][0], y[2 * j][1]),
-                              pack_bf16(y[2 * j][2], y[2 * j][3]),
-                              pack_bf16(y[2 * j + 1][0], y[2 * j + 1][1]),
-                              pack_bf16(y[2 * j + 1][2], y[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NH; n += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, b_frag_addr(Ks, DP, j * 16, c0 + n * 8));
-        mma_bf16(acc[n], da, kb[0], kb[1]);
-        mma_bf16(acc[n + 1], da, kb[2], kb[3]);
-      }
-    }
-    __syncthreads();            // this stage and the exchange slots are free
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (tq[r] < T_) {
-      __nv_bfloat16* row = dq + ((long)(b * T_ + tq[r]) * H + h) * D + c0;
-#pragma unroll
-      for (int n = 0; n < NH; ++n)
-        *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) =
-            pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
-    }
-  }
-}
-
 // dk = scale * sum_g dk_part[g], dv = sum_g dv_part[g], summed in f32 in
 // the fixed order g = 0, 1, ..., then rounded to bf16 once; four values a
 // thread per step.
@@ -1231,18 +838,6 @@ bwd_reduce_kernel(const float4* __restrict__ dk_part,
   }
 }
 
-// The dK/dV and dQ kernels of head dim D; only these are instantiated.
-template <int D>
-auto dkdv_kernel() {
-  if constexpr (D > 128) return &bwd_dkdv_pair_kernel<D>;
-  else return &bwd_dkdv_mma_kernel<D>;
-}
-template <int D>
-auto dq_kernel() {
-  if constexpr (D > 128) return &bwd_dq_pair_kernel<D>;
-  else return &bwd_dq_mma_kernel<D>;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* o_lo, const void* dout,
@@ -1260,18 +855,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const long n = (long)B * S * K * D;           // elements of dk (and dv)
   float* dk_part = partial;
   float* dv_part = partial + (long)groups * n;
-  // Head dim 256 runs the warp-pair kernels, with the same grids.
-  constexpr bool pairs = D > 128;
-  constexpr int threads = pairs ? PAIR_THREADS : THREADS;
-  constexpr size_t kv_smem = pairs ? dkdv_pair_smem<D>() : dkdv_smem<D>();
-  constexpr size_t q_smem = pairs ? dq_pair_smem<D>() : dq_smem<D>();
-  auto kv_kern = dkdv_kernel<D>();
-  auto q_kern = dq_kernel<D>();
+  constexpr size_t kv_smem = dkdv_smem<D>();
+  constexpr size_t q_smem = dq_smem<D>();
+  auto kv_kern = &bwd_dkdv_mma_kernel<D>;
+  auto q_kern = &bwd_dq_mma_kernel<D>;
   err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kv_smem);
   if (err != cudaSuccess) return err;
   const long kv_blocks = (long)((S + BKV - 1) / BKV) * B * K * groups;
-  kv_kern<<<(unsigned)kv_blocks, threads, kv_smem, stream>>>(
+  kv_kern<<<(unsigned)kv_blocks, THREADS, kv_smem, stream>>>(
       q_, k_, v_, do_, lse, delta, dk_part, dv_part, B, T_, S, H, K, groups,
       causal, window, scale * LOG2E);
   err = cudaGetLastError();
@@ -1280,7 +872,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)q_smem);
   if (err != cudaSuccess) return err;
-  q_kern<<<dim3((T_ + BQ_DQ - 1) / BQ_DQ, B * H), threads, q_smem, stream>>>(
+  q_kern<<<dim3((T_ + BQ_DQ - 1) / BQ_DQ, B * H), THREADS, q_smem, stream>>>(
       q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dq), T_, S, H, K, causal,
       window, scale * LOG2E, scale);
   err = cudaGetLastError();
@@ -1299,7 +891,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// bf16 wgmma path, head dims 64 and 128 (helpers in wgmma_tma.cuh)
+// bf16 wgmma path, head dims 64, 128 and 256 (helpers in wgmma_tma.cuh)
 // ---------------------------------------------------------------------------
 // The forward's warp-specialised block (flash_attention.cu, namespace wg):
 // one producer warpgroup at 24 registers whose first thread issues every
@@ -1314,14 +906,17 @@ using namespace hopper;
 using tc::LOG2E;
 using tc::pack_bf16;
 
-// Tiles per head dim.  dK/dV: BN keys a block (64 per consumer warpgroup),
-// BQ queries a stage of the Q / dO ring, STAGES stages.  dQ: DQ_BM query
-// rows a block (64 per consumer warpgroup), DQ_BN keys a stage of the K / V
-// ring, DQ_STAGES stages; chosen on the card (PERF.md).  Mirrored by
-// WGMMA_BWD_TILES in kernels/flash_attention.py.
+// Tiles per head dim.  dK/dV: BN keys a block (64 per consumer warpgroup;
+// at D=256 both consumers share 64 keys and split the output columns), BQ
+// queries a stage of the Q / dO ring, STAGES stages.  dQ: DQ_BM query rows
+// a block (64 per consumer warpgroup), DQ_BN keys a stage of the K / V
+// ring, DQ_STAGES stages (at D=256 slots, each holding one K or one V
+// tile); chosen on the card (PERF.md).  Mirrored by WGMMA_BWD_TILES in
+// kernels/flash_attention.py.
 template <int D> struct Tiles;
 template <> struct Tiles<64> { static constexpr int BQ = 128, BN = 128, STAGES = 2, DQ_BM = 128, DQ_BN = 128, DQ_STAGES = 2; };
 template <> struct Tiles<128> { static constexpr int BQ = 64, BN = 128, STAGES = 2, DQ_BM = 128, DQ_BN = 128, DQ_STAGES = 2; };
+template <> struct Tiles<256> { static constexpr int BQ = 64, BN = 64, STAGES = 2, DQ_BM = 128, DQ_BN = 64, DQ_STAGES = 3; };
 
 constexpr int CONSUMERS = 2;                  // warpgroups of 64 rows (keys or queries)
 constexpr int THREADS = (CONSUMERS + 1) * 128;
@@ -1329,6 +924,11 @@ constexpr int ROWS = 64;                      // rows per TMA box
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int TARGET_BLOCKS = 256;            // dK/dV blocks the group split aims at
 constexpr int LSE_THREADS = 64;               // producer threads that stage -lse log2e, Delta
+
+// A barrier of the 256 consumer threads (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(CONSUMERS * 128) : "memory");
+}
 
 // Copies rows r0 .. r0 + N - 1 of one (b, head) of `map`, all D columns,
 // into a tile of N rows stored as D/64 column tiles of N x 128 bytes.
@@ -1385,7 +985,8 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x
 }
 
 // dK/dV: K and V (BN x D each), then STAGES x {Q, dO (BQ x D each)}, then
-// STAGES x {BQ values of -lse log2e, BQ of Delta}, then the barriers.
+// STAGES x {BQ values of -lse log2e, BQ of Delta}, then at D=256 the two
+// consumers' exchange slots (64 x BQ f32 each), then the barriers.
 template <int D>
 struct KvLayout {
   static constexpr int BQ = Tiles<D>::BQ, BN = Tiles<D>::BN, STAGES = Tiles<D>::STAGES;
@@ -1395,10 +996,159 @@ struct KvLayout {
   static constexpr int Q_OFF = 2 * KV_BYTES;
   static constexpr int O_OFF = Q_OFF + STAGES * Q_BYTES;
   static constexpr int L_OFF = O_OFF + STAGES * Q_BYTES;
-  static constexpr int BAR_OFF = L_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int X_OFF = L_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int BAR_OFF = X_OFF + (D == 256 ? CONSUMERS * 64 * BQ * 4 : 0);
   static constexpr int N_BARS = 1 + 2 * STAGES;   // kv_full, full[], empty[]
   static constexpr size_t SMEM = BAR_OFF + N_BARS * 8 + 1024;   // + alignment slack
 };
+
+// The consumers of a dK/dV block at D=256.  One warpgroup's dK and dV of
+// 64 keys would be 256 f32 registers a thread, over the 240 setmaxnreg
+// gives a consumer.  So both warpgroups hold the block's 64 keys and split
+// the output columns: warpgroup w owns columns 128w .. 128w + 127 of their
+// dK and dV, 64 + 64 f32 registers a thread.  Each score product runs over
+// all of D once: warpgroup 0 computes S^T = K Q^T and P^T, warpgroup 1
+// dP^T = V dO^T.  Each writes its 64 x BQ f32 tile to its exchange slot in
+// accumulator order (thread i of both warpgroups holds the same positions),
+// a barrier of the 256 consumer threads orders the exchange, and each reads
+// the other's, so both form dS^T = P^T (dP^T - Delta) from the same bits.
+// Then dV[:, cols] += P^T dO[:, cols] and dK[:, cols] += dS^T Q[:, cols],
+// B the stage's column tiles 2w and 2w + 1.  Whether a stage is skipped
+// depends on the keys alone, so both warpgroups take every exchange.
+template <int D>
+__device__ __forceinline__ void
+dkdv_split_consumer(unsigned char* smem, uint64_t* kv_full, uint64_t* full,
+                    uint64_t* empty, float* __restrict__ dk_part,
+                    float* __restrict__ dv_part, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int B, int S, int K, int b, int kh,
+                    int grp, int groups, int k0, int offs, int t_begin, int n_qt,
+                    int n_iter, int causal, int window, float scale_log2, float scale) {
+  using L = KvLayout<D>;
+  constexpr int BQ = L::BQ, BN = L::BN, STAGES = L::STAGES;
+  constexpr int HALF = D / CONSUMERS;              // output columns a warpgroup owns
+  static_assert(BN == 64 && HALF == 128, "two warpgroups over 64 keys, 128 columns each");
+  reg_alloc<CONSUMER_REGS>();
+  const int wg = threadIdx.x / 128, wt = threadIdx.x % 128;
+  const int warp = wt / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = k0 + 16 * warp + g;               // this thread's keys: kr, kr + 8
+  const unsigned char* rows = smem + wg * L::V_OFF;   // K (warpgroup 0) or V
+  float4* mine = reinterpret_cast<float4*>(smem + L::X_OFF) + wg * (BQ / 8) * 128 + wt;
+  const float4* theirs =
+      reinterpret_cast<const float4*>(smem + L::X_OFF) + (wg ^ 1) * (BQ / 8) * 128 + wt;
+
+  float dk_acc[HALF / 2], dv_acc[HALF / 2];
+#pragma unroll
+  for (int i = 0; i < HALF / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  int s = 0, ph = 0, qp0 = offs + t_begin;         // qp0: the stage's first query position
+  bool first = true;
+  for (int j = 0; j < n_iter; ++j) {
+    const unsigned char* Qs = smem + L::Q_OFF + s * L::Q_BYTES;
+    const unsigned char* Os = smem + L::O_OFF + s * L::Q_BYTES;
+    const float* nl = reinterpret_cast<const float*>(smem + L::L_OFF) + s * 2 * BQ;
+    mbar_wait(&full[s], ph);
+    const bool none = k0 >= S || (causal && qp0 + BQ - 1 < k0) ||
+                      (window > 0 && qp0 - window >= k0 + BN - 1);
+    if (!none) {
+      float x[BQ / 2];
+      fence_regs(x);
+      wgmma_fence();
+      product_ss<BQ, D, BN>(x, rows, wg ? Os : Qs);
+      wgmma_wait<0>();
+      fence_regs(x);
+      if (wg == 0) {
+        // P^T in one FFMA and one EX2 a score, masked only where the
+        // diagonal or the window cuts this warp's 16 keys.
+        const int kwarp = k0 + 16 * warp;
+        const bool all = (!causal || kwarp + 15 <= qp0) &&
+                         (window <= 0 || kwarp > qp0 + BQ - 1 - window);
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = n * 8 + 2 * t + (i & 1);
+            float p = exp2_ftz(fmaf(x[4 * n + i], scale_log2, nl[col]));
+            if (!all) {
+              const int kpos = kr + 8 * (i >> 1), qpos = qp0 + col;
+              if ((causal && kpos > qpos) || (window > 0 && kpos <= qpos - window)) p = 0.f;
+            }
+            x[4 * n + i] = p;
+          }
+        }
+      }
+      // The partner has read the last exchange; write ours, then read theirs.
+      if (!first) consumers_sync(1);
+      first = false;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+        mine[n * 128] = make_float4(x[4 * n], x[4 * n + 1], x[4 * n + 2], x[4 * n + 3]);
+      consumers_sync(2);
+      float y[BQ / 2];
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const float4 o = theirs[n * 128];
+        y[4 * n] = o.x, y[4 * n + 1] = o.y, y[4 * n + 2] = o.z, y[4 * n + 3] = o.w;
+      }
+      // P^T into x, dS^T into y, in both warpgroups.
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = wg ? y[4 * n + i] : x[4 * n + i];
+          const float dp = wg ? x[4 * n + i] : y[4 * n + i];
+          x[4 * n + i] = p;
+          y[4 * n + i] = p * (dp - nl[BQ + n * 8 + 2 * t + (i & 1)]);
+        }
+      }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      pack_a<BQ>(pa, x);
+      pack_a<BQ>(da, y);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+      product_rs<BQ, HALF>(dv_acc, pa, Os + 2 * wg * BQ * 128);
+      product_rs<BQ, HALF>(dk_acc, da, Qs + 2 * wg * BQ * 128);
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(da);
+    }
+    mbar_arrive(&empty[s]);             // this stage's products are done
+    if ((qp0 += BQ) >= offs + t_begin + n_qt * BQ) qp0 = offs + t_begin;
+    if (++s == STAGES) s = 0, ph ^= 1;
+  }
+
+  // Every key of the tile below S gets its sums, zero if no query saw it.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = kr + 8 * r;
+    if (kpos >= S) continue;
+    const long row = ((long)(b * S + kpos) * K + kh) * D + HALF * wg;
+    if (groups == 1) {
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + row + n * 8 + 2 * t) =
+            pack_bf16(dk_acc[4 * n + 2 * r] * scale, dk_acc[4 * n + 2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + row + n * 8 + 2 * t) =
+            pack_bf16(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+      }
+    } else {
+      const long base = (long)grp * B * S * K * D + row;
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n) {
+        *reinterpret_cast<float2*>(dk_part + base + n * 8 + 2 * t) =
+            make_float2(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
+        *reinterpret_cast<float2*>(dv_part + base + n * 8 + 2 * t) =
+            make_float2(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+      }
+    }
+  }
+}
 
 // dK/dV of one (BN-key tile, b, kv head, group of query heads).  Consumer
 // warpgroup w owns keys k0 + 64w .. + 63 and keeps their dK and dV in f32
@@ -1505,6 +1255,10 @@ dkdv_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
         if (++s == STAGES) s = 0, ph ^= 1;
       }
     }
+  } else if constexpr (D == 256) {
+    dkdv_split_consumer<D>(smem, kv_full, full, empty, dk_part, dv_part, dk, dv, B, S, K,
+                           b, kh, grp, groups, k0, offs, t_begin, n_qt, n_iter, causal,
+                           window, scale_log2, scale);
   } else {
     reg_alloc<CONSUMER_REGS>();
     const int wg = threadIdx.x / 128;
@@ -1616,7 +1370,9 @@ dkdv_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
 }
 
 // dQ: Q and dO (DQ_BM x D each), then DQ_STAGES K tiles and DQ_STAGES V
-// tiles (DQ_BN x D each), then the barriers.
+// tiles (DQ_BN x D each), then the barriers.  At D=256 the ring is
+// DQ_STAGES slots of one tile each (K_OFF on), and its barriers are
+// q_full, full[], empty[].
 template <int D>
 struct QLayout {
   static constexpr int BM = Tiles<D>::DQ_BM, BN = Tiles<D>::DQ_BN, STAGES = Tiles<D>::DQ_STAGES;
@@ -1625,8 +1381,8 @@ struct QLayout {
   static constexpr int O_OFF = Q_BYTES;
   static constexpr int K_OFF = 2 * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int N_BARS = 1 + 3 * STAGES;   // q_full, k_full[], v_full[], empty[]
+  static constexpr int BAR_OFF = K_OFF + (D == 256 ? 1 : 2) * STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + (D == 256 ? 2 : 3) * STAGES;   // q_full, k_full[], v_full[], empty[]
   static constexpr size_t SMEM = BAR_OFF + N_BARS * 8 + 1024;
 };
 
@@ -1798,6 +1554,178 @@ dq_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
   }
 }
 
+// dQ at D=256: dq_block's work with the forward's Tiles<256> budget.  Q and
+// dO of 128 rows take 128 KB, so the ring is three slots of one 64-key tile
+// (32 KB) each, which V_j and K_j take in turn: V_j is released as soon as
+// dP = dO V^T is done and K_j once dQ += dS K is, so the next tile's V and
+// K load while this one's products run.  Each consumer warpgroup holds its
+// 64 x 256 dQ in f32 (two halves of 64 registers); dQ += dS K runs as two
+// m64n128k16 products a k-step, over K's column tiles 0-1 and 2-3.
+template <int D>
+__device__ __forceinline__ void
+dq_split_block(const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+               const CUtensorMap* tdo, const float* __restrict__ lse,
+               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B,
+               int T_, int S, int H, int K, int causal, int window, float scale_log2,
+               float scale, int lin, unsigned char* smem) {
+  using L = QLayout<D>;
+  constexpr int BM = L::BM, BN = L::BN, SLOTS = L::STAGES;
+  constexpr int HALF = D / 2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + SLOTS;
+
+  // As dq_block: the heaviest query tiles first, and the keys any row of
+  // this block can see, from a BN-aligned start.
+  const int BH = B * H;
+  const int bh = lin % BH;
+  const int q0 = ((T_ + BM - 1) / BM - 1 - lin / BH) * BM;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  const int offs = S - T_;
+  const int q_last = min(q0 + BM, T_) - 1;
+  const int pos_lo = offs + q0, pos_hi = offs + q_last;
+  int kv_begin = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  const int kv_end = causal ? min(S, pos_hi + 1) : S;
+  kv_begin = (kv_begin / BN) * BN;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS * 128);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS * 128) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      tma_prefetch_map(tq);
+      tma_prefetch_map(tk);
+      tma_prefetch_map(tv);
+      tma_prefetch_map(tdo);
+      mbar_arrive_expect_tx(q_full, 2 * L::Q_BYTES);
+      load_tile<BM, D>(smem, tq, q_full, h, q0, b);
+      load_tile<BM, D>(smem + L::O_OFF, tdo, q_full, h, q0, b);
+      // Tile 2j of the ring is V_j, tile 2j + 1 is K_j.
+      int slot = 0, ph = 0;
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        if (i >= SLOTS) mbar_wait(&empty[slot], ph ^ 1);
+        mbar_arrive_expect_tx(&full[slot], L::KV_BYTES);
+        load_tile<BN, D>(smem + L::K_OFF + slot * L::KV_BYTES, (i & 1) ? tk : tv,
+                         &full[slot], kh, kv_begin + (i >> 1) * BN, b);
+        if (++slot == SLOTS) slot = 0, ph ^= 1;
+      }
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    const int wq = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = 64 * wq + 16 * warp + g;          // and r0 + 8
+    const unsigned char* Qs = smem + 64 * wq * 128;  // this warpgroup's rows of Q, dO
+    const unsigned char* Os = smem + L::O_OFF + 64 * wq * 128;
+    float nl[2], dl[2];
+    int qpos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tq_ = q0 + r0 + 8 * r;
+      const float l = tq_ < T_ ? lse[(long)bh * T_ + tq_] : -INFINITY;
+      nl[r] = l == -INFINITY ? -INFINITY : -l * LOG2E;
+      dl[r] = tq_ < T_ ? delta[(long)bh * T_ + tq_] : 0.f;
+      qpos[r] = offs + tq_;
+    }
+    const int gpos_lo = offs + q0 + 64 * wq, gpos_hi = gpos_lo + 63;
+    const int wpos_lo = gpos_lo + 16 * warp, wpos_hi = wpos_lo + 15;
+    const int full_lo = window > 0 ? wpos_hi - window + 1 : 0;
+    const int full_hi = causal ? min(S, wpos_lo + 1) : S;
+
+    float acc[2][HALF / 2];
+#pragma unroll
+    for (int i = 0; i < HALF / 2; ++i) acc[0][i] = acc[1][i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    int slot = 0, ph = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int sv = slot, pv = ph;
+      if (++slot == SLOTS) slot = 0, ph ^= 1;
+      const int sk = slot, pk = ph;
+      if (++slot == SLOTS) slot = 0, ph ^= 1;
+      const int k0 = kv_begin + j * BN;
+      const unsigned char* Vs = smem + L::K_OFF + sv * L::KV_BYTES;
+      const unsigned char* Ks = smem + L::K_OFF + sk * L::KV_BYTES;
+      mbar_wait(&full[sk], pk);
+      mbar_wait(&full[sv], pv);
+      const bool none = q0 + 64 * wq >= T_ || (causal && k0 > gpos_hi) ||
+                        (window > 0 && k0 + BN - 1 <= gpos_lo - window);
+      if (none) {
+        mbar_arrive(&empty[sv]);
+        mbar_arrive(&empty[sk]);
+        continue;
+      }
+      float sc[BN / 2], dp[BN / 2];
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      product_ss<BN, D, BM>(sc, Qs, Ks);
+      product_ss<BN, D, BM>(dp, Os, Vs);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      const bool all = k0 >= full_lo && k0 + BN <= full_hi;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          float p = exp2_ftz(fmaf(sc[4 * n + i], scale_log2, nl[r]));
+          if (!all) {
+            const int kpos = k0 + n * 8 + 2 * t + (i & 1);
+            if (kpos >= S || (causal && kpos > qpos[r]) ||
+                (window > 0 && kpos <= qpos[r] - window))
+              p = 0.f;
+          }
+          sc[4 * n + i] = p;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      mbar_arrive(&empty[sv]);          // V_j is read
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]);
+      uint32_t da[BN / 16][4];
+      pack_a<BN>(da, dp);
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      fence_regs(da);
+      wgmma_fence();
+      product_rs<BN, HALF>(acc[0], da, Ks);
+      product_rs<BN, HALF>(acc[1], da, Ks + 2 * BN * 128);
+      wgmma_wait<0>();
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+      fence_regs(da);
+      mbar_arrive(&empty[sk]);          // K_j is read
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tq_ = q0 + r0 + 8 * r;
+      if (tq_ < T_) {
+        __nv_bfloat16* row = dq + ((long)(b * T_ + tq_) * H + h) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * t) =
+              pack_bf16(acc[n / 16][4 * (n % 16) + 2 * r] * scale,
+                        acc[n / 16][4 * (n % 16) + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // One launch for both passes: blocks [0, kv_blocks) are dK/dV blocks, the
 // rest dQ blocks, each kind heaviest first.  So the dQ blocks fill the SMs
 // the last wave of dK/dV blocks leaves idle, and the last wave is the
@@ -1821,6 +1749,9 @@ bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (block < kv_blocks)
     dkdv_block<D>(&tq, &tk, &tv, &tdo, lse, delta, dk_part, dv_part, dk, dv, B, T_, S,
                   H, K, groups, causal, window, scale_log2, scale, block, smem);
+  else if constexpr (D == 256)
+    dq_split_block<D>(&tq, &tk, &tv, &tdo, lse, delta, dq, B, T_, S, H, K, causal, window,
+                      scale_log2, scale, block - kv_blocks, smem);
   else
     dq_block<D>(&tq, &tk, &tv, &tdo, lse, delta, dq, B, T_, S, H, K, causal, window,
                 scale_log2, scale, block - kv_blocks, smem);
@@ -1871,28 +1802,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace wgb
 
-// Which kernels a backward call takes: 2 = the bf16 wgmma kernels (head
-// dims 64 and 128), 1 = the bf16 mma.sync kernels (16, 32 and the warp
-// pairs at 256), 0 = the f32-FMA kernels.  dtype as below; `aligned` is
+// Which kernels a backward call takes: 2 = the bf16 wgmma kernel (head
+// dims 64, 128 and 256), 1 = the bf16 mma.sync kernels (16 and 32), 0 = the
+// f32-FMA kernels.  dtype as below; `aligned` is
 // nonzero when q, k, v, dout, dq, dk and dv all start on 16 bytes.
 // repro_flash_attention_bwd dispatches by this function.
 extern "C" int repro_flash_attention_bwd_path(int dtype, int D, int aligned) {
   if (dtype != 1 || !aligned) return 0;
-  if (D == 64 || D == 128) return 2;
-  return D == 16 || D == 32 || D == 256 ? 1 : 0;
+  if (D == 64 || D == 128 || D == 256) return 2;
+  return D == 16 || D == 32 ? 1 : 0;
 }
 
 // The number of groups G the H/K query heads of a KV head are split into
 // on the tensor-core paths: enough (key tile, b, kv head, group) blocks for
-// the target of the kernels a bf16 call at head dim D takes (128-key tiles
-// and 256 blocks on the wgmma path, 64-key tiles and 512 blocks on
-// mma.sync), at most one group per query head.  The caller allocates the
+// the target of the kernels a bf16 call at head dim D takes (the dK/dV
+// block's keys, Tiles<D>::BN, and 256 blocks on the wgmma path; 64-key
+// tiles and 512 blocks on mma.sync), at most one group per query head.  The caller allocates the
 // f32 partials, 2 * G * B * S * K * D values (none for G = 1 on the wgmma
 // path), and passes G back.
 extern "C" int repro_flash_attention_bwd_groups(int B, int S, int H, int K, int D) {
   if (B <= 0 || S <= 0 || K <= 0 || H % K != 0) return 1;
   const bool wgmma = repro_flash_attention_bwd_path(1, D, 1) == 2;
-  const int tile = !wgmma ? tc::BKV : D == 64 ? wgb::Tiles<64>::BN : wgb::Tiles<128>::BN;
+  const int tile = !wgmma     ? tc::BKV
+                   : D == 64   ? wgb::Tiles<64>::BN
+                   : D == 128  ? wgb::Tiles<128>::BN
+                               : wgb::Tiles<256>::BN;
   const int target = wgmma ? wgb::TARGET_BLOCKS : tc::TARGET_BLOCKS;
   const long base = (long)((S + tile - 1) / tile) * B * K;
   const long want = (target + base - 1) / base;
@@ -1936,7 +1870,7 @@ extern "C" int repro_flash_attention_bwd(
       case 32: return (int)tc::launch<32>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
       case 64: return (int)wgb::launch<64>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
       case 128: return (int)wgb::launch<128>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
-      case 256: return (int)tc::launch<256>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
+      case 256: return (int)wgb::launch<256>(q, k, v, o, o_lo, dout, ls, dl, part, dq, dk, dv, B, T, S, H, K, groups, causal, window, scale, st);
     }
   }
   if (dtype == 0)

@@ -50,17 +50,18 @@ BWD_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
 PATH_ARGTYPES = [ctypes.c_int] * 3
 # ``repro_flash_attention_bwd_groups``: B, S, H, K, D.
 GROUPS_ARGTYPES = [ctypes.c_int] * 5
-# What the path queries return: the forward takes 2 for bf16 at head dims
-# 64, 128 and 256, 1 for bf16 at 16 and 32; the backward 2 for bf16 at 64
-# and 128, 1 for bf16 at 16, 32 and 256.
+# What the path queries return: the forward and the backward take 2 for
+# bf16 at head dims 64, 128 and 256, 1 for bf16 at 16 and 32.
 PATHS = {0: "fma", 1: "tensor cores", 2: "wgmma"}
 # Tiles of the forward's wgmma kernel (namespace wg of ``SOURCE``), by head
 # dim: query rows a block, keys a KV tile, KV tiles in the ring.
 WGMMA_TILES = {64: (128, 128, 3), 128: (128, 128, 2), 256: (128, 64, 2)}
 # Tiles of the backward's wgmma kernels (namespace wgb of ``BWD_SOURCE``),
 # by head dim: dK/dV query rows a stage, keys a block, stages in the ring;
-# dQ query rows a block, keys a stage, stages in the ring.
-WGMMA_BWD_TILES = {64: (128, 128, 2, 128, 128, 2), 128: (64, 128, 2, 128, 128, 2)}
+# dQ query rows a block, keys a stage, stages in the ring (at 256 slots of
+# one K or V tile each).
+WGMMA_BWD_TILES = {64: (128, 128, 2, 128, 128, 2), 128: (64, 128, 2, 128, 128, 2),
+                   256: (64, 64, 2, 128, 64, 3)}
 # Keys a KV tile of the forward's mma.sync kernel (``tc::BK``).
 MMA_TILE_KEYS = 32
 

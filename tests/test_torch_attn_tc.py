@@ -8,9 +8,10 @@ softmax: on the wgmma path 128-key tiles at head dims 64 and 128 and
 32), as the wrapper's mirror of the kernels' constants says
 (``WGMMA_TILES``, ``MMA_TILE_KEYS``, checked against the ``.cu`` file
 below).  The backward rounds P and dS to bf16 before dV = Pᵀ·dO,
-dK = dSᵀ·Q and dQ = dS·K, accumulates in f32 (on the wgmma path at head
-dims 64 and 128 dK / dV over stages of 128 or 64 queries, dQ over stages
-of 128 keys, as ``WGMMA_BWD_TILES`` says), sums each group of query heads'
+dK = dSᵀ·Q and dQ = dS·K, accumulates in f32 (on the wgmma path dK / dV
+over stages of 128 queries at head dim 64 and 64 at 128 and 256, dQ over
+stages of 128 keys at 64 and 128 and 64 keys at 256, as
+``WGMMA_BWD_TILES`` says), sums each group of query heads'
 dK / dV partials in f32 and rounds once; its Δ = rowsum(dO·O) reads O as
 the forward's bf16 output plus the residual the forward lost in rounding
 it.  The emulations below do that arithmetic in plain torch, on
@@ -240,15 +241,20 @@ def test_backward_tile_constants_match_the_wrapper():
     wgb = src[src.index("namespace wgb {"):src.index("}  // namespace wgb")]
     consumers = int(re.search(r"constexpr int CONSUMERS = (\d+);", wgb).group(1))
     rows = int(re.search(r"constexpr int ROWS = (\d+);", wgb).group(1))
-    for bq, bn, _, dq_bm, dq_bn, _ in tiles.values():
-        # A consumer warpgroup owns 64 keys (dK/dV) or 64 query rows (dQ),
-        # and every tile is whole TMA boxes.
-        assert bn == dq_bm == 64 * consumers
+    for D, (bq, bn, _, dq_bm, dq_bn, _) in tiles.items():
+        # A consumer warpgroup owns 64 query rows of a dQ block, and every
+        # tile is whole TMA boxes.
+        assert dq_bm == 64 * consumers
         assert all(x % rows == 0 for x in (bq, bn, dq_bm, dq_bn))
+        # A dK/dV block: at head dims 64 and 128 each consumer owns 64 keys;
+        # at 256 the consumers share 64 keys and split the output columns.
+        assert bn == (64 if D == 256 else 64 * consumers)
+    assert "constexpr int HALF = D / CONSUMERS;" in wgb
     path = src[src.index('extern "C" int repro_flash_attention_bwd_path'):]
     dims = " || ".join(f"D == {d}" for d in sorted(tiles))
     assert path.index(f"if ({dims}) return 2;") < path.index("}")
     assert bwd_stages(64, 300, 300) == (tiles[64][0], tiles[64][4])
+    assert bwd_stages(256, 300, 300) == (tiles[256][0], tiles[256][4]) == (64, 64)
 
 
 # D in {64, 128} at T = S = 256 and GQA 12:1, causal and windowed; the
@@ -256,13 +262,15 @@ def test_backward_tile_constants_match_the_wrapper():
 # one group per head (12).  The wgmma kernels' tile edges at D in {64, 128}
 # (WGMMA_BWD_CASES, with the split the kernels take there), and granite's
 # GQA 2:1 (D=64) and phi3.5's GQA 4:1 (D=128) in one group, their split at
-# their training shapes.  Head dim 256 (the warp-pair kernels) at
-# recurrentgemma's GQA 16:1: T = S = 256, causal, windowed, G = 6 (its
-# training shape's split) and 16; T > S, so some rows see no key; and a
+# their training shapes.  Head dim 256 at recurrentgemma's GQA 16:1: T = S =
+# 256, causal, windowed, G = 6 and 16; T > S, so some rows see no key; and a
 # non-causal case with T != S.  Head dim 64, non-causal, T != S: whisper's
 # MHA encoder and cross-attention (one group per KV head, T < S and T > S)
 # and a GQA 2:1 case split in 2.  Head dim 256 at paligemma's MQA 8:1,
-# causal with no window: G = 8 (its training shape's split) and 4.
+# causal with no window: G = 8 and 4.  Then the splits the wgmma kernel
+# takes at head dim 256 (64-key dK/dV blocks): paligemma's MQA 8:1 with
+# G = 6 and recurrentgemma's 16:1 with G = 3, neither of which divides its
+# group, causal and windowed, with T > S and non-causal T != S.
 BWD_CASES = ([(1, 256, 256, 12, 1, D, True, window, groups)
               for D in (64, 128) for window in (0, 48) for groups in (4, 12)]
              + [(1, 256, 256, 16, 1, 256, True, window, groups)
@@ -274,7 +282,9 @@ BWD_CASES = ([(1, 256, 256, 12, 1, D, True, window, groups)
                 (1, 96, 200, 4, 2, 64, False, 0, 2)]
              + [(1, 256, 256, 8, 1, 256, True, 0, groups) for groups in (8, 4)]
              + [case + (groups,) for case, groups in WGMMA_BWD_CASES]
-             + [(1, 256, 256, 16, 8, 64, True, 0, 1), (1, 256, 256, 32, 8, 128, True, 0, 1)])
+             + [(1, 256, 256, 16, 8, 64, True, 0, 1), (1, 256, 256, 32, 8, 128, True, 0, 1)]
+             + [(1, 256, 256, 8, 1, 256, True, 0, 6), (1, 256, 256, 16, 1, 256, True, 48, 3),
+                (1, 100, 60, 16, 1, 256, True, 0, 3), (2, 70, 130, 8, 1, 256, False, 0, 6)])
 
 
 @pytest.mark.parametrize("case", BWD_CASES, ids=str)

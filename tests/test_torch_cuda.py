@@ -258,12 +258,13 @@ def test_flash_attention_bwd_cuda_vs_autograd_of_plain(case, dtype):
 # that shape.  GQA group sizes 1, 3 and 12; G = 2 at a group of 3, which it
 # does not divide; ragged T and S, T > S, suffix queries, a window, a
 # non-causal T != S, and the starcoder2-3b training shape (B=4, G=4).
-# Head dim 256 (the warp-pair kernels) at recurrentgemma's GQA 16:1 and at
-# 2:1: causal, a window that empties whole tiles, T > S, non-causal T != S,
-# G = 12 over a group of 16, which it does not divide, and recurrentgemma-9b's
-# local training shape (B=2, T=3000, window 2048, G=6).
+# Head dim 256 (the wgmma kernel's 64-key dK/dV blocks) at recurrentgemma's
+# GQA 16:1 and at 2:1: causal, a window that empties whole tiles, T > S,
+# non-causal T != S, G = 6 over a group of 16, which it does not divide, and
+# recurrentgemma-9b's local training shape (B=2, T=3000, window 2048, G=3).
 TRAIN_CASE = (4, 1024, 1024, 24, 2, 128, True, 0)
 LOCAL_TRAIN_CASE = (2, 3000, 3000, 16, 1, 256, True, 2048)
+PALI_TRAIN_CASE = (4, 768, 768, 8, 1, 256, True, 0)
 BWD_TC_CASES = [
     ((1, 100, 100, 4, 4, 64, True, 0), 1),
     ((2, 70, 90, 6, 2, 32, True, 0), 3),
@@ -277,28 +278,31 @@ BWD_TC_CASES = [
     ((2, 40, 24, 4, 2, 256, True, 0), 2),
     ((1, 33, 90, 16, 1, 256, False, 0), 16),
     ((1, 130, 200, 4, 2, 256, True, 48), 2),
-    ((4, 700, 700, 16, 1, 256, True, 0), 12),
-    (LOCAL_TRAIN_CASE, 6),
+    ((4, 700, 700, 16, 1, 256, True, 0), 6),
+    (LOCAL_TRAIN_CASE, 3),
     # Head dim 64 non-causal with T != S (whisper's MHA, one group a KV
     # head), head dim 256 at MQA 8:1 with no window (paligemma), and the
-    # new archs' main shapes with their splits.
+    # new archs' main shapes with their splits (paligemma's G = 6 over its
+    # group of 8).
     ((2, 70, 130, 12, 12, 64, False, 0), 1),
     ((1, 150, 90, 4, 2, 64, False, 0), 2),
     ((1, 256, 256, 8, 1, 256, True, 0), 8),
     ((4, 1500, 1500, 12, 12, 64, False, 0), 1),
     ((4, 448, 1500, 12, 12, 64, False, 0), 1),
-    ((4, 768, 768, 8, 1, 256, True, 0), 8),
+    ((4, 768, 768, 8, 1, 256, True, 0), 6),
     ((4, 1024, 1024, 16, 8, 64, True, 0), 1),
     ((4, 1024, 1024, 32, 8, 128, True, 0), 1),
 ]
 # The wgmma backward's tiles (head dims 64 and 128: dK/dV 128 keys a block
-# and 128 or 64 queries a stage, dQ 128 rows a block and 128 keys a stage),
-# with the split G the kernels take at each shape: T and S ragged against
-# all of them, T > S so that rows see no key, a window of 200 that leaves
-# whole stages unseen, non-causal T != S; granite's GQA 2:1 at D=64 and
-# phi3.5's 4:1 at D=128.  tests/test_torch_attn_tc.py holds its CPU
-# emulation of the kernels' rounding on the same cases.
-WGMMA_BWD_CASES = [case for D in (64, 128) for case in (
+# and 128 or 64 queries a stage, dQ 128 rows a block and 128 keys a stage;
+# head dim 256: dK/dV 64 keys a block and 64 queries a stage, dQ 128 rows a
+# block and 64 keys a stage), with the split G the kernels take at each
+# shape: T and S ragged against all of them, T > S so that rows see no key,
+# a window of 200 that leaves whole stages unseen, non-causal T != S;
+# granite's GQA 2:1 at D=64 and phi3.5's 4:1 at D=128.
+# tests/test_torch_attn_tc.py holds its CPU emulation of the kernels'
+# rounding on the same cases.
+WGMMA_BWD_CASES = [case for D in (64, 128, 256) for case in (
     ((1, 200, 330, 4, 2, D, True, 0), 2),
     ((1, 300, 140, 4, 1, D, True, 0), 4),
     ((1, 640, 640, 4, 2, D, True, 200), 2),
@@ -342,11 +346,12 @@ def test_flash_attention_bwd_tensor_cores_vs_autograd_of_plain(case, groups):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [TRAIN_CASE, (4, 1024, 1024, 12, 4, 64, True, 0),
-                                  LOCAL_TRAIN_CASE], ids=str)
+                                  LOCAL_TRAIN_CASE, PALI_TRAIN_CASE], ids=str)
 def test_flash_attention_bwd_is_deterministic(case):
     """No atomics: two backward calls on the same inputs agree bit for bit
-    (G = 4 at the training shape; G = 2 over a group of 3; G = 6 at
-    recurrentgemma's local training shape, head dim 256)."""
+    (G = 4 at the training shape; G = 2 over a group of 3; G = 3 at
+    recurrentgemma's local training shape and G = 6 at paligemma's, head
+    dim 256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, T, S, H, K, D, causal, window = case
@@ -363,9 +368,8 @@ def test_flash_attention_bwd_is_deterministic(case):
 
 @pytest.mark.gpu
 def test_flash_attention_paths():
-    """The bf16 forward takes the wgmma kernel at head dims 64, 128 and 256
-    and the mma.sync kernel at 16 and 32; the bf16 backward the wgmma
-    kernels at 64 and 128 and the mma.sync kernels at 16, 32 and 256; f32,
+    """The bf16 forward and backward take the wgmma kernels at head dims 64,
+    128 and 256 and the mma.sync kernels at 16 and 32; f32,
     head dims the tensor-core kernels do not instantiate, and unaligned
     pointers take the FMA kernels."""
     if not torch.cuda.is_available():
@@ -374,7 +378,7 @@ def test_flash_attention_paths():
     assert [fa.fwd_path(bf16, D) for D in (16, 32, 64, 128, 256)] == [1, 1, 2, 2, 2]
     assert fa.PATHS[2] == "wgmma"
     assert [fa.bwd_path(bf16, D) for D in (16, 32, 64, 128)] == [1, 1, 2, 2]
-    assert fa.bwd_path(bf16, 256) == 1
+    assert fa.bwd_path(bf16, 256) == 2
     assert fa.fwd_path(bf16, 96) == fa.bwd_path(bf16, 96) == 0
     assert fa.fwd_path(f32, 128) == fa.bwd_path(f32, 128) == 0
     assert fa.fwd_path(f32, 256) == fa.bwd_path(f32, 256) == 0

@@ -15,9 +15,8 @@ For the kernel's sources in the tree at DIR (default: this checkout's
   granite-moe's prefill (head dims 128 and 64), paligemma-3b's training
   shape and recurrentgemma-9b's local shape (head dim 256), with
   ``chip_smoke``'s inputs.
-- ``flash_bwd``: the bf16 tensor-core backward of
-  ``flash_attention_bwd.cu`` (the wgmma kernels at head dims 64 and 128,
-  the warp pairs at 256), timed through its C entry point from one
+- ``flash_bwd``: the bf16 wgmma backward of ``flash_attention_bwd.cu``
+  (head dims 64, 128 and 256), timed through its C entry point from one
   forward's saved tensors at whisper-small's encoder (head dim 64),
   starcoder2-3b's training shape (128), paligemma-3b's and
   recurrentgemma-9b's local training shapes (256).
@@ -34,9 +33,9 @@ For the kernel's sources in the tree at DIR (default: this checkout's
    whole of each wgmma kernel's HGMMA, warpgroup arrive and dependency
    barriers, MUFU.EX2, SHFL, SYNCS (the mbarrier operations) and BAR.
    ``flash_bwd``: the whole of each wgmma kernel (dK/dV and dQ blocks
-   in one launch) and each warp-pair dK/dV and dQ kernel: HGMMA,
-   warpgroup arrive and dependency barriers, SYNCS, HMMA, LDSM, MUFU.EX2,
-   LDGSTS, STS, LDS, BAR, and STL / LDL (local memory: spills).
+   in one launch): HGMMA, warpgroup arrive and dependency barriers, SYNCS,
+   HMMA, LDSM, MUFU.EX2, LDGSTS, STS, LDS, BAR, and STL / LDL (local
+   memory: spills).
 3. Ablations.  Copies the tree's ``csrc/`` under ``build/ablate/<name>/``,
    applies the text substitutions the table lists for that source (an
    ablation whose text is not in the source is reported as not
@@ -146,67 +145,17 @@ FLASH_FWD_ABLATIONS = {
          "(void)dq; (void)dk;")]),
 }
 FAB = "flash_attention_bwd.cu"
-# The backward's products and the pieces around them, each taken out of the
-# mma.sync code sets: the one-warp kernels (D <= 128 before the wgmma
-# kernels, 16 and 32 since) and the warp-pair kernels (D = 256), where role
-# 0 of a pair computes S and P and role 1 dP; then ("wgmma: ...") out of the
-# wgmma kernels at D in {64, 128}.  A removed product keeps its commit, so
-# the waits still count the same groups.
+# The wgmma backward's products and the pieces around them, each taken out:
+# at head dims 64 and 128 and (the D=256 texts) in the 64-key dK/dV blocks,
+# where warpgroup 0 computes S and P and warpgroup 1 dP, and in the D=256 dQ
+# blocks.  A removed product keeps its commit, so the waits still count the
+# same groups.
 FLASH_BWD_ABLATIONS = {
-    "no softmax recompute (P = S)": (FAB, [
-        ("const float p = ok ? exp2f(sT[n][i] * scale_log2 - l * LOG2E) : 0.f;",
-         "const float p = sT[n][i]; (void)ok;"),
-        ("const float p = ok ? exp2f(sc[n][i] * scale_log2 - l2[r]) : 0.f;",
-         "const float p = sc[n][i]; (void)ok;"),
-        ("x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l * LOG2E) : 0.f;", "(void)ok;"),
-        ("x[n][i] = ok ? exp2f(x[n][i] * scale_log2 - l2[r]) : 0.f;", "(void)ok;")]),
-    "no S = Q.K^T products": (FAB, [
-        ("        mma_bf16(sT[n], ka, qb[0], qb[1]);\n"
-         "        mma_bf16(sT[n + 1], ka, qb[2], qb[3]);\n", ""),
-        ("        mma_bf16(sc[n], qa, kb[0], kb[1]);\n"
-         "        mma_bf16(sc[n + 1], qa, kb[2], kb[3]);\n", ""),
-        ("        mma_bf16(x[n], a, bq[0], bq[1]);\n"
-         "        mma_bf16(x[n + 1], a, bq[2], bq[3]);\n",
-         "        if (role) { mma_bf16(x[n], a, bq[0], bq[1]);"
-         " mma_bf16(x[n + 1], a, bq[2], bq[3]); }\n"),
-        ("        mma_bf16(x[n], a, kb[0], kb[1]);\n"
-         "        mma_bf16(x[n + 1], a, kb[2], kb[3]);\n",
-         "        if (role) { mma_bf16(x[n], a, kb[0], kb[1]);"
-         " mma_bf16(x[n + 1], a, kb[2], kb[3]); }\n")]),
-    "no dP = dO.V^T products": (FAB, [
-        ("        mma_bf16(dpT[n], va, ob[0], ob[1]);\n"
-         "        mma_bf16(dpT[n + 1], va, ob[2], ob[3]);\n", ""),
-        ("        mma_bf16(dp[n], oa, vb[0], vb[1]);\n"
-         "        mma_bf16(dp[n + 1], oa, vb[2], vb[3]);\n", ""),
-        ("        mma_bf16(x[n], a, bq[0], bq[1]);\n"
-         "        mma_bf16(x[n + 1], a, bq[2], bq[3]);\n",
-         "        if (!role) { mma_bf16(x[n], a, bq[0], bq[1]);"
-         " mma_bf16(x[n + 1], a, bq[2], bq[3]); }\n"),
-        ("        mma_bf16(x[n], a, kb[0], kb[1]);\n"
-         "        mma_bf16(x[n + 1], a, kb[2], kb[3]);\n",
-         "        if (!role) { mma_bf16(x[n], a, kb[0], kb[1]);"
-         " mma_bf16(x[n + 1], a, kb[2], kb[3]); }\n")]),
-    "no dV = P^T.dO products": (FAB, [
-        ("        mma_bf16(dv[n], pa, ob[0], ob[1]);\n"
-         "        mma_bf16(dv[n + 1], pa, ob[2], ob[3]);\n", "")]),
-    "no dK = dS^T.Q products": (FAB, [
-        ("        mma_bf16(dk[n], da, qb[0], qb[1]);\n"
-         "        mma_bf16(dk[n + 1], da, qb[2], qb[3]);\n", "")]),
-    "no dQ = dS.K products": (FAB, [
-        ("        mma_bf16(acc[n], da, kb[0], kb[1]);\n"
-         "        mma_bf16(acc[n + 1], da, kb[2], kb[3]);\n", "")]),
-    "no dQ pass (its kernel not launched)": (FAB, [
-        ("  q_kern<<<dim3((T_ + BQ_DQ - 1) / BQ_DQ, B * H), threads, q_smem, stream>>>(\n"
-         "      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dq), T_, S, H, K, causal,\n"
-         "      window, scale * LOG2E, scale);\n", "")]),
-    "no dK/dV group sum (reduce not launched)": (FAB, [
-        ("  bwd_reduce_kernel<<<(unsigned)blocks, REDUCE_THREADS, 0, stream>>>(\n"
-         "      reinterpret_cast<const float4*>(dk_part),\n"
-         "      reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),\n"
-         "      static_cast<uint2*>(dv), n4, groups, scale);\n", "(void)blocks;\n")]),
     "wgmma: no softmax recompute (P = S)": (FAB, [
         ("float p = exp2_ftz(fmaf(st[4 * n + i], scale_log2, nl[col]));",
          "float p = st[4 * n + i];"),
+        ("float p = exp2_ftz(fmaf(x[4 * n + i], scale_log2, nl[col]));",
+         "float p = x[4 * n + i];"),
         ("float p = exp2_ftz(fmaf(sc[4 * n + i], scale_log2, nl[r]));",
          "float p = sc[4 * n + i];"),
         ("const bool all = (!causal || kwarp + 15 <= qp0) &&\n"
@@ -215,16 +164,24 @@ FLASH_BWD_ABLATIONS = {
         ("const bool all = k0 >= full_lo && k0 + BN <= full_hi;", "const bool all = true;")]),
     "wgmma: no S products": (FAB, [
         ("product_ss<BQ, D, BN>(st, Ks, Qs);", "wgmma_commit();"),
+        ("product_ss<BQ, D, BN>(x, rows, wg ? Os : Qs);",
+         "if (wg) product_ss<BQ, D, BN>(x, rows, Os); else wgmma_commit();"),
         ("product_ss<BN, D, BM>(sc, Qs, Ks);", "wgmma_commit();")]),
     "wgmma: no dP products": (FAB, [
         ("product_ss<BQ, D, BN>(dpt, Vs, Os);", "wgmma_commit();"),
+        ("product_ss<BQ, D, BN>(x, rows, wg ? Os : Qs);",
+         "if (!wg) product_ss<BQ, D, BN>(x, rows, Qs); else wgmma_commit();"),
         ("product_ss<BN, D, BM>(dp, Os, Vs);", "wgmma_commit();")]),
     "wgmma: no dV products": (FAB, [
-        ("product_rs<BQ, D>(dv_acc, pa, Os);", "wgmma_commit();")]),
+        ("product_rs<BQ, D>(dv_acc, pa, Os);", "wgmma_commit();"),
+        ("product_rs<BQ, HALF>(dv_acc, pa, Os + 2 * wg * BQ * 128);", "wgmma_commit();")]),
     "wgmma: no dK products": (FAB, [
-        ("product_rs<BQ, D>(dk_acc, da, Qs);", "wgmma_commit();")]),
+        ("product_rs<BQ, D>(dk_acc, da, Qs);", "wgmma_commit();"),
+        ("product_rs<BQ, HALF>(dk_acc, da, Qs + 2 * wg * BQ * 128);", "wgmma_commit();")]),
     "wgmma: no dQ products": (FAB, [
-        ("product_rs<BN, D>(acc, da, Ks);", "wgmma_commit();")]),
+        ("product_rs<BN, D>(acc, da, Ks);", "wgmma_commit();"),
+        ("product_rs<BN, HALF>(acc[0], da, Ks);\n"
+         "      product_rs<BN, HALF>(acc[1], da, Ks + 2 * BN * 128);", "wgmma_commit();")]),
     "wgmma: no dQ pass (its blocks not launched)": (FAB, [
         ("kern<<<(unsigned)(kv_blocks + q_blocks), THREADS", "kern<<<(unsigned)kv_blocks, THREADS")]),
     "wgmma: no dK/dV group sum (reduce not launched)": (FAB, [
@@ -232,6 +189,19 @@ FLASH_BWD_ABLATIONS = {
          "      reinterpret_cast<const float4*>(dk_part),\n"
          "      reinterpret_cast<const float4*>(dv_part), static_cast<uint2*>(dk),\n"
          "      static_cast<uint2*>(dv), n4, groups, scale);\n", "(void)blocks;\n")]),
+    # D=256 only: the consumers' exchange of P^T and dP^T (its shared-memory
+    # round trip and both barriers; each warpgroup keeps its own tile), and a
+    # dQ ring of two slots, one K/V stage (a correct variant).
+    "wgmma D=256: no exchange": (FAB, [
+        ("if (!first) consumers_sync(1);", "(void)first;"),
+        ("      consumers_sync(2);\n", ""),
+        ("        mine[n * 128] = make_float4(x[4 * n], x[4 * n + 1], x[4 * n + 2], x[4 * n + 3]);",
+         "        (void)mine;"),
+        ("const float4 o = theirs[n * 128];",
+         "const float4 o = make_float4(x[4 * n], x[4 * n + 1], x[4 * n + 2], x[4 * n + 3]);"
+         " (void)theirs;")]),
+    "wgmma D=256: dQ ring of 2 slots": (FAB, [
+        ("DQ_BN = 64, DQ_STAGES = 3; };", "DQ_BN = 64, DQ_STAGES = 2; };")]),
 }
 
 # Instruction classes by opcode prefix, in the order they are tried.
@@ -410,7 +380,7 @@ TARGETS = {
         count=op_counts, ptxas=r"wgmma|warning|setmaxnreg", calls=flash_fwd_calls),
     "flash_bwd": dict(
         ablations=FLASH_BWD_ABLATIONS,
-        kernels={FAB: r"bwd_((dkdv|dq)_pair|wgmma)_kernel<(\(int\))?(64|128|256)>"},
+        kernels={FAB: r"bwd_wgmma_kernel<(\(int\))?(64|128|256)>"},
         count=lambda code, text: op_counts(code, text, FLASH_BWD_COUNTED),
         ptxas=r"wgmma|warning|setmaxnreg", calls=flash_bwd_calls),
 }

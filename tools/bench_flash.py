@@ -27,8 +27,8 @@ with ``chip_smoke``'s inputs and timer.  With neither flag, both parts run.
   five products of 2·D flops per visible pair at 989 TFLOP/s against q, k,
   v, o, dO, lse, dq, dk, dv at 3.35 TB/s) and autograd of SDPA's time (a
   yardstick the port never calls), by CUDA events around the calls and as
-  the device time of its kernels under ``torch.profiler``.  The local shape takes fewer
-  iterations and no SDPA.
+  the device time of its kernels under ``torch.profiler`` (with a boolean
+  mask where there is a window).  The local shape takes fewer iterations.
 
 To compare two commits on one card, unpack the other under ``build/``
 (``git archive``) and run parent, change, change, parent on one card, one
@@ -145,20 +145,24 @@ def backward(torch, cs, fa) -> dict:
                      for e in prof.key_averages() if e.device_time_total > 0}
         # SDPA's backward through autograd: CUDA events around the calls (the
         # host's autograd work included), and the device time of its kernels.
-        sdpa_ms = sdpa_device_ms = None
-        if window == 0:
-            with torch.enable_grad():
-                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-                sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-                    *(x.transpose(1, 2) for x in leaves), is_causal=causal,
-                    enable_gqa=True).transpose(1, 2)
+        if window > 0:
+            qpos = torch.arange(T, device="cuda")[:, None] + (S - T)
+            kpos = torch.arange(S, device="cuda")[None, :]
+            sdpa_args = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
+        else:
+            sdpa_args = dict(is_causal=causal)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in leaves), enable_gqa=True,
+                **sdpa_args).transpose(1, 2)
 
-                def sdpa_call():
-                    return torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)
+            def sdpa_call():
+                return torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)
 
-                sdpa_ms = cs.time_ms(torch, sdpa_call, iters=iters)
-                sdpa_device_ms = device_ms(torch, sdpa_call, 5)
-                del leaves, sdpa_out
+            sdpa_ms = cs.time_ms(torch, sdpa_call, iters=iters)
+            sdpa_device_ms = device_ms(torch, sdpa_call, 5)
+            del leaves, sdpa_out, sdpa_args
         flops = 10 * D * cs.visible_pairs(T, S, causal, window) * B * H
         b_ms, b_by, _ = cs.bound(flops, cs.PEAK_BF16_FLOPS, 0,
                                  cs.nbytes(q, k, v, o, dout, lse, q, k, v))
@@ -167,8 +171,8 @@ def backward(torch, cs, fa) -> dict:
                      "sdpa_device_ms": sdpa_device_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "device_ms_by_kernel": by_kernel}
         print(f"backward {name} {shape} ({path}): {ms[0]:.4f} / {ms[1]:.4f} ms "
-              f"(device {sum(by_kernel.values()):.4f}), sdpa backward {sdpa_ms} "
-              f"(device {sdpa_device_ms}), bound {b_ms:.4f} ms by {b_by}", flush=True)
+              f"(device {sum(by_kernel.values()):.4f}), sdpa backward {sdpa_ms:.4f} "
+              f"(device {sdpa_device_ms:.4f}), bound {b_ms:.4f} ms by {b_by}", flush=True)
         del q, k, v, dout, o, lse, o_lo
         torch.cuda.empty_cache()
     return out
