@@ -25,6 +25,7 @@ from typing import Dict, Iterator, List, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.data.dlio import PreloadedStore
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import extra_inputs
@@ -81,9 +82,12 @@ class TokenPipeline:
         flat = [i for sub in assign for i in sub]
         for b0 in range(0, len(flat) - self.B + 1, self.B):
             toks = []
-            for idx in flat[b0 : b0 + self.B]:
-                raw = self.store.read_sample(idx, reader_host=reader_host)
-                toks.append(np.frombuffer(raw, np.int32)[: self.seq])
-            tokens = torch.from_numpy(np.stack(toks)).to(self.device,
-                                                         torch.int64)
-            yield {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+            with obs.span(obs.INGEST_READ):
+                for idx in flat[b0 : b0 + self.B]:
+                    raw = self.store.read_sample(idx, reader_host=reader_host)
+                    toks.append(np.frombuffer(raw, np.int32)[: self.seq])
+            with obs.span(obs.INGEST_TO_DEVICE):
+                tokens = torch.from_numpy(np.stack(toks)).to(self.device,
+                                                             torch.int64)
+                labels = torch.roll(tokens, -1, dims=1)
+            yield {"tokens": tokens, "labels": labels}

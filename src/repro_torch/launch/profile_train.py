@@ -10,8 +10,9 @@ number of warm-up steps (kernel build, cuBLAS plans, allocator) before the
 profiled one.  All steps take one batch, ``launch.train``'s first.  Prints
 the profiled step's wall time (after a device synchronize), the device's
 busy and idle share (summed kernel time over wall time; kernels run on one
-stream) and the kernels that took the most device time, as
-``launch.profile_serve`` does for serving.
+stream), the time of the step's phases (forward, backward, optimizer) and
+of the port's other spans, and the kernels that took the most device
+time, as ``launch.profile_serve`` does for serving.
 """
 
 from __future__ import annotations

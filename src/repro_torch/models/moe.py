@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch.distributed._functional_collectives import all_to_all_single_autograd
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.models import sharding as sh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Params, Shapes, dense_
@@ -218,10 +219,16 @@ def _moe_local(xf: torch.Tensor, p: Params, cfg: ModelConfig, C: int
     """The sort-scatter data path on a flat (S, D) token array."""
     S, D = xf.shape
     E = cfg.moe_experts
-    r = _route(xf, p["router"], E, cfg.moe_topk, C)
-    slab, filler, w = _dispatch(xf, r, E, C)
+
+    def dispatch(xf, router):
+        r = _route(xf, router, E, cfg.moe_topk, C)
+        slab, filler, w = _dispatch(xf, r, E, C)
+        return slab, w, r.probs, filler, r.counts
+
+    slab, w, probs, filler, counts = obs.region(obs.MOE_DISPATCH, dispatch, xf, p["router"])
     ye = _expert_ffn(slab, p, cfg).reshape(E * C, D)
-    return _combine(ye, filler, w, S), _aux_loss(r.counts, r.probs, E)
+    y = obs.region(obs.MOE_DISPATCH, _combine, ye, filler, w, S)
+    return y, _aux_loss(counts, probs, E)
 
 
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.sharding import shard
 from repro_torch.models.transformer import Transformer
 
@@ -40,8 +41,9 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 def make_prefill(model: Transformer, max_len: int):
     def prefill(tokens: torch.Tensor, **extras):
         """tokens: (B,Tp); extras: ``frames`` / ``patches``."""
-        logits, cache = model.prefill(tokens, max_len, **extras)
-        return _greedy(logits), logits, cache
+        with obs.span(obs.PREFILL):
+            logits, cache = model.prefill(tokens, max_len, **extras)
+            return _greedy(logits), logits, cache
     return prefill
 
 

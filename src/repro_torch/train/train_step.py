@@ -36,6 +36,7 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import obs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (from_local_even, keep_shards,
                                          local_offset, shard, shard_tree,
@@ -123,19 +124,27 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
     M = num_microbatches
     pspecs = param_specs(cfg)
 
-    def grad_fn(model: Transformer, batch: Batch):
+    def grad_fn(model: Transformer, batch: Batch, acc=None):
+        """The loss, its parts and the gradients, pinned to the parameters'
+        sharding; with ``acc``, each gradient over M is added into it (f32)
+        instead."""
         params = dict(model.named_parameters())
-        loss, aux = loss_fn(model, batch, cfg, aux_weight)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), {k: a.detach() for k, a in aux.items()}, dict(
-            zip(params, grads))
+        with obs.span(obs.FORWARD):
+            loss, aux = loss_fn(model, batch, cfg, aux_weight)
+        with obs.span(obs.BACKWARD):
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            if acc is None:
+                grads = shard_tree(grads, pspecs)
+            else:
+                for n, gi in grads.items():
+                    acc[n].add_(shard(gi.float() / M, *pspecs[n]))
+        return loss.detach(), {k: a.detach() for k, a in aux.items()}, grads
 
     def train_step(state: TrainState, batch: Batch
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state["params"]
         if M == 1:
             loss, aux, grads = grad_fn(model, batch)
-            grads = shard_tree(grads, pspecs)
         else:
             B = next(iter(batch.values())).shape[0]
             if B % M:
@@ -148,15 +157,14 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig,
             ce = torch.zeros_like(loss)
             for i in range(M):
                 part = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
-                lval, a, g = grad_fn(model, part)
-                for n, gi in g.items():
-                    grads[n].add_(shard(gi.float() / M, *pspecs[n]))
+                lval, a, _ = grad_fn(model, part, grads)
                 loss = loss + lval / M
                 ce = ce + a["ce"] / M
             aux = {"ce": ce, "moe_aux": torch.zeros_like(loss)}
 
         params = dict(model.named_parameters())
-        _, newopt, om = adamw_update(grads, state["opt"], params, opt)
+        with obs.span(obs.OPTIMIZER):
+            _, newopt, om = adamw_update(grads, state["opt"], params, opt)
         step = state["step"] + 1
         metrics = {"loss": loss, **aux, **om, "step": step}
         return {"params": model, "opt": newopt, "step": step}, metrics

@@ -158,3 +158,6 @@ def test_profile_train_tiny_on_cpu(capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "== train step: wall" in out and "loss " in out
+    for phase in ("forward", "backward", "optimizer"):
+        assert f"span repro_torch.train.{phase} (1x, host)" in out, phase
+    assert "span repro_torch.moe.dispatch" in out
