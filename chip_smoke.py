@@ -9,7 +9,8 @@ without the final result line:
 1. Device: the card's name and power limit, from nvidia-smi.
 2. Build: every CUDA kernel of the serving and training paths (flash
    attention forward and backward, the selective scan and the RG-LRU with
-   their backwards, int8 quantization), compiled from the sources under
+   their backwards, int8 quantization, AdamW's update), compiled from the
+   sources under
    src/repro_torch/kernels/csrc with one nvcc per source, all started
    together.
 3. Kernel against plain: each kernel's wrapper against its plain PyTorch
@@ -52,7 +53,13 @@ without the final result line:
    (2, 3000, 4096)): per-element gradients (dx, ddt, da_gate, di_gate,
    dh0) at f32 1e-4 / bf16 2e-2, gradients summed over batch and time or
    channels (dA, dD, dB, dC, dlog_lam) by relative norm at 1e-4 / 2e-2;
-   both bitwise equal on a second call at the training shapes.
+   both bitwise equal on a second call at the training shapes.  AdamW's
+   fused update against the optimizer's slice loop
+   (``train.optimizer.update_in_slices``), p, m and v bit for bit: one leaf
+   of each parameter shape of starcoder2-3b and of phi3.5-moe-42b-a6.6b
+   (bf16 weights and gradients, f32 moments, step 2, the clip factor
+   active, decay on matrices), and the port's other dtype sets at
+   starcoder2's FFN matrix.
 4. Whole models at full width, f32, kernels against plain (atol 1e-3 on
    the last-position logits): qwen3-32b 2 layers, B=1, T=256;
    falcon-mamba-7b 2 layers, B=1, T=256; recurrentgemma-9b 3 layers (one
@@ -73,7 +80,8 @@ without the final result line:
    granite-moe (2 layers), phi3.5-moe (1), whisper (2 + 2, 1500 frames) and
    paligemma (2, 256 patches), B=2, T=256: the flash kernels against plain
    attention under the experts, the encoder and cross-attention, and the
-   patch prefix.
+   patch prefix.  The plain steps run the optimizer's slice loop in place
+   of AdamW's kernel.
 5. Main paths, with every kernel's launch count set to 0 just before each
    run and read just after.  ``repro_torch.launch.serve`` at full width,
    bf16, batch 4, 32 greedy decode steps: qwen3-32b 8 layers, prompt 1024
@@ -334,6 +342,14 @@ TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, LOCAL_TRAIN_SH
 # (3072, 12288) FFN matrix cut into 1024-wide rows by grad_compress._rows).
 QUANT_CASES = [(8, 16), (7, 33), (128, 256), (1, 5), "zero-row", "ties"]
 QUANT_MAIN = (36864, 1024)
+# AdamW's update: the train cells' archs at full width, one leaf of each
+# parameter shape, in the configs' dtypes; the port's other dtype sets
+# (p, g, moments) at starcoder2-3b's FFN matrix; the timed leaf, phi3.5's
+# stacked expert matrix (16 x 4096 x 6400).
+ADAMW_ARCHS = ("starcoder2-3b", "phi3.5-moe-42b-a6.6b")
+ADAMW_SETS_SHAPE = (3072, 12288)
+ADAMW_MAIN = (16, 4096, 6400)
+ADAMW_STEP, ADAMW_CLIP = 2, 0.37
 # Bt, T, I, N, with h0 -- tests/test_kernels.py SSM_CASES, then an initial
 # state, T past one tile (20, 1000), I not a multiple of a channel block;
 # then the chunked kernel's edges (64-step chunks of 16-step segments,
@@ -438,12 +454,13 @@ EXAMPLE_ARGS = ["--steps", "40", "--ckpt-every", "10", "--device", "cuda"]
 
 # Every kernel's launch counter, in the order of the kernels line.
 KERNELS = ("flash_attention", "flash_attention_bwd", "ssm_scan", "ssm_scan_bwd",
-           "rglru_scan", "rglru_scan_bwd", "quantize")
+           "rglru_scan", "rglru_scan_bwd", "quantize", "adamw")
 
 
 def kernel_table() -> dict:
     """name -> (module, its source attribute, its launch counter), in the
     order of KERNELS."""
+    from repro_torch.kernels import adamw as ak
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rglru_scan as rs
@@ -454,7 +471,8 @@ def kernel_table() -> dict:
                "ssm_scan_bwd": (ss, "BWD_SOURCE", "BWD_LAUNCHES"),
                "rglru_scan": (rs, "SOURCE", "LAUNCHES"),
                "rglru_scan_bwd": (rs, "BWD_SOURCE", "BWD_LAUNCHES"),
-               "quantize": (qz, "SOURCE", "LAUNCHES")}
+               "quantize": (qz, "SOURCE", "LAUNCHES"),
+               "adamw": (ak, "SOURCE", "LAUNCHES")}
     check(tuple(kernels) == KERNELS, "kernel table out of step with KERNELS")
     return kernels
 
@@ -493,12 +511,29 @@ def serve_launches(cfg) -> dict:
     return expect(**counts)
 
 
-def train_launches(cfg, steps: int) -> dict:
-    """Launches of ``steps`` train steps of ``cfg`` with one microbatch.
-    Under ``remat`` (``remat_policy="full"``) each super-block and each
-    encoder layer is checkpointed, so its layers run their forward kernels
-    twice a step (the forward and its recomputation in the backward), the
-    remainder layers once; every forward launch has one backward launch."""
+def model_leaves(cfg) -> int:
+    """Non-empty parameter leaves of ``cfg``'s model: AdamW's kernel
+    launches once for each in a step."""
+    from repro_torch.models.transformer import Transformer
+    return local_leaves(Transformer(cfg, device="meta").parameters())
+
+
+def local_leaves(params) -> int:
+    """Parameters whose local tensor (a DTensor's shard on this rank) is
+    non-empty: AdamW's kernel skips an empty one."""
+    from torch.distributed.tensor import DTensor
+    return sum(1 for p in params
+               if (p.to_local() if isinstance(p, DTensor) else p).numel())
+
+
+def train_launches(cfg, steps: int, leaves: int) -> dict:
+    """Launches of ``steps`` train steps of ``cfg`` with one microbatch,
+    whose optimizer updates ``leaves`` non-empty leaves (0 for a loss and
+    its gradients alone).  Under ``remat`` (``remat_policy="full"``) each
+    super-block and each encoder layer is checkpointed, so its layers run
+    their forward kernels twice a step (the forward and its recomputation
+    in the backward), the remainder layers once; every forward launch has
+    one backward launch; AdamW launches once a leaf a step."""
     check(not cfg.remat or cfg.remat_policy == "full",
           f"{cfg.name}: remat_policy {cfg.remat_policy!r}, not 'full'")
     P = len(cfg.pattern)
@@ -514,7 +549,8 @@ def train_launches(cfg, steps: int) -> dict:
         fwd["flash_attention"] += (2 if cfg.remat else 1) * cfg.enc_layers
         bwd["flash_attention"] += cfg.enc_layers
     return expect(**{name: steps * n for name, n in fwd.items()},
-                  **{f"{name}_bwd": steps * n for name, n in bwd.items()})
+                  **{f"{name}_bwd": steps * n for name, n in bwd.items()},
+                  adamw=steps * leaves)
 
 
 def phase(n: int, name: str, detail: str = "") -> None:
@@ -589,6 +625,34 @@ def quant_input(torch, case, dtype, seed):
     else:
         x = 3 * randn(torch, g, case)
     return x.to(dtype)
+
+
+def adamw_leaf(torch, shape, dtypes, seed):
+    """p, g, m, v of ``shape`` in the dtypes (p, g, moments), as a train
+    step holds them after some steps: small weights and gradients, v
+    positive."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scales = (0.02, 1e-3, 1e-4, 1e-4)
+    out = [randn(torch, g, shape) * sc for sc in scales]
+    out[3] = out[3] * out[3]
+    return [t.to(dt) for t, dt in zip(out, (dtypes[0], dtypes[1], dtypes[2], dtypes[2]))]
+
+
+def adamw_scalars(torch, clip: float, step: int):
+    """clip, bc1 and bc2 as ``adamw_update`` makes them on the card."""
+    from repro_torch.train.optimizer import AdamWConfig
+    opt = AdamWConfig()
+    f32 = dict(dtype=torch.float32, device="cuda")
+    stepf = torch.tensor(step, dtype=torch.int32, device="cuda").float()
+    return (torch.tensor(clip, **f32), 1 - torch.tensor(opt.b1, **f32) ** stepf,
+            1 - torch.tensor(opt.b2, **f32) ** stepf)
+
+
+def adamw_hyper() -> dict:
+    from repro_torch.train.optimizer import AdamWConfig
+    opt = AdamWConfig()
+    return dict(lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                weight_decay=opt.weight_decay)
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -910,7 +974,8 @@ def mesh_rank(rank: int, workdir: str) -> None:
     loss = float(met["loss"])
     ms = (time.perf_counter() - t0) * 1e3
     out["f32"] = {"counts": counts(), "a2a": moe.A2A_CALLS, "loss": loss,
-                  "aux": float(met["moe_aux"]), "ms": ms}
+                  "aux": float(met["moe_aux"]), "ms": ms,
+                  "leaves": local_leaves(state["params"].parameters())}
     out["f32"]["param_err"], out["f32"]["param_err_leaf"] = max_diff(state["params"], plain)
     del plain
 
@@ -1117,7 +1182,8 @@ def mesh_rank(rank: int, workdir: str) -> None:
     loss = float(met["loss"])
     out["phi"] = {"counts": counts(), "ms": (time.perf_counter() - t0) * 1e3,
                   "loss": loss, "aux": float(met["moe_aux"]),
-                  "flops": count.totals()["dense_flops"]}
+                  "flops": count.totals()["dense_flops"],
+                  "leaves": local_leaves(state["params"].parameters())}
     out["phi"]["param_err"], out["phi"]["param_err_leaf"] = max_diff(state["params"], plain)
     del plain, state, met, dbatch
     torch.cuda.empty_cache()
@@ -1143,6 +1209,7 @@ def mesh_rank(rank: int, workdir: str) -> None:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     out["bf16"] = {"counts": counts(), "a2a": moe.A2A_CALLS, "losses": losses,
                    "step_ms": step_ms,
+                   "leaves": local_leaves(state["params"].parameters()),
                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     with open(f"{workdir}/rank{rank}.json", "w") as f:
         json.dump(out, f)
@@ -1257,16 +1324,19 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
         its forward twice a step."""
         return 2 * steps * cfg.n_layers * (2 if cfg.remat else 1)
 
-    runs = {"f32": (train_launches(f32cfg, 1), a2a_calls(f32cfg, 1)),
-            "bf16": (train_launches(gcfg, MESH_BF16["steps"]),
-                     a2a_calls(gcfg, MESH_BF16["steps"])),
-            "rg": (expect(flash_attention=1, rglru_scan=2), None),
-            "rg_serve": (expect(flash_attention=1, rglru_scan=2), None),
-            "phi": (train_launches(pcfg, 1), None),
-            "phi_serve": (serve_launches(pcfg), None)}
+    # AdamW launches once a step for each leaf whose shard on the rank is
+    # not empty.
     for r in ranks:
-        leaves = r["compressed_psum"]["leaves"]
-        runs_r = dict(runs, compressed_psum=(expect(quantize=2 * leaves), None))
+        runs_r = {"f32": (train_launches(f32cfg, 1, r["f32"]["leaves"]),
+                          a2a_calls(f32cfg, 1)),
+                  "bf16": (train_launches(gcfg, MESH_BF16["steps"], r["bf16"]["leaves"]),
+                           a2a_calls(gcfg, MESH_BF16["steps"])),
+                  "rg": (expect(flash_attention=1, rglru_scan=2), None),
+                  "rg_serve": (expect(flash_attention=1, rglru_scan=2), None),
+                  "phi": (train_launches(pcfg, 1, r["phi"]["leaves"]), None),
+                  "phi_serve": (serve_launches(pcfg), None),
+                  "compressed_psum": (expect(quantize=2 * r["compressed_psum"]["leaves"]),
+                                      None)}
         for run, (want, a2a) in runs_r.items():
             check(r[run]["counts"] == want, f"mesh rank {r['rank']} {run}: kernel "
                   f"launches {r[run]['counts']}, expected {want}")
@@ -1420,6 +1490,7 @@ def main() -> int:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import CostModel, EventKind
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import adamw as ak
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rglru_scan as rs
@@ -1688,6 +1759,42 @@ def main() -> int:
         n_cases += 2
         del args, carries, dh, first, second
         free()
+    # AdamW's fused update against the optimizer's slice loop, p, m and v
+    # bit for bit: one leaf of each parameter shape of the train cells'
+    # archs in their configs' dtypes, then the port's other dtype sets.
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.optimizer import update_in_slices
+    hyper = adamw_hyper()
+    scalars = adamw_scalars(torch, ADAMW_CLIP, ADAMW_STEP)
+    adamw_cases = []
+    for arch in ADAMW_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=1)
+        shapes = sorted({tuple(p.shape) for p in
+                         Transformer(cfg, device="meta").parameters()})
+        adamw_cases += [(arch, shape, (cfg.dtype, cfg.dtype, cfg.opt_state_dtype))
+                        for shape in shapes]
+    adamw_cases += [("dtype set", ADAMW_SETS_SHAPE, dtypes)
+                    for dtypes in ak.DTYPE_SETS
+                    if dtypes != adamw_cases[0][2]]
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+    with torch.no_grad():
+        for i, (what, shape, dtypes) in enumerate(adamw_cases):
+            leaf = adamw_leaf(torch, shape, dtypes, seed=1200 + i)
+            plain = [t.clone() for t in leaf]
+            decay = len(shape) >= 2
+            ak.adamw_cuda(*leaf, *scalars, **hyper, decay=decay)
+            update_in_slices(*plain, *scalars, **hyper, decay=decay)
+            for name, got, want in zip("pgmv", leaf, plain):
+                check(torch.equal(bits(got), bits(want)),
+                      f"adamw {what} {shape} {dtypes}: {name} differs from the "
+                      "slice loop's bits")
+            n_cases += 1
+            del leaf, plain
+            free()
+    main_err["adamw"] = 0.0
     path_line = ", ".join(
         f"{name} {fa.PATHS[p]}" for name, p in (
             ("qwen3 forward", paths[("flash_attention", MAIN_SHAPE)]),
@@ -1726,11 +1833,13 @@ def main() -> int:
           f"and recurrentgemma-local bf16 {main_err['flash_local_bwd']:.3e} "
           "(against f32 autograd of plain), "
           f"quantize scales f32 {main_err['quantize']:.3e} (codes equal); the "
-          f"MoE / encoder-decoder / vision shapes, bf16 max abs err: {arch_line}")
+          f"MoE / encoder-decoder / vision shapes, bf16 max abs err: {arch_line}; "
+          f"adamw p, m and v bit-equal to the slice loop at {len(adamw_cases)} "
+          f"leaves ({', '.join(f'{w} {sh}' for w, sh, _ in adamw_cases)})")
 
     # -- 4. whole models at full width, kernels against plain -----------------
     plain = {"flash_attention": ref.attention_ref, "ssm_scan": ref.ssm_scan_ref,
-             "rglru": ref.rglru_ref}
+             "rglru": ref.rglru_ref, "adamw": update_in_slices}
 
     def on_plain(fn):
         """fn() with ops' kernel entry points swapped for the plain versions."""
@@ -1922,8 +2031,9 @@ def main() -> int:
         counts = read_counts()
         launches[f"{arch} train"] = counts
         cfg, n_steps = tr.cfg, len(tr.losses)
+        leaves = local_leaves(tr.state["params"].parameters())
         B, T = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--seq") + 1])
-        want = train_launches(cfg, n_steps)
+        want = train_launches(cfg, n_steps, leaves)
         check(counts == want, f"{arch} train: kernel launches {counts}, "
               f"expected {want}")
         check(all(math.isfinite(x) for x in tr.losses),
@@ -1937,7 +2047,7 @@ def main() -> int:
             mem_losses.append(float(metrics["loss"]))
         counts = read_counts()
         launches[f"{arch} memorize"] = counts
-        want = train_launches(cfg, MEMORIZE_STEPS)
+        want = train_launches(cfg, MEMORIZE_STEPS, leaves)
         check(counts == want, f"{arch} memorize: kernel launches {counts}, "
               f"expected {want}")
         check(all(math.isfinite(x) for x in mem_losses)
@@ -1966,7 +2076,7 @@ def main() -> int:
                 del loss, aux, grads
             counts = read_counts()
             launches[f"{arch} twice"] = counts
-            want = train_launches(cfg, 2)
+            want = train_launches(cfg, 2, 0)
             check(counts == want, f"{arch} twice: kernel launches {counts}, "
                   f"expected {want}")
             (l1, a1, g1), (l2, a2, g2) = runs
@@ -1986,14 +2096,22 @@ def main() -> int:
     # Training: launch.train's own function, then one error-feedback int8
     # round over the gradients of one more loss on the trained state.
     reset_counts()
+    ak.ELEMENTS = 0
     tr = train_launch.run(TRAIN_ARGS)
     counts = read_counts()
     launches["starcoder2-3b train"] = counts
     cfg, n_steps = tr.cfg, len(tr.losses)
-    want = train_launches(cfg, n_steps)
+    params = list(tr.state["params"].parameters())
+    leaves = local_leaves(params)
+    want = train_launches(cfg, n_steps, leaves)
     check(counts == want, f"starcoder2-3b train: kernel launches {counts}, "
           f"expected {want} (with remat, two forwards and one backward per "
-          "layer and step)")
+          "layer and step; AdamW once a leaf a step)")
+    n_params = sum(p.numel() for p in params)
+    check(ak.ELEMENTS == n_steps * n_params, f"starcoder2-3b train: AdamW's "
+          f"kernel updated {ak.ELEMENTS} elements, expected every parameter "
+          f"each step, {n_steps} x {n_params}")
+    del params
     check(all(math.isfinite(x) for x in tr.losses),
           f"starcoder2-3b train: losses {tr.losses} not finite")
     phase(5, "main path starcoder2-3b train",
@@ -2002,7 +2120,8 @@ def main() -> int:
           f"{', '.join(f'{x:.4f}' for x in tr.losses)}; step ms "
           f"{', '.join(f'{x:.3f}' for x in tr.step_ms)}; "
           f"{tr.tokens_per_s:.1f} tokens/s over steps 2..{n_steps}; peak "
-          f"{tr.peak_bytes / 1e9:.3f} GB; launches {counts}")
+          f"{tr.peak_bytes / 1e9:.3f} GB; launches {counts}; AdamW's kernel "
+          f"updated {n_steps} x {n_params} elements")
 
     # The trained state goes on through the same train step on one batch.
     reset_counts()
@@ -2014,7 +2133,7 @@ def main() -> int:
         mem_losses.append(float(metrics["loss"]))
     counts = read_counts()
     launches["starcoder2-3b memorize"] = counts
-    want = train_launches(cfg, MEMORIZE_STEPS)
+    want = train_launches(cfg, MEMORIZE_STEPS, leaves)
     check(counts == want, f"starcoder2-3b memorize: kernel launches {counts}, "
           f"expected {want}")
     check(all(math.isfinite(x) for x in mem_losses)
@@ -2057,7 +2176,7 @@ def main() -> int:
         del q, s, ghat, new_err, target, back, q_ref, s_ref
     counts = read_counts()
     launches["starcoder2-3b ef_round"] = counts
-    want = dict(train_launches(cfg, 1), quantize=len(grads))
+    want = dict(train_launches(cfg, 1, 0), quantize=len(grads))
     check(counts == want, f"starcoder2-3b loss backward + ef_round: launches "
           f"{counts}, expected {want}")
     phase(5, "main path starcoder2-3b gradient compression",
@@ -2083,7 +2202,8 @@ def main() -> int:
           f"starcoder2-3b checkpoint/restart: saves at {ck.ckpt_steps}, steps "
           f"replayed {ck.replayed}, {len(ck.losses)} steps executed; expected "
           f"saves at [2, 4], step 3 replayed, {CKPT_EXECUTED} steps")
-    want = train_launches(cfg, CKPT_EXECUTED)
+    want = train_launches(cfg, CKPT_EXECUTED,
+                          local_leaves(ck.state["params"].parameters()))
     check(counts == want, f"starcoder2-3b checkpoint/restart: kernel launches "
           f"{counts}, expected {want}")
     check(all(math.isfinite(x) for x in ck.losses),
@@ -2166,7 +2286,7 @@ def main() -> int:
     opt = AdamWConfig(lr=1e-3, state_dtype=cfg.opt_state_dtype)
     samples = make_token_samples(0, INGEST_SAMPLES, INGEST_SEQ + 1, cfg.vocab)
     n_steps = sum(n for _, n in INGEST_STEPS)
-    want = train_launches(cfg, n_steps)
+    want = train_launches(cfg, n_steps, model_leaves(cfg))
     runs = {}
     for model_name in ("commit", "session"):
         r = ingest_run(torch, cfg, opt, model_name, samples, "cuda",
@@ -2216,7 +2336,8 @@ def main() -> int:
     counts = read_counts()
     launches["train_checkpoint example"] = counts
     cfg, executed = ex.cfg, len(ex.losses)
-    want = train_launches(cfg, executed)
+    want = train_launches(cfg, executed,
+                          local_leaves(ex.state["params"].parameters()))
     check(executed == 40 and ex.fail_step == 20 and ex.restored_step == 20
           and ex.ckpt_steps == [10, 20, 40],
           f"train_checkpoint example: {executed} steps executed, failure at "
@@ -2552,6 +2673,40 @@ def main() -> int:
                  "quantization")
     del x, q, s
     free()
+
+    # AdamW's update of phi3.5's stacked expert matrix, bf16 weights and
+    # gradients, f32 moments: one read of p, g, m, v and one write of p, m, v.
+    dtypes = ak.DTYPE_SETS[0]
+    leaf = adamw_leaf(torch, ADAMW_MAIN, dtypes, seed=95)
+    n = leaf[0].numel()
+    ms = time_ms(torch, lambda: ak.adamw_cuda(*leaf, *scalars, **hyper, decay=True),
+                 iters=10)
+    plain_ms = time_ms(torch, lambda: update_in_slices(*leaf, *scalars, **hyper,
+                                                        decay=True), iters=3, warmup=1)
+    # Elementwise arithmetic, bound by bytes; one square root an element.
+    b_ms, b_by, detail = bound(0, PEAK_F32_FLOPS, n,
+                               nbytes(*leaf) + nbytes(leaf[0], *leaf[2:]))
+    # PyTorch's fused AdamW is a yardstick only if it takes these dtypes;
+    # the port never calls it.
+    try:
+        few = [t[0, 0, :8].clone() for t in leaf]
+        torch._fused_adamw_([few[0]], [few[1]], [few[2]], [few[3]], [],
+                            [torch.ones((), device="cuda")], lr=hyper["lr"],
+                            beta1=hyper["b1"], beta2=hyper["b2"],
+                            weight_decay=hyper["weight_decay"], eps=hyper["eps"],
+                            amsgrad=False, maximize=False)
+        torch.cuda.synchronize()
+        library_note = ("torch._fused_adamw_ takes bf16 parameters with f32 "
+                        "moments on this torch; not timed")
+    except RuntimeError as e:
+        library_note = f"torch._fused_adamw_ refuses these dtypes: {e}".splitlines()[0]
+    times["adamw"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None, library_note=library_note)
+    lines.append(f"adamw {ADAMW_MAIN} bf16 / f32 moments: kernel {ms:.4f} ms, "
+                 f"slice loop {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+                 f"({detail}); {library_note}")
+    del leaf
+    free()
     phase(6, "times", " | ".join(lines))
 
     # -- 7. kernels line and result -------------------------------------------
@@ -2599,6 +2754,12 @@ def main() -> int:
             for label, (shape, bwd_t) in bwd_times.items():
                 entry[f"at_{label}"] = dict(
                     shape=list(shape), max_abs_err=main_err[(name, shape)], **bwd_t)
+        if name == "adamw":
+            entry["note"] = ("replaces no TPU kernel: the reference's AdamW "
+                             "(src/repro/train/optimizer.py) is jnp, fused by XLA; "
+                             "plain is the optimizer's slice loop, which it "
+                             "equals bit for bit")
+            entry["shape"] = list(ADAMW_MAIN)
         if name in ("ssm_scan_bwd", "rglru_scan_bwd"):
             fwd = name.removesuffix("_bwd")
             entry["note"] = (f"the backward of the function {fwd}'s Pallas kernel "

@@ -1,8 +1,8 @@
 """Kernel entry points used by the model code.
 
-``flash_attention``, ``ssm_scan``, ``rglru`` and ``quantize`` send a CUDA
-tensor to their hand-written kernel and a CPU tensor to the plain version;
-there is no other route.  A meta tensor (the dry run) goes to the kernel's
+``flash_attention``, ``ssm_scan``, ``rglru``, ``quantize`` and ``adamw``
+send a CUDA tensor to their hand-written kernel and a CPU tensor to the
+plain version; there is no other route.  A meta tensor (the dry run) goes to the kernel's
 wrapper too, which then launches nothing and records the kernel's work
 (:mod:`repro_torch.kernels.accounting`).  Under autograd, ``flash_attention``, ``ssm_scan``
 and ``rglru`` on the card differentiate through their CUDA backward kernels
@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.adamw import adamw_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
@@ -245,6 +246,23 @@ def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.is_cuda or x.is_meta:
         return quantize_cuda(x)
     return _ref.quantize_ref(x)
+
+
+def adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+          clip: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor, *,
+          lr: float, b1: float, b2: float, eps: float, weight_decay: float,
+          decay: bool) -> None:
+    """One AdamW step of one leaf's local tensors, in place: p, m and v.
+    clip, bc1 and bc2 are 0-d f32 tensors on p's device; decoupled weight
+    decay when ``decay``.  The plain version is the optimizer's slice loop
+    (:func:`repro_torch.train.optimizer.update_in_slices`)."""
+    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                 decay=decay)
+    if p.is_cuda or p.is_meta:
+        return adamw_cuda(p, g, m, v, clip, bc1, bc2, **hyper)
+    # Imported here: the optimizer imports this module.
+    from repro_torch.train.optimizer import update_in_slices
+    return update_in_slices(p, g, m, v, clip, bc1, bc2, **hyper)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,

@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate
 
+from repro_torch.kernels import ops
 from repro_torch.models.sharding import P
 
 Tree = Mapping[str, torch.Tensor]
@@ -44,7 +45,7 @@ class AdamWConfig:
     state_dtype: Any = torch.float32   # bf16 for llama3-405b (memory budget)
 
 
-# Elements of a leaf that adamw_update updates at once.
+# Elements of a leaf that update_in_slices updates at once.
 SLICE = 1 << 26
 
 
@@ -100,9 +101,15 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
     The arithmetic is the reference's, in f32: the clip factor
     ``min(1, grad_clip / max(|g|, 1e-12))`` and the bias corrections
     ``1 - b**step`` are f32 tensors, not Python floats.  It is elementwise,
-    so each leaf is updated in slices of at most ``SLICE`` elements: the f32
-    temporaries of a 256000 x 4096 embedding table would otherwise take
-    about 20 GB beside the state."""
+    and each leaf goes through :func:`repro_torch.kernels.ops.adamw`, which
+    takes one of three paths by the device its (local) tensors are on:
+
+    * CUDA: one launch of the fused kernel
+      (:func:`repro_torch.kernels.adamw.adamw_cuda`), which reads p, g, m
+      and v once and writes p, m and v once, with the slice loop's bits;
+    * meta (the dry run): the same wrapper, which launches nothing and
+      records the kernel's work;
+    * CPU: :func:`update_in_slices`, the plain version."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     clip = torch.clamp(opt.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
@@ -110,6 +117,8 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
     f32 = dict(dtype=torch.float32, device=gnorm.device)
     bc1 = 1 - torch.tensor(opt.b1, **f32) ** stepf
     bc2 = 1 - torch.tensor(opt.b2, **f32) ** stepf
+    hyper = dict(lr=opt.lr, b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                 weight_decay=opt.weight_decay)
     for name, leaf in params.items():
         decay = leaf.ndim >= 2           # decoupled weight decay, matrices only
         quad = (leaf, grads[name], state["m"][name], state["v"][name])
@@ -119,18 +128,28 @@ def adamw_update(grads: Tree, state: Dict[str, Any], params: Tree,
                                  "and moments on different placements "
                                  f"{[tuple(t.placements) for t in quad]}")
             quad = tuple(t.to_local() for t in quad)
-        flat = (quad[0].view(-1), quad[1].reshape(-1), quad[2].view(-1),
-                quad[3].view(-1))
-        for lo in range(0, flat[0].numel(), SLICE):
-            p, g, m, v = (t[lo:lo + SLICE] for t in flat)
-            gf = g.float() * clip
-            mf = opt.b1 * m.float() + (1 - opt.b1) * gf
-            vf = opt.b2 * v.float() + (1 - opt.b2) * gf * gf
-            delta = (mf / bc1) / (torch.sqrt(vf / bc2) + opt.eps)
-            if decay:
-                delta = delta + opt.weight_decay * p.float()
-            p.copy_(p.float() - opt.lr * delta)
-            m.copy_(mf)
-            v.copy_(vf)
+        ops.adamw(*quad, clip, bc1, bc2, **hyper, decay=decay)
     return params, {"m": state["m"], "v": state["v"], "step": step}, {
         "grad_norm": gnorm, "clip": clip}
+
+
+def update_in_slices(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                     v: torch.Tensor, clip: torch.Tensor, bc1: torch.Tensor,
+                     bc2: torch.Tensor, *, lr: float, b1: float, b2: float,
+                     eps: float, weight_decay: float, decay: bool) -> None:
+    """One leaf's AdamW step in PyTorch's elementwise ops, in place, in
+    slices of at most ``SLICE`` elements: the f32 temporaries of a
+    256000 x 4096 embedding table would otherwise take about 20 GB beside
+    the state.  The plain version of the fused kernel, with its signature."""
+    flat = (p.view(-1), g.reshape(-1), m.view(-1), v.view(-1))
+    for lo in range(0, flat[0].numel(), SLICE):
+        p, g, m, v = (t[lo:lo + SLICE] for t in flat)
+        gf = g.float() * clip
+        mf = b1 * m.float() + (1 - b1) * gf
+        vf = b2 * v.float() + (1 - b2) * gf * gf
+        delta = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+        if decay:
+            delta = delta + weight_decay * p.float()
+        p.copy_(p.float() - lr * delta)
+        m.copy_(mf)
+        v.copy_(vf)

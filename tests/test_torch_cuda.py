@@ -13,18 +13,21 @@ the same bits on two calls, and takes the tensor cores at the bf16 shapes
 of the main paths; the quantize kernel's int8 codes must equal the plain
 version's exactly.  The scans' backward kernels are held against autograd
 of the plain scans in f32 (tolerances stated beside those tests) and must
-give the same bits on two calls.
+give the same bits on two calls.  The fused AdamW update must give the bits
+of the slice loop it replaces (``update_in_slices``), with no tolerance.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import adamw as AK
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import ssm_scan as ss
+from repro_torch.train import optimizer as TO
 
 # B, T, S, H, K, D, causal, window -- tests/test_kernels.py ATTN_CASES, then
 # cases on the tensor-core path (bf16, D in {16, 32, 64, 128, 256}) with
@@ -781,3 +784,165 @@ def test_quantize_cuda_vs_plain(name, dtype):
     assert s.shape == (x.shape[0], 1)
     assert torch.equal(q, q_ref)
     _close(s, s_ref, 1e-6)
+
+
+# The fused AdamW update against the slice loop, bit for bit: (p, g, moments)
+# dtypes as the port uses them (bf16 weights with f32 moments, f32 weights,
+# f32 gradients of M > 1 microbatches on bf16 weights, llama3-405b's bf16
+# moments); leaves shorter than a vector, ragged against the 8-element
+# vectors, and over one 2^26 slice of the loop.
+ADAMW_DTYPES = [(torch.bfloat16, torch.bfloat16, torch.float32),
+                (torch.float32, torch.float32, torch.float32),
+                (torch.bfloat16, torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16, torch.bfloat16)]
+ADAMW_DTYPE_IDS = ["bf16-bf16-f32", "f32-f32-f32", "bf16-f32-f32", "bf16-bf16-bf16"]
+ADAMW_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adamw_leaf(n, dtypes, seed, offsets=(0, 0, 0, 0)):
+    """p, g, m, v of n elements, each starting ``offsets`` elements into its
+    allocation; v positive, as a second moment is."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for dtype, off, scale, square in zip((dtypes[0], dtypes[1], dtypes[2], dtypes[2]),
+                                         offsets, (1.0, 1.0, 0.1, 0.1),
+                                         (False, False, False, True)):
+        x = torch.randn(n + off, generator=gen, device="cuda") * scale
+        out.append((x * x if square else x).to(dtype)[off:])
+    return out
+
+
+def _adamw_scalars(clip, step):
+    """clip, bc1, bc2 as adamw_update makes them on the card."""
+    f32 = dict(dtype=torch.float32, device="cuda")
+    stepf = torch.tensor(step, dtype=torch.int32, device="cuda").float()
+    return (torch.tensor(clip, **f32),
+            1 - torch.tensor(ADAMW_HYPER["b1"], **f32) ** stepf,
+            1 - torch.tensor(ADAMW_HYPER["b2"], **f32) ** stepf)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _adamw_kernel_vs_slices(leaf, clip, step, decay):
+    plain = [t.clone() for t in leaf]
+    scalars = _adamw_scalars(clip, step)
+    before = (AK.LAUNCHES, AK.ELEMENTS)
+    versions = [t._version for t in leaf]
+    AK.adamw_cuda(*leaf, *scalars, **ADAMW_HYPER, decay=decay)
+    TO.update_in_slices(*plain, *scalars, **ADAMW_HYPER, decay=decay)
+    torch.cuda.synchronize()
+    n = leaf[0].numel()
+    assert (AK.LAUNCHES, AK.ELEMENTS) == (before[0] + 1, before[1] + n)
+    # p, m and v were written in place, and autograd is told so; g was not.
+    assert [t._version > v0 for t, v0 in zip(leaf, versions)] == [True, False, True, True]
+    for name, got, want in zip("pgmv", leaf, plain):
+        assert torch.equal(_bits(got), _bits(want)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 4097, (1 << 26) + 3])
+@pytest.mark.parametrize("dtypes", ADAMW_DTYPES, ids=ADAMW_DTYPE_IDS)
+@pytest.mark.parametrize("decay", [False, True], ids=["no-decay", "decay"])
+@pytest.mark.parametrize("clip", [1.0, 0.37], ids=["clip-off", "clip-on"])
+@pytest.mark.parametrize("step", [1, 2])
+def test_adamw_kernel_equals_the_slice_loop(n, dtypes, decay, clip, step):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _adamw_kernel_vs_slices(_adamw_leaf(n, dtypes, seed=n + step), clip, step, decay)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", [(1, 1, 1, 1), (1, 0, 3, 2)], ids=["same", "mixed"])
+@pytest.mark.parametrize("dtypes", ADAMW_DTYPES, ids=ADAMW_DTYPE_IDS)
+def test_adamw_kernel_at_unaligned_offsets(offsets, dtypes):
+    """A leaf that starts off the 16-byte boundary: the same offset in all
+    four tensors (a head element by element, then vectors), or offsets no
+    common start aligns (the whole leaf element by element)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    leaf = _adamw_leaf(4097, dtypes, seed=9, offsets=offsets)
+    assert leaf[0].data_ptr() % 16 != 0
+    _adamw_kernel_vs_slices(leaf, 0.37, 2, True)
+
+
+def _adamw_tree(dtypes, seed):
+    shapes = {"w": (64, 33), "b": (33,), "t": (3, 5, 7), "s": (1,), "e": (0, 4)}
+    params, grads, m, v = ({} for _ in range(4))
+    for i, (name, shape) in enumerate(shapes.items()):
+        n = int(np.prod(shape))
+        leaf = _adamw_leaf(n, dtypes, seed=seed + i)
+        for tree, t in zip((params, grads, m, v), leaf):
+            tree[name] = t.reshape(shape)
+    return params, grads, {"m": m, "v": v,
+                           "step": torch.ones((), dtype=torch.int32, device="cuda")}
+
+
+@pytest.mark.gpu
+def test_adamw_update_launches_once_per_nonempty_leaf():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params, grads, state = _adamw_tree(ADAMW_DTYPES[0], seed=11)
+    before = (AK.LAUNCHES, AK.ELEMENTS)
+    TO.adamw_update(grads, state, params, TO.AdamWConfig())
+    torch.cuda.synchronize()
+    nonempty = [p for p in params.values() if p.numel()]
+    assert AK.LAUNCHES == before[0] + len(nonempty) == before[0] + 4
+    assert AK.ELEMENTS == before[1] + sum(p.numel() for p in nonempty)
+
+
+@pytest.mark.gpu
+def test_adamw_kernel_launches_without_a_host_sync():
+    """Every leaf's launch runs under sync debug mode "error": clip and the
+    bias corrections are read on the card, nothing comes back to the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    params, grads, state = _adamw_tree(ADAMW_DTYPES[0], seed=12)
+    scalars = _adamw_scalars(0.5, 3)
+    AK._fn()                             # the build and load, before the mode
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, p in params.items():
+            AK.adamw_cuda(p, grads[name], state["m"][name], state["v"][name],
+                          *scalars, **ADAMW_HYPER, decay=p.ndim >= 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 2])
+def test_train_steps_with_the_adamw_kernel_equal_the_slice_loop(M, monkeypatch):
+    """Two train steps of starcoder2's TINY config (bf16 weights, f32
+    moments; f32 gradients when M = 2) on the card: the same parameters and
+    moments through the kernel as through the slice loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs.registry import tiny_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.train.train_step import make_train_step, train_state_init
+    cfg = tiny_config("starcoder2-3b")
+    opt = TO.AdamWConfig(lr=1e-2)
+    runs = []
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(ops, "adamw", TO.update_in_slices)
+        state = train_state_init(torch.Generator(device="cuda").manual_seed(3),
+                                 cfg, opt, "cuda")
+        step = make_train_step(cfg, opt, num_microbatches=M)
+        before = (AK.LAUNCHES, AK.ELEMENTS)
+        for seed in (4, 5):
+            state, _ = step(state, synthetic_batch(seed, cfg, 4, 32, "cuda"))
+        torch.cuda.synchronize()
+        params = dict(state["params"].named_parameters())
+        if fused:
+            assert AK.LAUNCHES == before[0] + 2 * len(params)
+            assert AK.ELEMENTS == before[1] + 2 * sum(p.numel() for p in params.values())
+        runs.append((params, state["opt"]))
+    (pa, oa), (pb, ob) = runs
+    for n in pa:
+        assert torch.equal(_bits(pa[n].detach()), _bits(pb[n].detach())), n
+        for mom in ("m", "v"):
+            assert torch.equal(_bits(oa[mom][n]), _bits(ob[mom][n])), (mom, n)

@@ -209,15 +209,17 @@ def test_tiny_kernel_launches_by_hand(tiny_cells):
     step (qwen3 TINY: 2 super-blocks of one attention layer; recurrentgemma
     TINY: one super-block (rglru, rglru, local) and two rglru remainder
     layers, not checkpointed); a decode step runs none (its one-token
-    functions are plain torch)."""
+    functions are plain torch).  A train step's AdamW runs its kernel once
+    per parameter leaf (qwen3 TINY: 25 leaves, recurrentgemma TINY: 64)."""
     launches = {k: {n: v["launches"] for n, v in r["kernels"].items()}
                 for k, r in tiny_cells.items()}
     assert launches["qwen3-32b/train_4k"] == {"flash_attention": 4,
-                                              "flash_attention_bwd": 2}
+                                              "flash_attention_bwd": 2,
+                                              "adamw": 25}
     assert launches["qwen3-32b/prefill_32k"] == {"flash_attention": 2}
     assert launches["recurrentgemma-9b/train_4k"] == {
         "rglru_scan": 6, "rglru_scan_bwd": 4, "flash_attention": 2,
-        "flash_attention_bwd": 1}
+        "flash_attention_bwd": 1, "adamw": 64}
     assert launches["recurrentgemma-9b/prefill_32k"] == {"rglru_scan": 4,
                                                          "flash_attention": 1}
     assert launches["qwen3-32b/decode_32k"] == {}

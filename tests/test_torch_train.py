@@ -468,3 +468,110 @@ def test_adamw_in_slices_equals_one_pass(monkeypatch):
         assert torch.equal(p, dict(b["params"].named_parameters())[n]), n
         for mom in ("m", "v"):
             assert torch.equal(a["opt"][mom][n], b["opt"][mom][n]), (mom, n)
+
+
+# --------------------------------------------------------------------------
+# the fused AdamW kernel's wrapper (its card tests: tests/test_torch_cuda.py)
+# --------------------------------------------------------------------------
+def test_adamw_on_cpu_takes_the_slice_loop_and_builds_nothing(monkeypatch):
+    """CPU leaves take update_in_slices: the kernel's counters stay, no build
+    is attempted, and each leaf gets the slice loop's bits."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import adamw as AK
+
+    def no_build(source):
+        raise AssertionError(f"a build of {source} was attempted")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    seen = []
+    plain = TO.update_in_slices
+
+    def spy(p, *args, **kw):
+        seen.append(p.numel())
+        plain(p, *args, **kw)
+
+    monkeypatch.setattr(TO, "update_in_slices", spy)
+    launches, elements = AK.LAUNCHES, AK.ELEMENTS
+    opt = TO.AdamWConfig(lr=1e-2)
+    state = _state(opt, seed=5)
+    state, _ = make_train_step(CFG, opt)(state, _batch(6))
+    assert (AK.LAUNCHES, AK.ELEMENTS) == (launches, elements)
+    params = list(state["params"].parameters())
+    assert seen == [p.numel() for p in params]
+
+
+def _meta_leaf(shape, p_dtype, g_dtype, s_dtype):
+    meta = dict(device="meta")
+    scalars = [torch.empty((), dtype=torch.float32, **meta) for _ in range(3)]
+    return (torch.empty(shape, dtype=p_dtype, **meta),
+            torch.empty(shape, dtype=g_dtype, **meta),
+            torch.empty(shape, dtype=s_dtype, **meta),
+            torch.empty(shape, dtype=s_dtype, **meta), *scalars)
+
+
+HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtypes,per_param", [
+    ((BF16, BF16, F32), 22), ((F32, F32, F32), 28), ((BF16, F32, F32), 24),
+    ((BF16, BF16, BF16), 14)], ids=["bf16-bf16-f32", "f32-f32-f32",
+                                   "bf16-f32-f32", "bf16-bf16-bf16"])
+@pytest.mark.parametrize("decay", [False, True], ids=["no-decay", "decay"])
+def test_adamw_kernel_on_meta_records_its_bytes_and_launches_nothing(
+        dtypes, per_param, decay):
+    """On meta tensors (the dry run) the wrapper launches nothing and
+    records one read of p, g, m, v and one write of p, m, v: 22 B a
+    parameter for bf16 p and g with f32 moments.  Its elementwise arithmetic
+    counts no FLOPs, as PyTorch's elementwise ops count none."""
+    from repro_torch.kernels import accounting
+    from repro_torch.kernels import adamw as AK
+    launches, elements = AK.LAUNCHES, AK.ELEMENTS
+    accounting.reset()
+    AK.adamw_cuda(*_meta_leaf((64, 48), *dtypes), **HYPER, decay=decay)
+    AK.adamw_cuda(*_meta_leaf((0, 48), *dtypes), **HYPER, decay=decay)
+    rec = accounting.snapshot()["adamw"]
+    accounting.reset()
+    n = 64 * 48
+    assert rec["bytes"] == per_param * n
+    assert rec["launches"] == 1                 # the empty leaf is skipped
+    assert rec["flops"] == rec["dense_flops"] == 0
+    assert rec["special"] == n
+    assert (AK.LAUNCHES, AK.ELEMENTS) == (launches, elements)
+
+
+def test_adamw_update_on_meta_records_one_kernel_per_leaf():
+    from repro_torch.kernels import accounting
+    shapes = {"w": (6, 5), "b": (5,), "t": (2, 3, 4)}
+    params = {n: torch.empty(s, dtype=BF16, device="meta") for n, s in shapes.items()}
+    grads = {n: torch.empty_like(p) for n, p in params.items()}
+    state = TO.adamw_init(params, TO.AdamWConfig())
+    accounting.reset()
+    TO.adamw_update(grads, state, params, TO.AdamWConfig())
+    rec = accounting.snapshot()["adamw"]
+    accounting.reset()
+    assert rec["launches"] == 3
+    assert rec["bytes"] == 22 * (30 + 5 + 24)
+
+
+def test_adamw_kernel_wrapper_refuses_what_it_does_not_take():
+    from repro_torch.kernels import adamw as AK
+    p, g, m, v, clip, bc1, bc2 = _meta_leaf((8, 4), BF16, BF16, F32)
+    cpu = [torch.zeros_like(t, device="cpu") for t in (p, g, m, v, clip, bc1, bc2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        AK.adamw_cuda(*cpu, **HYPER, decay=True)
+    m_t = torch.empty((4, 8), dtype=F32, device="meta").t()
+    with pytest.raises(ValueError, match="m is not contiguous"):
+        AK.adamw_cuda(p, g, m_t, v, clip, bc1, bc2, **HYPER, decay=True)
+    with pytest.raises(TypeError, match="float16"):
+        AK.adamw_cuda(p.to(torch.float16), g, m, v, clip, bc1, bc2, **HYPER,
+                      decay=True)
+    with pytest.raises(TypeError, match="m torch.float32, v torch.bfloat16"):
+        AK.adamw_cuda(p, g, m, v.to(BF16), clip, bc1, bc2, **HYPER, decay=True)
+    with pytest.raises(TypeError, match="must be one of"):     # f32 p, bf16 g
+        AK.adamw_cuda(p.to(F32), g, m, v, clip, bc1, bc2, **HYPER, decay=True)
+    with pytest.raises(TypeError, match="0-d float32"):
+        AK.adamw_cuda(p, g, m, v, clip.reshape(1), bc1, bc2, **HYPER, decay=True)
+    with pytest.raises(ValueError, match="shapes"):
+        AK.adamw_cuda(p, g[:4], m, v, clip, bc1, bc2, **HYPER, decay=True)
