@@ -28,6 +28,15 @@ without the final result line:
    64), both non-causal; paligemma-3b's training shape (4, 768, 768, 8, 1,
    256), causal with no window; granite-moe (4, 1024, 1024, 16, 8, 64) and
    phi3.5-moe (4, 1024, 1024, 32, 8, 128), forward and backward.
+   jamba2-3b's training shapes: the flash forward and backward at (2, 8192,
+   8192, 20, 1, 128), causal, bf16, on the wgmma kernels with 2 groups,
+   against plain attention run 4 query heads at a time (its log-sum-exp
+   too; dK and dV, sums over 20 heads and up to 8192 queries, by each
+   key's row: its error's norm over the row's at 2e-2; the backward bit
+   for bit on a second call); the scan and its
+   backward at (2, 8192, 5120, 16) in f32 and bf16, dt and A drawn as
+   Mamba's init draws them so that the state carries across hundreds of
+   steps (the backward bit for bit on a second call).
    Tolerances: f32 atol/rtol 1e-4, bf16 outputs 2e-2, the scans' f32 final
    states 1e-4; the flash forward's log-sum-exp (written for the backward)
    against a plain logsumexp at 1e-4, with its output bit-identical to the
@@ -66,8 +75,9 @@ without the final result line:
    rglru, rglru, local super-block), B=1, T=2100, past its 2048 window;
    qwen2-72b and llama3-405b 1 layer, B=1, T=256; granite-moe-1b-a400m 2
    layers, phi3.5-moe-42b-a6.6b 1 layer, whisper-small 2 + 2 layers over
-   its 1500 frames and paligemma-3b 2 layers behind its 256 patches, B=1,
-   T=256.
+   its 1500 frames, paligemma-3b 2 layers behind its 256 patches and
+   jamba2-3b 8 layers (7 mamba blocks with their FFNs, then attention),
+   B=1, T=256.
    Then one starcoder2-3b train step (2 layers, B=2, T=256, AdamW lr 3e-4)
    with the flash kernels against the same step on plain attention: loss,
    grad norm and every updated parameter within 1e-3, and each leaf's
@@ -77,10 +87,11 @@ without the final result line:
    step and checks for falcon-mamba-7b (2 layers) and recurrentgemma-9b (3
    layers, so that a local layer runs), B=2, T=256: the scans' forward and
    backward kernels against the plain scans under autograd; and for
-   granite-moe (2 layers), phi3.5-moe (1), whisper (2 + 2, 1500 frames) and
-   paligemma (2, 256 patches), B=2, T=256: the flash kernels against plain
-   attention under the experts, the encoder and cross-attention, and the
-   patch prefix.  The plain steps run the optimizer's slice loop in place
+   granite-moe (2 layers), phi3.5-moe (1), whisper (2 + 2, 1500 frames),
+   paligemma (2, 256 patches) and jamba2-3b (8), B=2, T=256: the flash
+   kernels against plain attention under the experts, the encoder and
+   cross-attention, and the patch prefix; jamba's scans and flash kernels
+   against both plain versions.  The plain steps run the optimizer's slice loop in place
    of AdamW's kernel.
 5. Main paths, with every kernel's launch count set to 0 just before each
    run and read just after.  ``repro_torch.launch.serve`` at full width,
@@ -92,22 +103,25 @@ without the final result line:
    1024 (flash 24 and 8); whisper-small 12 + 12 layers, 1500 frames,
    prompt 64 (flash 36: 12 encoder, 12 self, 12 cross); paligemma-3b all 18
    layers, 256 patches + prompt 256 (flash 18; the cache holds patches,
-   prompt and decode, and decoding starts after the patches); launch counts
-   from ``serve_launches``.
+   prompt and decode, and decoding starts after the patches); jamba2-3b all
+   28 layers, prompt 1024 (ssm 26, flash 2; 26 mamba states beside 2 KV
+   caches); launch counts from ``serve_launches``.
    ``repro_torch.launch.train`` for falcon-mamba-7b (8 layers, B=4,
    T=1024), recurrentgemma-9b (8 layers, B=2, T=3000, past its window;
    the last 64-step chunk holds 56), granite-moe (all 24 layers, B=4,
    T=1024), phi3.5-moe (3 layers, about 4.2 B params; B=4, T=1024),
-   whisper (12 + 12, B=4, the decoder's 448 positions over 1500 frames)
-   and paligemma (all 18, B=4, 256 patches + 512 tokens), bf16, one
+   whisper (12 + 12, B=4, the decoder's 448 positions over 1500 frames),
+   paligemma (all 18, B=4, 256 patches + 512 tokens) and jamba2-3b (all
+   28, B=2, T=8192, the jamba2-3b-train-8k cell's shape), bf16, one
    microbatch, 3 steps on fresh batches, then 3 more on one batch where the
    loss must fall; each checkpointed layer (``remat``,
-   ``remat_policy="full"``; every super-block and encoder layer) runs its
-   forward kernels twice a step, each other layer once, and every scan or
+   ``remat_policy="full"``; every layer of a super-block and every encoder
+   layer) runs its forward kernels twice a step, each other layer once, and
+   every scan or
    attention launch has its backward launch: falcon-mamba ssm 16 / 8 a
    step, recurrentgemma rglru 10 / 6 and flash 4 / 2, granite flash 48 /
-   24, phi3.5 6 / 3, whisper 72 / 36, paligemma 36 / 18
-   (``train_launches``).  The two MoE archs then take the loss and
+   24, phi3.5 6 / 3, whisper 72 / 36, paligemma 36 / 18, jamba2-3b ssm
+   52 / 26 and flash 4 / 2 (``train_launches``), AdamW once a leaf a step.  The two MoE archs then take the loss and
    gradients of one step twice on one batch: bit for bit equal.
    ``repro_torch.launch.train`` for starcoder2-3b at full width, 8 layers,
    bf16, B=4, T=1024, 3 steps on fresh batches: with remat, 16 flash
@@ -337,6 +351,14 @@ BWD_TC_GROUPS.update({TRAIN_SHAPE: (2, 4), LOCAL_SHAPE: (2, 2), LOCAL_TRAIN_SHAP
 # and 256; the mma.sync kernel keeps 16 and 32, which no main path uses).
 TC_FORWARD = (MAIN_SHAPE, LOCAL_SHAPE, TRAIN_SHAPE, LLAMA3_SHAPE, LOCAL_TRAIN_SHAPE,
               *ARCH_SHAPES)
+# jamba2-3b's training shape, B=2, T=8192: its attention layers (20 query
+# heads over one KV head of dim 128, causal, no window), held apart from
+# ALL_ATTN because its plain attention runs JAMBA_HEADS query heads at a
+# time (all 20 at once would hold 10.7 GB a score matrix in f32), with the
+# group split its tensor-core backward takes (path, G).
+JAMBA_ATTN = (2, 8192, 8192, 20, 1, 128, True, 0)
+JAMBA_BWD_GROUPS = (2, 2)
+JAMBA_HEADS = 4
 # Quantize: tests/test_kernels.py's shapes, a row of zeros, rows on exact .5
 # ties, and the largest gradient leaf of the starcoder2-3b main path (the
 # (3072, 12288) FFN matrix cut into 1024-wide rows by grad_compress._rows).
@@ -366,6 +388,11 @@ SSM_CASES = [(1, 8, 4, 2, False), (2, 16, 8, 4, False), (1, 24, 6, 3, False),
              (1, 64, 33, 16, False), (3, 67, 72, 5, True),
              (1, 200, 80, 12, True), (2, 73, 40, 3, True)]
 SSM_MAIN = (4, 1024, 8192, 16, False)
+# jamba2-3b's scan at its training shape (B=2, T=8192, d_inner 5120,
+# d_state 16), its dt and A drawn as Mamba's published init draws them
+# (``ssm_inputs(slow=True)``), so that the state carries across hundreds of
+# steps and thus across many of the kernels' 64-step chunks.
+JAMBA_SSM = (2, 8192, 5120, 16, False)
 # B, T, L, with h0 -- tests/test_kernels.py RGLRU_CASES, then T=20 (where the
 # Pallas wrapper's unmasked padding breaks h_T), T=1000 with L not a multiple
 # of the 64-channel block; then the chunked kernel's edges (64-step chunks of
@@ -409,7 +436,9 @@ MAIN_PATHS = [("qwen3-32b", serve_args("qwen3-32b", 1024)),
                                                   layers=24)),
               ("phi3.5-moe-42b-a6.6b", serve_args("phi3.5-moe-42b-a6.6b", 1024)),
               ("whisper-small", serve_args("whisper-small", 64, layers=12)),
-              ("paligemma-3b", serve_args("paligemma-3b", 256, layers=18))]
+              ("paligemma-3b", serve_args("paligemma-3b", 256, layers=18)),
+              # All 28 layers: 26 mamba states beside 2 KV caches.
+              ("jamba2-3b", serve_args("jamba2-3b", 1024, layers=28))]
 
 
 def train_args(arch: str, batch: int, seq: int, layers: int = 8) -> list:
@@ -423,7 +452,8 @@ def train_args(arch: str, batch: int, seq: int, layers: int = 8) -> list:
 # 8 layers; granite-moe at all 24; phi3.5-moe at 3 (about 4.2 B params, 50 GB
 # of weights, gradients and f32 moments); whisper at 12 + 12 with the
 # decoder's published 448 positions over 1500 frames; paligemma at all 18,
-# 256 patches + 512 tokens.
+# 256 patches + 512 tokens; jamba2-3b at all 28 (3.2 B params, about 52 GB
+# with its 8k activations), B=2, T=8192, the jamba2-3b-train-8k cell's shape.
 TRAIN_PATHS = [("falcon-mamba-7b", train_args("falcon-mamba-7b", 4, 1024)),
                    ("recurrentgemma-9b", train_args("recurrentgemma-9b", 2, 3000)),
                    ("granite-moe-1b-a400m",
@@ -431,7 +461,8 @@ TRAIN_PATHS = [("falcon-mamba-7b", train_args("falcon-mamba-7b", 4, 1024)),
                    ("phi3.5-moe-42b-a6.6b",
                     train_args("phi3.5-moe-42b-a6.6b", 4, 1024, layers=3)),
                    ("whisper-small", train_args("whisper-small", 4, 448, layers=12)),
-                   ("paligemma-3b", train_args("paligemma-3b", 4, 512, layers=18))]
+                   ("paligemma-3b", train_args("paligemma-3b", 4, 512, layers=18)),
+                   ("jamba2-3b", train_args("jamba2-3b", 2, 8192, layers=28))]
 TRAIN_ARGS = ["--arch", "starcoder2-3b", "--layers", "8", "--batch", "4",
               "--seq", "1024", "--steps", "3", "--device", "cuda", "--seed", "0"]
 MEMORIZE_STEPS = 3
@@ -530,8 +561,8 @@ def train_launches(cfg, steps: int, leaves: int) -> dict:
     """Launches of ``steps`` train steps of ``cfg`` with one microbatch,
     whose optimizer updates ``leaves`` non-empty leaves (0 for a loss and
     its gradients alone).  Under ``remat`` (``remat_policy="full"``) each
-    super-block and each encoder layer is checkpointed, so its layers run
-    their forward kernels twice a step (the forward and its recomputation
+    layer of a super-block and each encoder layer is checkpointed, so they
+    run their forward kernels twice a step (the forward and its recomputation
     in the backward), the remainder layers once; every forward launch has
     one backward launch; AdamW launches once a leaf a step."""
     check(not cfg.remat or cfg.remat_policy == "full",
@@ -591,14 +622,21 @@ def attn_inputs(torch, case, dtype, seed):
             randn(torch, g, (B, S, K, D), dtype))
 
 
-def ssm_inputs(torch, case, dtype, seed):
+def ssm_inputs(torch, case, dtype, seed, slow: bool = False):
     """x, dt, A, B, C, D, h0 as the main path gives them: x, B, C in the
-    working dtype, dt f32 (softplus'd), A negative, D and h0 f32."""
+    working dtype, dt f32 (softplus'd), A negative, D and h0 f32.  With
+    ``slow``, dt and A as Mamba's init draws them: dt log-uniform in
+    [0.001, 0.1] and A[:, n] = -(n + 1), so that a channel's state decays
+    over 10 to 16,000 steps."""
     Bt, T, I, N, with_h0 = case
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = randn(torch, g, (Bt, T, I), dtype)
     dt = torch.nn.functional.softplus(randn(torch, g, (Bt, T, I)))
     A = -torch.exp(randn(torch, g, (I, N)))
+    if slow:
+        u = torch.rand((Bt, T, I), generator=g, device="cuda")
+        dt = torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+        A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").repeat(I, 1)
     Bm, Cm = randn(torch, g, (Bt, T, N), dtype), randn(torch, g, (Bt, T, N), dtype)
     D = randn(torch, g, (I,))
     return x, dt, A, Bm, Cm, D, (randn(torch, g, (Bt, I, N)) if with_h0 else None)
@@ -697,6 +735,17 @@ def compare(torch, got, want, tol, what):
     return err.max().item()
 
 
+def rows_vs_plain(torch, got, want, tol, what):
+    """Largest relative norm of ``got``'s error against ``want`` over the
+    last dim, row by row; raises beyond ``tol`` or on a non-finite value."""
+    w = want.float()
+    rel = (got.float() - w).norm(dim=-1) / w.norm(dim=-1).clamp(min=1e-30)
+    worst = rel.max().item()
+    check(worst <= tol and bool(torch.isfinite(got).all()),
+          f"{what}: a row misses by {worst:.3e} of its norm, beyond {tol}")
+    return worst
+
+
 def grads_vs_plain(torch, run, plain, ins, cots, dtype, names, summed, what):
     """Gradients of sum(out * cot) over a scan's two outputs through ``run``
     (the kernels) against f32 autograd of ``plain`` on the same values:
@@ -741,6 +790,123 @@ def lse_plain(torch, q, k, causal: bool, window: int):
     if window > 0:
         mask &= kpos > qpos - window
     return torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+
+
+def attention_by_heads(torch, ref, q, k, v, causal: bool, window: int, dout=None):
+    """Plain attention of q's heads over one KV head, JAMBA_HEADS query
+    heads at a time: the output and log-sum-exp, or with ``dout`` f32
+    autograd's (dq, dk, dv) of the same, dk and dv summed over the heads."""
+    H, c = q.shape[2], JAMBA_HEADS
+    check(k.shape[2] == 1 and H % c == 0, f"attention_by_heads: {H} heads over "
+          f"{k.shape[2]} KV heads, in groups of {c}")
+    if dout is None:
+        out = torch.cat([ref.attention_ref(q[:, :, h:h + c], k, v, causal=causal,
+                                           window=window) for h in range(0, H, c)], 2)
+        lse = torch.cat([lse_plain(torch, q[:, :, h:h + c], k, causal, window)
+                         for h in range(0, H, c)], 1)
+        return out, lse
+    qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+    grads = [torch.zeros_like(x) for x in (qf, kf, vf)]
+    for h in range(0, H, c):
+        o = ref.attention_ref(qf[:, :, h:h + c], kf, vf, causal=causal, window=window)
+        for acc, g in zip(grads, torch.autograd.grad(o, (qf, kf, vf),
+                                                     dout[:, :, h:h + c].float())):
+            acc += g
+        del o
+    return grads
+
+
+def jamba_kernel_checks(torch, fa, ss, ref, tols, main_err: dict, paths: dict) -> int:
+    """jamba2-3b's training shapes against the plain versions (phase 3):
+    the flash forward and backward at JAMBA_ATTN in bf16 (its path, group
+    split, log-sum-exp, and the backward's bits on a second call), the
+    scan forward and backward at JAMBA_SSM in f32 and bf16 (and the
+    backward's bits on a second call), all at phase 3's tolerances.
+    Records the errors in ``main_err`` and the paths in ``paths``; returns
+    the number of cases."""
+    case = JAMBA_ATTN
+    B, T, S, H, K, D, causal, window = case
+    q, k, v = attn_inputs(torch, case, torch.bfloat16, seed=1300)
+    with torch.inference_mode():
+        o, lse, _ = fa._forward(q, k, v, causal, window, D ** -0.5, with_lse=True)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        check(torch.equal(o, got), f"flash_attention_cuda {case} bf16: output "
+              "with the log-sum-exp differs from without")
+        path = fa.fwd_path(torch.bfloat16, D, fa._aligned(q, k, v, got))
+        check(path == 2, f"flash_attention_cuda {case} bf16: path {fa.PATHS[path]}, "
+              "not wgmma")
+        paths[("flash_attention", case)] = path
+        want, lse_want = attention_by_heads(torch, ref, q, k, v, causal, window)
+        main_err[("flash_attention", case)] = compare(
+            torch, got, want, tols[torch.bfloat16], f"flash_attention_cuda {case} bf16")
+        main_err[("flash_lse", case)] = compare(
+            torch, lse, lse_want, 1e-4, f"flash_attention_cuda lse {case} bf16")
+        del o, lse, got, want, lse_want
+    free()
+    dout = randn(torch, torch.Generator(device="cuda").manual_seed(1301), q.shape,
+                 torch.bfloat16)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(fa.flash_attention_cuda(qg, kg, vg, causal=causal,
+                                                      window=window), (qg, kg, vg), dout)
+    again = torch.autograd.grad(fa.flash_attention_cuda(qg, kg, vg, causal=causal,
+                                                        window=window), (qg, kg, vg), dout)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention backward {case} bf16: two calls differ")
+    del again
+    path = fa.bwd_path(torch.bfloat16, D, fa._aligned(q, k, v, dout))
+    groups = fa.bwd_groups(B, S, H, K, D)
+    check((path, groups) == JAMBA_BWD_GROUPS, f"flash_attention backward {case} "
+          f"bf16: path {fa.PATHS[path]}, {groups} groups; expected "
+          f"{fa.PATHS[JAMBA_BWD_GROUPS[0]]}, {JAMBA_BWD_GROUPS[1]} groups")
+    paths[("flash_attention_bwd", case)] = path
+    # dq elementwise; dk and dv each key's row at once: they sum 20 query
+    # heads x up to 8192 queries, so where a sum cancels to near 0 it
+    # still carries the rounding of its large terms (bf16 P in the
+    # kernel's products; 6.4e-2 at a value near 0 on the card), as the
+    # scans' summed gradients are held by their error's relative norm.
+    want = attention_by_heads(torch, ref, q, k, v, causal, window, dout=dout)
+    tol = tols[torch.bfloat16]
+    main_err[("flash_attention_bwd", case)] = compare(
+        torch, got[0], want[0], tol, f"flash_attention backward dq {case} bf16")
+    main_err[("flash_rows_bwd", case)] = max(
+        rows_vs_plain(torch, g, w, tol, f"flash_attention backward d{name} {case} bf16")
+        for name, g, w in zip("kv", got[1:], want[1:]))
+    del q, k, v, qg, kg, vg, dout, got, want
+    free()
+    n = 2
+    Bt, T, I, N, _ = JAMBA_SSM
+    for dtype, tol in tols.items():
+        args = ssm_inputs(torch, JAMBA_SSM, dtype, seed=1310, slow=True)
+        with torch.inference_mode():
+            y, hT = ss.ssm_scan_cuda(*args)
+            y_ref, hT_ref = ref.ssm_scan_ref(*args)
+            err = compare(torch, y, y_ref, tol, f"ssm_scan_cuda y {JAMBA_SSM} {dtype}")
+            compare(torch, hT, hT_ref, 1e-4, f"ssm_scan_cuda h_T {JAMBA_SSM} {dtype}")
+        del y, hT, y_ref, hT_ref
+        g = torch.Generator(device="cuda").manual_seed(1311)
+        cots = (randn(torch, g, (Bt, T, I), dtype), randn(torch, g, (Bt, I, N)))
+        berr = grads_vs_plain(torch, ss.ssm_scan_cuda, ref.ssm_scan_ref, args, cots,
+                              dtype, ("x", "dt", "A", "B", "C", "D", "h0"),
+                              ("A", "B", "C", "D"), f"ssm_scan backward {JAMBA_SSM} {dtype}")
+        if dtype == torch.bfloat16:
+            main_err[("ssm_scan", JAMBA_SSM)] = err
+            main_err[("ssm_scan_bwd", JAMBA_SSM)] = berr
+        n += 2
+        del args, cots
+        free()
+    with torch.no_grad():
+        args = ss._prepare(*ssm_inputs(torch, JAMBA_SSM, torch.bfloat16, seed=1312,
+                                       slow=True))
+        _, _, carries = ss._forward(*args, save=True)
+        dy = randn(torch, torch.Generator(device="cuda").manual_seed(1313),
+                   args[0].shape, torch.bfloat16)
+        first, second = (ss.ssm_scan_bwd_cuda(dy, None, *args[:6], carries)
+                         for _ in range(2))
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"ssm_scan backward {JAMBA_SSM} bf16: two calls differ")
+        del args, carries, dy, first, second
+    free()
+    return n + 1
 
 
 def state_leaves(state) -> dict:
@@ -1759,6 +1925,9 @@ def main() -> int:
         n_cases += 2
         del args, carries, dh, first, second
         free()
+    # jamba2-3b's training shapes: flash at T=8192 with 20 query heads over
+    # one KV head, the scan at T=8192 with a state that carries far.
+    n_cases += jamba_kernel_checks(torch, fa, ss, ref, tols, main_err, paths)
     # AdamW's fused update against the optimizer's slice loop, p, m and v
     # bit for bit: one leaf of each parameter shape of the train cells'
     # archs in their configs' dtypes, then the port's other dtype sets.
@@ -1818,7 +1987,7 @@ def main() -> int:
     phase(3, "kernels against plain",
           f"{n_cases} cases; paths (bf16): {path_line}; f32 on the FMA "
           "kernels; flash backward, both scans and both scan backwards "
-          "deterministic (7 cases bitwise equal); "
+          "deterministic (9 cases bitwise equal); "
           "main-path max abs err: flash qwen3 bf16 "
           f"{main_err[('flash_attention', MAIN_SHAPE)]:.3e}, flash local bf16 "
           f"{main_err[('flash_attention', LOCAL_SHAPE)]:.3e}, flash starcoder2 "
@@ -1834,6 +2003,16 @@ def main() -> int:
           "(against f32 autograd of plain), "
           f"quantize scales f32 {main_err['quantize']:.3e} (codes equal); the "
           f"MoE / encoder-decoder / vision shapes, bf16 max abs err: {arch_line}; "
+          f"jamba2-3b bf16 max abs err: flash {JAMBA_ATTN} forward "
+          f"{fa.PATHS[paths[('flash_attention', JAMBA_ATTN)]]} "
+          f"{main_err[('flash_attention', JAMBA_ATTN)]:.3e} (its lse "
+          f"{main_err[('flash_lse', JAMBA_ATTN)]:.3e}), backward "
+          f"{fa.PATHS[paths[('flash_attention_bwd', JAMBA_ATTN)]]} "
+          f"{JAMBA_BWD_GROUPS[1]} groups dq "
+          f"{main_err[('flash_attention_bwd', JAMBA_ATTN)]:.3e}, dk and dv (a key's "
+          f"row, relative) {main_err[('flash_rows_bwd', JAMBA_ATTN)]:.3e}; ssm {JAMBA_SSM[:4]} "
+          f"{main_err[('ssm_scan', JAMBA_SSM)]:.3e}, its backward "
+          f"{main_err[('ssm_scan_bwd', JAMBA_SSM)]:.3e}; "
           f"adamw p, m and v bit-equal to the slice loop at {len(adamw_cases)} "
           f"leaves ({', '.join(f'{w} {sh}' for w, sh, _ in adamw_cases)})")
 
@@ -1857,9 +2036,10 @@ def main() -> int:
                             ("recurrentgemma-9b", 3, 2100), ("qwen2-72b", 1, 256),
                             ("llama3-405b", 1, 256), ("granite-moe-1b-a400m", 2, 256),
                             ("phi3.5-moe-42b-a6.6b", 1, 256), ("whisper-small", 2, 256),
-                            ("paligemma-3b", 2, 256)):
+                            ("paligemma-3b", 2, 256), ("jamba2-3b", 8, 256)):
         # whisper: 2 decoder and 2 encoder layers over its 1500 frames;
-        # paligemma: its 256 patches in front of the T tokens.
+        # paligemma: its 256 patches in front of the T tokens; jamba2-3b:
+        # 7 mamba layers and its first attention layer.
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   dtype=torch.float32)
         if cfg.kind == "encdec":
@@ -1938,13 +2118,14 @@ def main() -> int:
 
     # The same step for the recurrent archs (the scans' forward and backward
     # kernels against the plain scans under autograd), the MoE archs, whisper
-    # (2 + 2 layers, 1500 frames) and paligemma (256 patches + 256 tokens).
+    # (2 + 2 layers, 1500 frames), paligemma (256 patches + 256 tokens) and
+    # jamba2-3b (8 layers: 7 mamba blocks with their FFNs, one attention).
     # The kernels' updated parameters and first moments wait on the host
     # while the plain step runs (recurrentgemma's 256000-row tables make two
     # f32 states too many for the card).
     for arch, layers in (("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3),
                          ("granite-moe-1b-a400m", 2), ("phi3.5-moe-42b-a6.6b", 1),
-                         ("whisper-small", 2), ("paligemma-3b", 2)):
+                         ("whisper-small", 2), ("paligemma-3b", 2), ("jamba2-3b", 8)):
         cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                                   dtype=torch.float32)
         if cfg.kind == "encdec":

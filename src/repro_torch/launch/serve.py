@@ -36,7 +36,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.registry import ARCHS, get_config, tiny_config
+from repro_torch.configs.registry import ARCH_NAMES, get_config, tiny_config
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.frontends import extra_inputs
 from repro_torch.models.transformer import Transformer, init_params
@@ -70,7 +70,7 @@ def resolve_device(name: str) -> torch.device:
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="qwen3-32b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen3-32b", choices=ARCH_NAMES)
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: the architecture's)")

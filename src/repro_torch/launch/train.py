@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs.registry import ARCHS, get_config, tiny_config
+from repro_torch.configs.registry import ARCH_NAMES, get_config, tiny_config
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.launch import mesh as MS
 from repro_torch.launch.serve import resolve_device, sync
@@ -102,7 +102,7 @@ class TrainRun(NamedTuple):
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="qwen3-32b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen3-32b", choices=ARCH_NAMES)
     ap.add_argument("--tiny", action="store_true",
                     help="reduced config in f32 (CPU-scale smoke/bring-up)")
     ap.add_argument("--layers", type=int, default=None,

@@ -2,6 +2,9 @@
 
 Field names, defaults and derived properties are the reference's; only the
 two dtype fields hold ``torch`` dtypes (bf16 weights, f32 optimizer state).
+:class:`HybridConfig` adds the port-only switches of a hybrid Mamba /
+attention model (Jamba); on a :class:`ModelConfig` they read as their
+defaults, so every reference config, and its fields, stay as they are.
 """
 
 from __future__ import annotations
@@ -67,6 +70,12 @@ class ModelConfig:
     remat_policy: str = "full"
     opt_state_dtype: Any = torch.float32
     microbatches: int = 1
+
+    # Port-only switches, plain class attributes so that a reference config's
+    # fields stay the reference's; :class:`HybridConfig` makes them fields.
+    mamba_ffn = False               # mamba blocks carry norm2 and an FFN
+    mamba_dt_bc_norm = False        # RMSNorms on the mixer's dt, B and C
+    use_rope = True                 # attention rotates q and k
 
     # ---- derived -----------------------------------------------------------
     @property
@@ -151,6 +160,57 @@ class ModelConfig:
         return dense.params_total() + self.n_layers * (
             ffn * self.moe_topk + self.d_model * self.moe_experts
         ) - self.n_layers * ffn
+
+
+@dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """A :class:`ModelConfig` with the port-only switches as fields
+    (AI21's Jamba: ``modeling_jamba``'s ``JambaMambaDecoderLayer``,
+    ``JambaMambaMixer`` and ``JambaAttention``).
+
+    * ``mamba_ffn``: a ``mamba`` block is ``x += mixer(norm1(x))`` then
+      ``x += ffn(norm2(x))``, as an attention block is;
+    * ``mamba_dt_bc_norm``: the mixer takes an RMSNorm with a learned scale
+      over each of dt (width ``dtrank``), B and C (width ``ssm_state``)
+      after ``x_proj`` (``dt_layernorm``, ``b_layernorm``, ``c_layernorm``);
+    * ``use_rope``: False leaves q and k unrotated (Jamba's attention has no
+      positional encoding).
+    """
+
+    mamba_ffn: bool = False
+    mamba_dt_bc_norm: bool = False
+    use_rope: bool = True
+
+    def params_total(self) -> int:
+        """Every leaf as the port holds it, the embedding and head at the
+        unpadded vocabulary.  The reference's count, which
+        :meth:`ModelConfig.params_total` keeps for the reference's configs,
+        leaves out a mamba mixer's conv and dt biases and counts two vectors
+        for the final norm; here each is counted as held, with the FFN of a
+        mamba block under ``mamba_ffn`` and its dt, B and C norms under
+        ``mamba_dt_bc_norm``.  Blocks of ``attn``, ``local`` and ``mamba``."""
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        H, K, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        I, R, N = self.inner, self.dtrank, self.ssm_state
+        norm = 2 * D if self.norm == "layernorm" else D
+        attn = D * (H + 2 * K) * hd + H * hd * D
+        attn += (H + 2 * K) * hd if self.qkv_bias else 0
+        attn += 2 * hd if self.qk_norm else 0
+        mamba = (D * 2 * I + self.ssm_conv * I + I + I * (R + 2 * N) + R * I + I
+                 + I * N + I + I * D)
+        mamba += R + 2 * N if self.mamba_dt_bc_norm else 0
+        ffn = (3 if self.ffn in ("swiglu", "geglu") else 2) * D * F
+        if self.is_moe:
+            ffn = self.moe_experts * ffn + D * self.moe_experts
+        per = {"attn": attn + 2 * norm + ffn, "local": attn + 2 * norm + ffn,
+               "mamba": mamba + norm + ((norm + ffn) if self.mamba_ffn else 0)}
+        bad = set(self.pattern) - set(per)
+        if bad or self.kind != "decoder":
+            raise NotImplementedError(f"{self.name}: counts decoders of {sorted(per)}")
+        n = 2 * V * D + norm
+        for i in range(self.n_layers):
+            n += per[self.pattern[i % len(self.pattern)]]
+        return n
 
 
 @dataclass(frozen=True)

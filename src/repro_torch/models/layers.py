@@ -193,7 +193,8 @@ def attn_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
              positions: Optional[torch.Tensor],
              kv_from: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project to (q, k, v); applies bias, qk-norm, RoPE."""
+    """Project to (q, k, v); applies bias, qk-norm, RoPE (none with
+    ``cfg.use_rope`` off, as Jamba's attention has none)."""
     src = x if kv_from is None else kv_from
     q = _heads(x, p["wq"])
     k = _heads(src, p["wk"])
@@ -205,7 +206,7 @@ def attn_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         q = _qk_normalize(q, p["q_norm"])
         k = _qk_normalize(k, p["k_norm"])
-    if positions is not None and kv_from is None:   # no RoPE on cross-attn
+    if positions is not None and kv_from is None and cfg.use_rope:   # not cross-attn
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -2,7 +2,11 @@
 
 Ported from ``repro.models.ssm``.  x -> in_proj -> (u, z); u -> causal
 depthwise conv -> silu -> selective scan (:func:`repro_torch.kernels.ops.ssm_scan`,
-the CUDA kernel on the card) -> gate by silu(z) -> out_proj.  Decode keeps
+the CUDA kernel on the card) -> gate by silu(z) -> out_proj.  With
+``cfg.mamba_dt_bc_norm`` (Jamba, port-only) dt, B and C each pass an RMSNorm
+with a learned scale after ``x_proj``.  The full-sequence mixer runs inside
+the span ``repro_torch.mamba.mix`` (:func:`repro_torch.obs.region`), its
+backward too.  Decode keeps
 (conv window of pre-conv inputs u, ssm state) as the recurrent cache, O(1)
 in context length.  :func:`mamba_spec` and :func:`mamba_cache_spec` are the
 reference's logical sharding specs; under a mesh the scan runs on each
@@ -18,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as sh
@@ -25,12 +30,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import P
 
 Params = L.Params
+_DT_BC_NORMS = ("dt_norm", "b_norm", "c_norm")    # scales of dt (R), B and C (N)
 
 
 def mamba_params(cfg: ModelConfig) -> L.Shapes:
     D, I, R, N = cfg.d_model, cfg.inner, cfg.dtrank, cfg.ssm_state
     f32 = torch.float32
-    return {
+    p = {
         "in_proj": ((D, 2 * I), cfg.dtype),
         "conv_w": ((cfg.ssm_conv, I), cfg.dtype),
         "conv_b": ((I,), f32),
@@ -41,10 +47,13 @@ def mamba_params(cfg: ModelConfig) -> L.Shapes:
         "D": ((I,), f32),
         "out_proj": ((I, D), cfg.dtype),
     }
+    if cfg.mamba_dt_bc_norm:
+        p.update({n: ((w,), f32) for n, w in zip(_DT_BC_NORMS, (R, N, N))})
+    return p
 
 
 def mamba_spec(cfg: ModelConfig) -> Dict[str, P]:
-    return {
+    p = {
         "in_proj": P("fsdp", "model"),
         "conv_w": P(None, "model"),
         "conv_b": P("model"),
@@ -55,6 +64,9 @@ def mamba_spec(cfg: ModelConfig) -> Dict[str, P]:
         "D": P("model"),
         "out_proj": P("model", "fsdp"),
     }
+    if cfg.mamba_dt_bc_norm:
+        p.update({n: P(None) for n in _DT_BC_NORMS})
+    return p
 
 
 def mamba_cache_spec(cfg: ModelConfig) -> Dict[str, P]:
@@ -72,6 +84,9 @@ def mamba_init_(p: Params, cfg: ModelConfig, generator: torch.Generator) -> None
     A = torch.arange(1, N + 1, dtype=torch.float32, device=p["A_log"].device)
     p["A_log"].copy_(torch.log(A).expand(I, N))
     p["D"].fill_(1.0)
+    for name in _DT_BC_NORMS:
+        if name in p:
+            p[name].fill_(1.0)
 
 
 def _split_xproj(p: Params, u: torch.Tensor, cfg: ModelConfig):
@@ -81,6 +96,9 @@ def _split_xproj(p: Params, u: torch.Tensor, cfg: ModelConfig):
     # out on the channel shards of its bias (no-op without one).
     proj = sh.shard(proj, "batch", *([None] * (proj.ndim - 1)))
     dt_r, B, C = torch.split(proj, [R, N, N], dim=-1)
+    if cfg.mamba_dt_bc_norm:
+        dt_r, B, C = (L._qk_normalize(t, p[n])
+                      for t, n in zip((dt_r, B, C), _DT_BC_NORMS))
     dt = F.softplus(sh.product(dt_r, p["dt_proj"]).float() + p["dt_bias"])
     return dt, B, C
 
@@ -103,6 +121,11 @@ def mamba_mix(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The mixer over a full sequence.  x: (B,T,D).  Returns (out (B,T,D),
     the pre-conv inputs u (B,T,I), the final ssm state (B,I,N) f32)."""
+    return obs.region(obs.MAMBA_MIX, _mix, p, x, cfg)
+
+
+def _mix(p: Params, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     u, z = _in_proj(p, x)                                 # (B,T,I) each
     conv = L.causal_conv(u, p["conv_w"], p["conv_b"])
     uc = F.silu(conv.float()).to(x.dtype)

@@ -3,7 +3,9 @@
 Ported from ``repro.models.transformer``.  Block types: ``attn`` (global
 causal attention), ``local`` (sliding-window attention with a ring KV
 cache), ``rglru`` (RecurrentGemma's recurrent block) and ``mamba`` (mamba1,
-mixer only).  Layer ``i`` has type ``cfg.pattern[i % len(cfg.pattern)]``.
+mixer only; with ``cfg.mamba_ffn``, Jamba's, norm2 and an FFN after the
+mixer as in the other blocks, so a serving cache holds a mamba state beside
+the attention layers' K/V).  Layer ``i`` has type ``cfg.pattern[i % len(cfg.pattern)]``.
 With ``cfg.is_moe`` a block's FFN is the mixture of experts of
 :mod:`repro_torch.models.moe`, and ``forward`` returns its load-balance
 loss summed over the layers.  An encoder-decoder (``kind="encdec"``,
@@ -33,8 +35,9 @@ counterpart.
 
 Entry points, as in the reference:
 * :meth:`Transformer.forward`     -- full-sequence logits; differentiable,
-  with ``cfg.remat`` checkpointing each super-block (and each encoder
-  layer) as the reference's ``jax.checkpoint`` of its scan bodies does.
+  with ``cfg.remat`` checkpointing each layer of a super-block (and each
+  encoder layer); the reference's ``jax.checkpoint`` of its scan bodies
+  takes a whole super-block, which is the same for a one-layer pattern.
 * :meth:`Transformer.prefill`     -- runs the prompt, builds the KV / state
   cache, returns last-position logits.
 * :meth:`Transformer.decode_step` -- one token against the cache.
@@ -111,7 +114,7 @@ _MIXER_SPECS = {"attn": L.attn_spec, "local": L.attn_spec,
 
 def _block_spec(btype: str, cfg: ModelConfig, cross: bool) -> Dict[str, Dict[str, P]]:
     p = {"norm1": L.norm_spec(cfg), "mixer": _MIXER_SPECS[btype](cfg)}
-    if btype != "mamba":
+    if btype != "mamba" or cfg.mamba_ffn:
         if cross:
             p["norm_c"] = L.norm_spec(cfg)
             p["cross"] = L.attn_spec(cfg)
@@ -177,7 +180,7 @@ def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
 class Block(nn.Module):
     """One block of type ``btype``: norm1 -> mixer, with ``cross`` norm_c ->
     cross-attention, then norm2 -> FFN (the experts when ``cfg.is_moe``);
-    a ``mamba`` block is norm + mixer only."""
+    a ``mamba`` block is norm + mixer only unless ``cfg.mamba_ffn``."""
 
     def __init__(self, btype: str, cfg: ModelConfig, device,
                  cross: bool = False):
@@ -185,7 +188,7 @@ class Block(nn.Module):
         self.btype = btype
         self.norm1 = _pdict(L.norm_params(cfg), device)
         self.mixer = _pdict(_MIXERS[btype][0](cfg), device)
-        if btype != "mamba":
+        if btype != "mamba" or cfg.mamba_ffn:
             if cross:
                 self.norm_c = _pdict(L.norm_params(cfg), device)
                 self.cross = _pdict(L.attn_params(cfg), device)
@@ -284,8 +287,9 @@ class Transformer(nn.Module):
             mix, st = _mamba_prefill(blk.mixer, h, cfg)
             if cache is not None:
                 _update(cache, st)
-            return x + mix, None
-        if blk.btype == "rglru":
+            if not cfg.mamba_ffn:
+                return x + mix, None
+        elif blk.btype == "rglru":
             mix, rec, hT = R.rglru_mix(blk.mixer, h, cfg)
             if cache is not None:
                 _update(cache, {"conv": L.conv_tail(rec, R.CONV_W), "h": hT})
@@ -315,16 +319,16 @@ class Transformer(nn.Module):
         return x + L.ffn_forward(blk.ffn, h2, cfg), None
 
     @under_rules
-    def _super_block(self, s: int, x: torch.Tensor, positions: torch.Tensor,
-                     enc_out: Optional[torch.Tensor]
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _super_block_layer(self, i: int, x: torch.Tensor, positions: torch.Tensor,
+                           enc_out: Optional[torch.Tensor]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``i`` of a super-block: (x, its MoE aux loss or 0), x under
+        the boundary's constraint after a super-block's last layer."""
+        x, a = self._block(self.layers[i], x, positions, enc_out=enc_out)
+        if a is None:
+            a = torch.zeros((), dtype=torch.float32, device=x.device)
         P = len(self.cfg.pattern)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk in self.layers[s * P:(s + 1) * P]:
-            x, a = self._block(blk, x, positions, enc_out=enc_out)
-            if a is not None:
-                aux = aux + a
-        return _boundary(x, self.cfg), aux
+        return (_boundary(x, self.cfg) if i % P == P - 1 else x), a
 
     @under_rules
     def _enc_block(self, j: int, x: torch.Tensor,
@@ -376,11 +380,14 @@ class Transformer(nn.Module):
         load-balance loss in the reference's order (super-blocks, then the
         remainder); 0 without experts.
 
-        Under grad with ``cfg.remat``, each super-block (one period of the
-        pattern) is a non-reentrant ``torch.utils.checkpoint``: only its
-        input is kept, and the backward recomputes it (``remat_policy=
-        "save_attn"`` also keeps each mixer output).  The remainder layers
-        are not checkpointed, as in the reference."""
+        Under grad with ``cfg.remat``, each layer of a super-block (one
+        period of the pattern) is a non-reentrant ``torch.utils.checkpoint``:
+        only its input is kept, and the backward recomputes it
+        (``remat_policy="save_attn"`` also keeps each mixer output).  The
+        reference checkpoints a whole super-block; layer by layer holds one
+        layer's activations at a time in the recompute, which a long period
+        (Jamba's 14 layers) needs, and recomputes the same.  The remainder
+        layers are not checkpointed, as in the reference."""
         cfg = self.cfg
         x, enc_out = self._inputs(tokens, frames, patches)
         x = _boundary(x, cfg)
@@ -390,15 +397,15 @@ class Transformer(nn.Module):
                                         _save_attn_policy)
                       if cfg.remat_policy == "save_attn" else ckpt.noop_context_fn)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for s in range(cfg.n_super):
+        P = len(cfg.pattern)
+        for i in range(cfg.n_super * P):
             if remat:
-                x, a = ckpt.checkpoint(self._super_block, s, x, positions, enc_out,
+                x, a = ckpt.checkpoint(self._super_block_layer, i, x, positions, enc_out,
                                        use_reentrant=False, context_fn=context_fn,
                                        preserve_rng_state=False)
             else:
-                x, a = self._super_block(s, x, positions, enc_out)
+                x, a = self._super_block_layer(i, x, positions, enc_out)
             aux = aux + a
-        P = len(cfg.pattern)
         for blk in self.layers[cfg.n_super * P:]:
             x, a = self._block(blk, x, positions, enc_out=enc_out)
             if a is not None:
@@ -477,8 +484,9 @@ class Transformer(nn.Module):
         if blk.btype == "mamba":
             mix, st = S.mamba_decode(blk.mixer, h, cfg, c)
             _update(c, st)
-            return x + mix
-        if blk.btype == "rglru":
+            if not cfg.mamba_ffn:
+                return x + mix
+        elif blk.btype == "rglru":
             mix, st = R.rglru_decode(blk.mixer, h, cfg, c)
             _update(c, st)
         else:
@@ -550,7 +558,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         for blk, bcfg in blocks:
             L.norm_init_(blk.norm1)
             _MIXERS[blk.btype][1](blk.mixer, bcfg, generator)
-            if blk.btype == "mamba":
+            if blk.btype == "mamba" and not bcfg.mamba_ffn:
                 continue
             if hasattr(blk, "cross"):
                 L.norm_init_(blk.norm_c)

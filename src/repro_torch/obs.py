@@ -18,6 +18,9 @@ launch (:func:`split`).
 * ``repro_torch.moe.dispatch`` (``models.moe``): routing, the scatter into
   the experts' slab and the combine, forward and (through :func:`region`)
   backward.
+* ``repro_torch.mamba.mix`` (``models.ssm``): a mamba block's mixer over a
+  whole sequence (projections, conv, the scan, the gate), forward,
+  recompute and (through :func:`region`) backward; not the decode step.
 * ``repro_torch.ingest.read`` / ``.to_device`` (``data.pipeline``): one
   batch's sample reads through the store, and its copy to the device.
 * ``repro_torch.serve.prefill`` (``serve.decode``): one batch's prefill up
@@ -38,6 +41,7 @@ PREFIX = "repro_torch."
 PHASE = PREFIX + "train."
 FORWARD, BACKWARD, OPTIMIZER = PHASE + "forward", PHASE + "backward", PHASE + "optimizer"
 MOE_DISPATCH = PREFIX + "moe.dispatch"
+MAMBA_MIX = PREFIX + "mamba.mix"
 INGEST_READ, INGEST_TO_DEVICE = PREFIX + "ingest.read", PREFIX + "ingest.to_device"
 PREFILL = PREFIX + "serve.prefill"
 
