@@ -9,8 +9,8 @@ without the final result line:
 1. Device: the card's name and power limit, from nvidia-smi.
 2. Build: every CUDA kernel of the serving and training paths (flash
    attention forward and backward, the selective scan and the RG-LRU with
-   their backwards, int8 quantization, AdamW's update), compiled from the
-   sources under
+   their backwards, int8 quantization, AdamW's update, LayerNorm and
+   RMSNorm forward and backward), compiled from the sources under
    src/repro_torch/kernels/csrc with one nvcc per source, all started
    together.
 3. Kernel against plain: each kernel's wrapper against its plain PyTorch
@@ -68,7 +68,13 @@ without the final result line:
    of each parameter shape of starcoder2-3b and of phi3.5-moe-42b-a6.6b
    (bf16 weights and gradients, f32 moments, step 2, the clip factor
    active, decay on matrices), and the port's other dtype sets at
-   starcoder2's FFN matrix.
+   starcoder2's FFN matrix.  The norm kernels against the plain chain
+   (``kernels.ref.norm_ref``) at the cells' shapes (``NORM_CASES``:
+   starcoder2-3b's LayerNorm in training and prefill, with the last
+   position alone, phi3.5's and jamba2-3b's RMSNorm, Jamba's dt, B and C
+   norms read in place from the x_proj output), f32 at 1e-5 and bf16 at
+   2e-2: y and dx elementwise, the scale's and bias's gradients by the
+   relative norm of their error, a second backward bit for bit.
 4. Whole models at full width, f32, kernels against plain (atol 1e-3 on
    the last-position logits): qwen3-32b 2 layers, B=1, T=256;
    falcon-mamba-7b 2 layers, B=1, T=256; recurrentgemma-9b 3 layers (one
@@ -121,7 +127,10 @@ without the final result line:
    attention launch has its backward launch: falcon-mamba ssm 16 / 8 a
    step, recurrentgemma rglru 10 / 6 and flash 4 / 2, granite flash 48 /
    24, phi3.5 6 / 3, whisper 72 / 36, paligemma 36 / 18, jamba2-3b ssm
-   52 / 26 and flash 4 / 2 (``train_launches``), AdamW once a leaf a step.  The two MoE archs then take the loss and
+   52 / 26 and flash 4 / 2 (``train_launches``), AdamW once a leaf a step,
+   the norm kernel once a norm call (the recompute's included) and its
+   backward once a norm a step (``layer_norms``; a serve counts every
+   norm of its prefill and decode steps).  The two MoE archs then take the loss and
    gradients of one step twice on one batch: bit for bit equal.
    ``repro_torch.launch.train`` for starcoder2-3b at full width, 8 layers,
    bf16, B=4, T=1024, 3 steps on fresh batches: with remat, 16 flash
@@ -227,7 +236,8 @@ without the final result line:
    mask for the window); the flash forward and backward at whisper's
    encoder shape and paligemma's training shape; the flash forward alone
    at whisper's cross-attention, llama3's, phi3.5's and granite's prefill
-   shapes.
+   shapes.  The norm kernels at starcoder2-3b's training shape beside the
+   plain chain and ``F.layer_norm`` (its weights cast to bf16).
 7. The ``kernels`` JSON line (the scans' entries with their tile sizes;
    ``launches`` sums the main paths' runs, the mesh phase's summed over its
    ranks),
@@ -372,6 +382,23 @@ ADAMW_ARCHS = ("starcoder2-3b", "phi3.5-moe-42b-a6.6b")
 ADAMW_SETS_SHAPE = (3072, 12288)
 ADAMW_MAIN = (16, 4096, 6400)
 ADAMW_STEP, ADAMW_CLIP = 2, 0.37
+# The norm kernels at the cells' shapes: (what, base shape, columns of the
+# base's last dim, last position alone, kind).  starcoder2-3b's LayerNorm
+# over 3072 with its bias at B=4 T=2048 and in prefill at the longest
+# prompt, 4 x 4096, with the final norm's last position; phi3.5's RMSNorm
+# over 4096 at B=4 T=4096; jamba2-3b's over 2560 at B=2 T=8192 and its dt,
+# B and C norms, views of the (2, 8192, 192) x_proj output; f32 and bf16,
+# f32 at 1e-5 (the two differ in the order of each row's f32 sums), bf16
+# at 2e-2.  The timed shape: starcoder2's training norm.
+NORM_CASES = (("starcoder2 train", (4, 2048, 3072), (0, 3072), False, "layernorm"),
+              ("starcoder2 prefill", (4, 4096, 3072), (0, 3072), False, "layernorm"),
+              ("starcoder2 prefill last", (4, 4096, 3072), (0, 3072), True, "layernorm"),
+              ("phi3.5 train", (4, 4096, 4096), (0, 4096), False, "rmsnorm"),
+              ("jamba2-3b train", (2, 8192, 2560), (0, 2560), False, "rmsnorm"),
+              ("jamba2-3b dt", (2, 8192, 192), (0, 160), False, "rmsnorm"),
+              ("jamba2-3b B", (2, 8192, 192), (160, 176), False, "rmsnorm"),
+              ("jamba2-3b C", (2, 8192, 192), (176, 192), False, "rmsnorm"))
+NORM_MAIN = NORM_CASES[0]
 # Bt, T, I, N, with h0 -- tests/test_kernels.py SSM_CASES, then an initial
 # state, T past one tile (20, 1000), I not a multiple of a channel block;
 # then the chunked kernel's edges (64-step chunks of 16-step segments,
@@ -485,7 +512,7 @@ EXAMPLE_ARGS = ["--steps", "40", "--ckpt-every", "10", "--device", "cuda"]
 
 # Every kernel's launch counter, in the order of the kernels line.
 KERNELS = ("flash_attention", "flash_attention_bwd", "ssm_scan", "ssm_scan_bwd",
-           "rglru_scan", "rglru_scan_bwd", "quantize", "adamw")
+           "rglru_scan", "rglru_scan_bwd", "quantize", "adamw", "norm", "norm_bwd")
 
 
 def kernel_table() -> dict:
@@ -493,6 +520,7 @@ def kernel_table() -> dict:
     order of KERNELS."""
     from repro_torch.kernels import adamw as ak
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import norm as nk
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import ssm_scan as ss
@@ -503,7 +531,9 @@ def kernel_table() -> dict:
                "rglru_scan": (rs, "SOURCE", "LAUNCHES"),
                "rglru_scan_bwd": (rs, "BWD_SOURCE", "BWD_LAUNCHES"),
                "quantize": (qz, "SOURCE", "LAUNCHES"),
-               "adamw": (ak, "SOURCE", "LAUNCHES")}
+               "adamw": (ak, "SOURCE", "LAUNCHES"),
+               "norm": (nk, "SOURCE", "LAUNCHES"),
+               "norm_bwd": (nk, "SOURCE", "BWD_LAUNCHES")}
     check(tuple(kernels) == KERNELS, "kernel table out of step with KERNELS")
     return kernels
 
@@ -522,23 +552,55 @@ def expect(**counts) -> dict:
     return {name: counts.get(name, 0) for name in KERNELS}
 
 
+def layer_norms(cfg, t: str, decode: bool = False) -> int:
+    """Norm calls of one decoder layer of type ``t`` over a sequence (or in
+    one decode step): before its mixer, before its FFN (a mamba block
+    without one has none), before an encoder-decoder's cross-attention
+    (every block but mamba's has one); qk-norm's two on an attention
+    layer's queries and keys, and two more on the cross-attention's (its
+    query alone in a decode step, whose keys are cached); a mamba mixer's
+    dt, B and C norms."""
+    cross = cfg.kind == "encdec" and t != "mamba"
+    n = 1 + int(t != "mamba" or cfg.mamba_ffn) + int(cross)
+    if cfg.qk_norm and t in ("attn", "local"):
+        n += 2 + (1 if decode else 2) * int(cross)
+    if t == "mamba" and cfg.mamba_dt_bc_norm:
+        n += 3
+    return n
+
+
+def enc_layer_norms(cfg) -> int:
+    """Norm calls of one encoder layer: before attention and FFN, and
+    qk-norm's two."""
+    return 2 + 2 * int(cfg.qk_norm)
+
+
 def layer_launches(cfg, t: str) -> dict:
     """Forward kernel launches of one decoder layer of type ``t``: its mixer's
     kernel, and for an encoder-decoder one flash launch more for its
-    cross-attention (every block but mamba's has one)."""
+    cross-attention (every block but mamba's has one); its norms
+    (``layer_norms``)."""
     cross = int(cfg.kind == "encdec" and t != "mamba")
     return {"flash_attention": int(t in ("attn", "local")) + cross,
-            "ssm_scan": int(t == "mamba"), "rglru_scan": int(t == "rglru")}
+            "ssm_scan": int(t == "mamba"), "rglru_scan": int(t == "rglru"),
+            "norm": layer_norms(cfg, t)}
 
 
-def serve_launches(cfg) -> dict:
-    """Launches of one prefill of ``cfg``: each layer's (``layer_launches``)
-    and one flash launch per encoder layer."""
+def serve_launches(cfg, decode_steps: int = 0) -> dict:
+    """Launches of one prefill of ``cfg`` and ``decode_steps`` decode steps:
+    each layer's (``layer_launches``) and the final norm; one flash launch
+    and its norms per encoder layer and the encoder's final norm; a decode
+    step runs each layer's norms and the final norm (its other one-token
+    functions are plain torch)."""
     types = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
     counts = {name: sum(layer_launches(cfg, t)[name] for t in types)
-              for name in ("flash_attention", "ssm_scan", "rglru_scan")}
+              for name in ("flash_attention", "ssm_scan", "rglru_scan", "norm")}
+    counts["norm"] += 1
     if cfg.kind == "encdec":
         counts["flash_attention"] += cfg.enc_layers
+        counts["norm"] += cfg.enc_layers * enc_layer_norms(cfg) + 1
+    counts["norm"] += decode_steps * (
+        sum(layer_norms(cfg, t, decode=True) for t in types) + 1)
     return expect(**counts)
 
 
@@ -564,13 +626,15 @@ def train_launches(cfg, steps: int, leaves: int) -> dict:
     layer of a super-block and each encoder layer is checkpointed, so they
     run their forward kernels twice a step (the forward and its recomputation
     in the backward), the remainder layers once; every forward launch has
-    one backward launch; AdamW launches once a leaf a step."""
+    one backward launch (a norm's backward is a pair of launches, counted
+    as one call); the final norms (the decoder's, an encoder's) run once a
+    step; AdamW launches once a leaf a step."""
     check(not cfg.remat or cfg.remat_policy == "full",
           f"{cfg.name}: remat_policy {cfg.remat_policy!r}, not 'full'")
     P = len(cfg.pattern)
     ckpt = cfg.n_super * P if cfg.remat else 0
     types = [cfg.pattern[i % P] for i in range(cfg.n_layers)]
-    fwd = {"flash_attention": 0, "ssm_scan": 0, "rglru_scan": 0}
+    fwd = {"flash_attention": 0, "ssm_scan": 0, "rglru_scan": 0, "norm": 1}
     bwd = dict(fwd)
     for i, t in enumerate(types):
         for name, n in layer_launches(cfg, t).items():
@@ -579,6 +643,9 @@ def train_launches(cfg, steps: int, leaves: int) -> dict:
     if cfg.kind == "encdec":
         fwd["flash_attention"] += (2 if cfg.remat else 1) * cfg.enc_layers
         bwd["flash_attention"] += cfg.enc_layers
+        enc = cfg.enc_layers * enc_layer_norms(cfg)
+        fwd["norm"] += (2 if cfg.remat else 1) * enc + 1
+        bwd["norm"] += enc + 1
     return expect(**{name: steps * n for name, n in fwd.items()},
                   **{f"{name}_bwd": steps * n for name, n in bwd.items()},
                   adamw=steps * leaves)
@@ -907,6 +974,75 @@ def jamba_kernel_checks(torch, fa, ss, ref, tols, main_err: dict, paths: dict) -
         del args, carries, dy, first, second
     free()
     return n + 1
+
+
+def norm_case(torch, case, dtype, seed):
+    """(base, view, scale, bias, dy) of a NORM_CASES entry: base drawn about
+    0.5 with spread 2, the normalised view of it, an f32 scale about 1, a
+    bias for LayerNorm, and a cotangent of the view's shape."""
+    what, shape, (lo, hi), last, kind = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = (randn(torch, g, shape) * 2 + 0.5).to(dtype)
+
+    def view(t):
+        t = t[..., lo:hi]
+        return t[:, -1:] if last else t
+
+    scale = 1 + 0.1 * randn(torch, g, (hi - lo,))
+    bias = 0.1 * randn(torch, g, (hi - lo,)) if kind == "layernorm" else None
+    dy = randn(torch, g, view(base).shape, dtype)
+    return base, view, scale, bias, dy
+
+
+def norm_grads(torch, fn, base, view, scale, bias, dy):
+    """y = fn(view(base), scale, bias) and the gradients of <y, dy> by base,
+    scale and bias, from fresh leaves (a view keeps its strides)."""
+    leaves = [t.clone().requires_grad_() for t in (base, scale, bias) if t is not None]
+    y = fn(view(leaves[0]), *leaves[1:], *([None] if bias is None else []))
+    return y.detach(), torch.autograd.grad(y, leaves, dy)
+
+
+def norm_kernel_checks(torch, nk, ref, main_err: dict) -> int:
+    """The norm kernels against the plain chain at NORM_CASES (phase 3), f32
+    at 1e-5 and bf16 at 2e-2: y and dx elementwise, dscale and dbias (sums
+    over every row) by the relative norm of their error; one forward and
+    one backward call each; a second backward bit-equal.  Records the bf16
+    errors of y and dx in ``main_err`` ("norm", "norm_bwd"); returns the
+    number of cases."""
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    errs, n = {"norm": 0.0, "norm_bwd": 0.0}, 0
+    for i, case in enumerate(NORM_CASES):
+        kind = case[-1]
+        for dtype, tol in tols.items():
+            what = f"norm {case[0]} {kind} {str(dtype).removeprefix('torch.')}"
+            base, view, scale, bias, dy = norm_case(torch, case, dtype, seed=1400 + i)
+            before = (nk.LAUNCHES, nk.BWD_LAUNCHES)
+            y, grads = norm_grads(torch, lambda a, s_, b: nk.norm_cuda(a, s_, b, kind, 1e-6),
+                                  base, view, scale, bias, dy)
+            torch.cuda.synchronize()
+            check((nk.LAUNCHES, nk.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1),
+                  f"{what}: launches {nk.LAUNCHES - before[0]} forward, "
+                  f"{nk.BWD_LAUNCHES - before[1]} backward, expected 1 and 1")
+            y_ref, grads_ref = norm_grads(
+                torch, lambda a, s_, b: ref.norm_ref(a, s_, b, kind, 1e-6),
+                base, view, scale, bias, dy)
+            e_y = compare(torch, y, y_ref, tol, f"{what} y")
+            e_dx = compare(torch, grads[0], grads_ref[0], tol, f"{what} dx")
+            for name, g, want in zip(("dscale", "dbias"), grads[1:], grads_ref[1:]):
+                rel = ((g - want).norm() / want.norm().clamp(min=1e-30)).item()
+                check(rel <= tol, f"{what} {name}: misses by {rel:.3e} of its norm")
+            _, again = norm_grads(torch, lambda a, s_, b: nk.norm_cuda(a, s_, b, kind, 1e-6),
+                                  base, view, scale, bias, dy)
+            for name, a, b in zip(("dx", "dscale", "dbias"), grads, again):
+                check(torch.equal(a, b), f"{what}: a second backward's {name} differs")
+            if dtype == torch.bfloat16:
+                errs["norm"] = max(errs["norm"], e_y)
+                errs["norm_bwd"] = max(errs["norm_bwd"], e_dx)
+            n += 1
+            del base, scale, bias, dy, y, grads, y_ref, grads_ref, again
+            free()
+    main_err.update(errs)
+    return n
 
 
 def state_leaves(state) -> dict:
@@ -1484,6 +1620,7 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
     pcfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), dtype=torch.float32,
                                n_layers=MESH_PHI["layers"],
                                moe_capacity=MESH_PHI["capacity"])
+    rcfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=MESH_RG["layers"])
 
     def a2a_calls(cfg, steps):
         """Two all-to-alls per MoE layer forward; a checkpointed layer runs
@@ -1497,10 +1634,10 @@ def run_mesh_phase(torch, launches: dict, smi_line: str) -> None:
                           a2a_calls(f32cfg, 1)),
                   "bf16": (train_launches(gcfg, MESH_BF16["steps"], r["bf16"]["leaves"]),
                            a2a_calls(gcfg, MESH_BF16["steps"])),
-                  "rg": (expect(flash_attention=1, rglru_scan=2), None),
-                  "rg_serve": (expect(flash_attention=1, rglru_scan=2), None),
+                  "rg": (serve_launches(rcfg), None),
+                  "rg_serve": (serve_launches(rcfg, MESH_RG["steps"]), None),
                   "phi": (train_launches(pcfg, 1, r["phi"]["leaves"]), None),
-                  "phi_serve": (serve_launches(pcfg), None),
+                  "phi_serve": (serve_launches(pcfg, MESH_PHI["steps"]), None),
                   "compressed_psum": (expect(quantize=2 * r["compressed_psum"]["leaves"]),
                                       None)}
         for run, (want, a2a) in runs_r.items():
@@ -1658,6 +1795,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import adamw as ak
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import norm as nk
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels import ssm_scan as ss
@@ -1964,6 +2102,8 @@ def main() -> int:
             del leaf, plain
             free()
     main_err["adamw"] = 0.0
+    n_norm = norm_kernel_checks(torch, nk, ref, main_err)
+    n_cases += n_norm
     path_line = ", ".join(
         f"{name} {fa.PATHS[p]}" for name, p in (
             ("qwen3 forward", paths[("flash_attention", MAIN_SHAPE)]),
@@ -2014,11 +2154,15 @@ def main() -> int:
           f"{main_err[('ssm_scan', JAMBA_SSM)]:.3e}, its backward "
           f"{main_err[('ssm_scan_bwd', JAMBA_SSM)]:.3e}; "
           f"adamw p, m and v bit-equal to the slice loop at {len(adamw_cases)} "
-          f"leaves ({', '.join(f'{w} {sh}' for w, sh, _ in adamw_cases)})")
+          f"leaves ({', '.join(f'{w} {sh}' for w, sh, _ in adamw_cases)}); "
+          f"norm forward and backward at {n_norm} cases "
+          f"({', '.join(c[0] for c in NORM_CASES)}; f32 and bf16) against the "
+          f"plain chain, bf16 max abs err y {main_err['norm']:.3e}, dx "
+          f"{main_err['norm_bwd']:.3e}, a second backward bit-equal")
 
     # -- 4. whole models at full width, kernels against plain -----------------
     plain = {"flash_attention": ref.attention_ref, "ssm_scan": ref.ssm_scan_ref,
-             "rglru": ref.rglru_ref, "adamw": update_in_slices}
+             "rglru": ref.rglru_ref, "adamw": update_in_slices, "norm": ref.norm_ref}
 
     def on_plain(fn):
         """fn() with ops' kernel entry points swapped for the plain versions."""
@@ -2176,11 +2320,12 @@ def main() -> int:
         counts = read_counts()
         launches[arch] = counts
         cfg = res.cfg
-        want = serve_launches(cfg)
+        B, steps = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--steps") + 1])
+        want = serve_launches(cfg, steps - 1)
         check(counts == want, f"{arch}: kernel launches {counts} in the main "
               f"path, expected one per layer of its type (and per encoder and "
-              f"cross-attention layer) in prefill {want}")
-        B, steps = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--steps") + 1])
+              f"cross-attention layer) in prefill and every norm of prefill "
+              f"and of {steps - 1} decode steps {want}")
         check(tuple(res.tokens.shape) == (B, steps),
               f"{arch}: tokens {tuple(res.tokens.shape)}")
         check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
@@ -2277,7 +2422,7 @@ def main() -> int:
     # Training: launch.train's own function, then one error-feedback int8
     # round over the gradients of one more loss on the trained state.
     reset_counts()
-    ak.ELEMENTS = 0
+    ak.ELEMENTS = nk.ROWS = 0
     tr = train_launch.run(TRAIN_ARGS)
     counts = read_counts()
     launches["starcoder2-3b train"] = counts
@@ -2292,6 +2437,10 @@ def main() -> int:
     check(ak.ELEMENTS == n_steps * n_params, f"starcoder2-3b train: AdamW's "
           f"kernel updated {ak.ELEMENTS} elements, expected every parameter "
           f"each step, {n_steps} x {n_params}")
+    B, T = (int(TRAIN_ARGS[TRAIN_ARGS.index(f) + 1]) for f in ("--batch", "--seq"))
+    check(nk.ROWS == want["norm"] * B * T, f"starcoder2-3b train: the norm "
+          f"kernel normalised {nk.ROWS} rows, expected every position of "
+          f"every norm call, {want['norm']} x {B * T}")
     del params
     check(all(math.isfinite(x) for x in tr.losses),
           f"starcoder2-3b train: losses {tr.losses} not finite")
@@ -2888,6 +3037,51 @@ def main() -> int:
                  f"({detail}); {library_note}")
     del leaf
     free()
+
+    # The norms at starcoder2-3b's training shape, bf16 with the f32 scale
+    # and bias: forward one read of x and one write of y (and a row's mean
+    # and rstd), backward one read of x and dy and one write of dx (and the
+    # f32 gradients of scale and bias); one rsqrt a row.  PyTorch's fused
+    # F.layer_norm is the yardstick; the port never calls it.
+    base, view, scale, bias, dy = norm_case(torch, NORM_MAIN, torch.bfloat16, seed=96)
+    x, norm_kind = view(base), NORM_MAIN[-1]
+    y, mean, rstd = nk.norm_fwd_cuda(x, scale, bias, norm_kind, 1e-6)
+    g = nk.norm_bwd_cuda(dy, x, scale, mean, rstd, norm_kind)
+    C, rows = x.shape[-1], x.numel() // x.shape[-1]
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: nk.norm_fwd_cuda(x, scale, bias, norm_kind, 1e-6), iters=20)
+        plain_ms = time_ms(torch, lambda: ref.norm_ref(x, scale, bias, norm_kind), iters=5)
+        # F.layer_norm takes its weights in x's dtype on the card.
+        sb, bb = scale.to(x.dtype), bias.to(x.dtype)
+        library_ms = time_ms(torch, lambda: torch.nn.functional.layer_norm(
+            x, (C,), sb, bb, 1e-6), iters=20)
+    b_ms, b_by, detail = bound(0, PEAK_F32_FLOPS, rows, nbytes(x, scale, bias, y, mean, rstd))
+    times["norm"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=library_ms)
+    lines.append(f"norm {norm_kind} bf16 {tuple(x.shape)}: kernel {ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms, F.layer_norm {library_ms:.4f} ms, bound "
+                 f"{b_ms:.4f} ms by {b_by} ({detail})")
+    ms = time_ms(torch, lambda: nk.norm_bwd_cuda(dy, x, scale, mean, rstd, norm_kind),
+                 iters=20)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+
+    def autograd_ms(fn):
+        out = fn(*leaves)
+        return time_ms(torch, lambda: torch.autograd.grad(out, leaves, dy,
+                                                          retain_graph=True), iters=5)
+
+    plain_ms = autograd_ms(lambda a, s_, b: ref.norm_ref(a, s_, b, norm_kind))
+    library_ms = autograd_ms(lambda a, s_, b: torch.nn.functional.layer_norm(
+        a, (C,), s_.to(a.dtype), b.to(a.dtype), 1e-6))
+    b_ms, b_by, detail = bound(0, PEAK_F32_FLOPS, 0,
+                               nbytes(x, dy, scale, mean, rstd, *g))
+    times["norm_bwd"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms)
+    lines.append(f"norm backward {norm_kind} bf16 {tuple(x.shape)}: kernels {ms:.4f} ms, "
+                 f"autograd of plain {plain_ms:.4f} ms, of F.layer_norm "
+                 f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({detail})")
+    del base, x, scale, bias, dy, y, mean, rstd, g, leaves
+    free()
     phase(6, "times", " | ".join(lines))
 
     # -- 7. kernels line and result -------------------------------------------
@@ -2941,6 +3135,14 @@ def main() -> int:
                              "plain is the optimizer's slice loop, which it "
                              "equals bit for bit")
             entry["shape"] = list(ADAMW_MAIN)
+        if name in ("norm", "norm_bwd"):
+            entry["note"] = ("replaces no TPU kernel: normalisation, which the JAX "
+                             "package leaves to XLA's fusion (src/repro/models/"
+                             "layers.py apply_norm, _qk_normalize); plain is the "
+                             "f32 chain kernels.ref.norm_ref"
+                             + ("; two launches a call: dx with per-block partial "
+                                "sums, then their sum" if name == "norm_bwd" else ""))
+            entry["shape"] = list(NORM_MAIN[1])
         if name in ("ssm_scan_bwd", "rglru_scan_bwd"):
             fwd = name.removesuffix("_bwd")
             entry["note"] = (f"the backward of the function {fwd}'s Pallas kernel "

@@ -84,8 +84,8 @@ def load(source: str) -> ctypes.CDLL:
 
 def load_all(sources: Iterable[str]) -> Dict[str, ctypes.CDLL]:
     """Load several sources, with one ``nvcc`` per source, all started
-    together."""
-    sources = list(sources)
+    together (a source named twice is built once)."""
+    sources = list(dict.fromkeys(sources))
     with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
         return dict(zip(sources, pool.map(load, sources)))
 

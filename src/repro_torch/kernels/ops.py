@@ -1,27 +1,29 @@
 """Kernel entry points used by the model code.
 
-``flash_attention``, ``ssm_scan``, ``rglru``, ``quantize`` and ``adamw``
-send a CUDA tensor to their hand-written kernel and a CPU tensor to the
-plain version; there is no other route.  A meta tensor (the dry run) goes to the kernel's
+``flash_attention``, ``ssm_scan``, ``rglru``, ``quantize``, ``adamw`` and
+``norm`` send a CUDA tensor to their hand-written kernel and a CPU tensor to
+the plain version; there is no other route.  A meta tensor (the dry run) goes to the kernel's
 wrapper too, which then launches nothing and records the kernel's work
-(:mod:`repro_torch.kernels.accounting`).  Under autograd, ``flash_attention``, ``ssm_scan``
-and ``rglru`` on the card differentiate through their CUDA backward kernels
-(``csrc/flash_attention_bwd.cu``, ``csrc/ssm_scan_bwd.cu``,
-``csrc/rglru_scan_bwd.cu``); on the CPU all three differentiate through the
-plain versions.  The one-token decode
+(:mod:`repro_torch.kernels.accounting`).  Under autograd, ``flash_attention``, ``ssm_scan``,
+``rglru`` and ``norm`` on the card differentiate through their CUDA backward
+kernels (``csrc/flash_attention_bwd.cu``, ``csrc/ssm_scan_bwd.cu``,
+``csrc/rglru_scan_bwd.cu``, ``csrc/norm.cu``); on the CPU all four
+differentiate through the plain versions.  The one-token decode
 functions ``decode_attention``, ``ssm_step`` and ``rglru_step`` and
 ``dequantize`` are plain torch, as the reference's are plain jnp
 (``repro.kernels.ops``).
 
-Under a mesh (:mod:`repro_torch.models.sharding`) the model hands these four
+Under a mesh (:mod:`repro_torch.models.sharding`) the model hands these five
 DTensors.  Each rank then runs its own shard through the same kernel (the
 CUDA kernel for a CUDA shard, the plain version only for a CPU one): the
-batch and head (or channel) dims keep their shards, and any other sharded
-dim (sequence, head_dim, a quantized row's columns) is first gathered to
-``Replicate``.  Each result is a DTensor on the same shards.  An input held
-whole while another is sharded (the scans' B and C over channel shards, a
-KV head shared by query heads of several ranks) gets a ``Partial`` gradient
-on those mesh dims, since each rank's backward sees part of its uses.
+batch and head (or channel) dims keep their shards (a norm's rows keep
+every shard), and any other sharded dim (sequence, head_dim, a quantized
+row's columns, a norm's features) is first gathered to ``Replicate``.
+Each result is a DTensor on the same shards.  An input held whole while
+another is sharded (the scans' B and C over channel shards, a
+KV head shared by query heads of several ranks, a norm's scale and bias
+beside sharded rows) gets a ``Partial`` gradient on those mesh dims, since
+each rank's backward sees part of its uses.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.adamw import adamw_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.norm import norm_cuda
 from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.rglru_scan import rglru_scan_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
@@ -263,6 +266,25 @@ def adamw(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     # Imported here: the optimizer imports this module.
     from repro_torch.train.optimizer import update_in_slices
     return update_in_slices(p, g, m, v, clip, bc1, bc2, **hyper)
+
+
+def norm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor],
+         kind: str, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (``kind="layernorm"``, an f32 bias (C,)) or RMSNorm
+    (``"rmsnorm"``, bias None) over the last dim of x with an f32 scale
+    (C,); the result in x's dtype.  The plain version is
+    :func:`ref.norm_ref`."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        xpl = keep_shards(x, range(x.ndim - 1))        # rows; the features whole
+        wpl = (Replicate(),) * mesh.ndim
+        gpl = partial_where(xpl, wpl)
+        y = norm(to_local_at(x, mesh, xpl), to_local_at(scale, mesh, wpl, gpl),
+                 to_local_at(bias, mesh, wpl, gpl), kind, eps)
+        return from_local_even(y, mesh, xpl)
+    if x.is_cuda or x.is_meta:
+        return norm_cuda(x, scale, bias, kind, eps)
+    return _ref.norm_ref(x, scale, bias, kind, eps)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,

@@ -116,3 +116,21 @@ def quantize_ref(x: torch.Tensor, axis: int = -1
 def dequantize_ref(q: torch.Tensor, scale: torch.Tensor,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
+
+
+def norm_ref(x: torch.Tensor, scale: torch.Tensor,
+             bias: Optional[torch.Tensor], kind: str,
+             eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (``kind="layernorm"``, with ``bias``) or RMSNorm (no bias)
+    over the last dim, as the reference's ``apply_norm`` / ``_qk_normalize``:
+    x taken to f32, the chain of ops below, the result cast back to x's
+    dtype."""
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
+    else:
+        y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps)
+        y = y * scale
+    return y.to(x.dtype)

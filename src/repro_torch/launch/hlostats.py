@@ -166,7 +166,7 @@ _NOT_CALLERS = tuple(os.path.join(*parts) for parts in (
     ("launch", "hlostats.py"), ("models", "sharding.py"),
     ("kernels", "accounting.py"), ("kernels", "flash_attention.py"),
     ("kernels", "ssm_scan.py"), ("kernels", "rglru_scan.py"),
-    ("kernels", "quantize.py"), ("kernels", "adamw.py")))
+    ("kernels", "quantize.py"), ("kernels", "adamw.py"), ("kernels", "norm.py")))
 
 
 def _site(filename: str, lineno: int, func: str) -> Optional[str]:

@@ -4,8 +4,9 @@ Ported from ``repro.models.layers``.  Each function takes its parameters as
 a mapping of tensors (a plain dict or an ``nn.ParameterDict``) in the
 reference's layouts: ``wq (D,H,hd)``, ``wk``/``wv (D,K,hd)``,
 ``wo (H,hd,D)``, ``wi``/``wg (D,F)``, FFN ``wo (F,D)``, ``table (Vp,D)``,
-``head (D,Vp)``.  The f32 upcasts of the reference are kept exactly: norms,
-RoPE angles, the FFN gate's activation and attention scores.
+``head (D,Vp)``.  The f32 upcasts of the reference are kept exactly: norms
+(computed in f32 by :func:`ops.norm`, one CUDA kernel on the card), RoPE
+angles, the FFN gate's activation and attention scores.
 
 ``*_params(cfg)`` give each parameter group's ``{name: (shape, dtype)}`` and
 ``*_init_`` fill such a group in place with the reference's initialization
@@ -155,15 +156,9 @@ def conv_tail(u: torch.Tensor, W: int) -> torch.Tensor:
 
 def apply_norm(p: Params, x: torch.Tensor, cfg: ModelConfig,
                eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    if cfg.norm == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-    else:
-        y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps)
-        y = y * p["scale"]
-    return y.to(x.dtype)
+    """``cfg.norm`` over the last dim of x (:func:`ops.norm`)."""
+    return ops.norm(x, p["scale"], p["bias"] if cfg.norm == "layernorm" else None,
+                    cfg.norm, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -184,9 +179,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def _qk_normalize(x: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    y = xf * torch.rsqrt((xf ** 2).mean(-1, keepdim=True) + eps) * scale
-    return y.to(x.dtype)
+    """RMSNorm over the last dim of x (qk-norm, Jamba's dt/B/C norms)."""
+    return ops.norm(x, scale, None, "rmsnorm", eps)
 
 
 def attn_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -15,6 +15,9 @@ version's exactly.  The scans' backward kernels are held against autograd
 of the plain scans in f32 (tolerances stated beside those tests) and must
 give the same bits on two calls.  The fused AdamW update must give the bits
 of the slice loop it replaces (``update_in_slices``), with no tolerance.
+The norm kernels are held against the plain chain (``ref.norm_ref``) and
+autograd through it at f32 1e-5 and bf16 2e-2 (reasons beside those tests),
+and must give the same bits on two backward calls.
 """
 
 import numpy as np
@@ -946,3 +949,105 @@ def test_train_steps_with_the_adamw_kernel_equal_the_slice_loop(M, monkeypatch):
         assert torch.equal(_bits(pa[n].detach()), _bits(pb[n].detach())), n
         for mom in ("m", "v"):
             assert torch.equal(_bits(oa[mom][n]), _bits(ob[mom][n])), (mom, n)
+
+
+# The norm kernels against the plain chain (ref.norm_ref) and autograd
+# through it: widths of Jamba's B/C (16) and dt (160) norms, a qk-norm head
+# (128), whisper-small (768), Jamba (2560), starcoder2 (3072), phi3.5 (4096)
+# and llama3-405b (16384), over an odd number of rows.  Tolerances:
+# f32 1e-5, since the two differ only in the order of each row's f32 sums;
+# bf16 2e-2, since a value next to a rounding point of bf16 may round the
+# other way (one ulp, 2^-8 relative).  dscale and dbias, sums over every
+# row, by the norm of their error over the plain's norm, at the same
+# tolerances.  A second backward gives the same bits.
+NORM_WIDTHS = [16, 128, 160, 768, 2560, 3072, 4096, 16384]
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+NORM_ROWS = 1037
+
+
+def _norm_inputs(shape, dtype, kind, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    C = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    scale = 1 + 0.1 * torch.randn(C, generator=gen, device="cuda")
+    bias = (0.1 * torch.randn(C, generator=gen, device="cuda")
+            if kind == "layernorm" else None)
+    return x, scale, bias
+
+
+def _norm_grads(fn, base, view, scale, bias, dy):
+    """y = fn(view(base), scale, bias) and the gradients of <y, dy> with
+    respect to base, scale and bias (fresh leaves; a view of base keeps its
+    strides)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (base, scale, bias)
+              if t is not None]
+    y = fn(view(leaves[0]), *leaves[1:], *([None] if bias is None else []))
+    return y.detach(), torch.autograd.grad(y, leaves, dy)
+
+
+def _norm_vs_plain(base, view, scale, bias, kind, dtype):
+    """Forward, dx, dscale and dbias of the kernels on view(base) against
+    the plain chain's; the launches counted; a second backward's bits
+    equal."""
+    from repro_torch.kernels import norm as NK
+    dy = _norm_inputs(view(base).shape, dtype, "rmsnorm", seed=99)[0]
+    before = (NK.LAUNCHES, NK.BWD_LAUNCHES)
+
+    def kernels(a, s, b):
+        return ops.norm(a, s, b, kind)
+
+    y, grads = _norm_grads(kernels, base, view, scale, bias, dy)
+    torch.cuda.synchronize()
+    assert (NK.LAUNCHES, NK.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    y_ref, grads_ref = _norm_grads(lambda a, s, b: ref.norm_ref(a, s, b, kind),
+                                   base, view, scale, bias, dy)
+    tol = NORM_TOL[dtype]
+    assert y.dtype == dtype and grads[0].dtype == dtype
+    _close(y, y_ref, tol)
+    _close(grads[0], grads_ref[0], tol)
+    for g, want in zip(grads[1:], grads_ref[1:]):
+        assert g.dtype == torch.float32
+        err = float((g - want).norm() / want.norm().clamp_min(1e-30))
+        assert err <= tol, err
+    _, again = _norm_grads(kernels, base, view, scale, bias, dy)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", NORM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_norm_kernels_vs_plain(width, dtype, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, scale, bias = _norm_inputs((NORM_ROWS, width), dtype, kind, seed=width)
+    _norm_vs_plain(x, lambda t: t, scale, bias, kind, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [(0, 160), (160, 176), (176, 192), (1, 25), (3, 27)],
+                         ids=["dt", "B", "C", "unaligned", "unaligned-odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_norm_kernels_on_strided_rows(cols, dtype):
+    """Views of a (B, T, 192) projection, as Jamba's x_proj split gives its
+    dt, B and C (read in place), and views at unaligned offsets with widths
+    that leave a tail (read element by element), under RMSNorm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import norm as NK
+    lo, hi = cols
+    proj = _norm_inputs((3, 345, 192), dtype, "rmsnorm", seed=lo)[0]
+    scale = _norm_inputs((hi - lo,), torch.float32, "rmsnorm", seed=hi)[1]
+    assert NK.row_stride(proj[..., lo:hi]) == 192
+    _norm_vs_plain(proj, lambda t: t[..., lo:hi], scale, None, "rmsnorm", dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_norm_kernel_on_the_last_position(kind):
+    """Prefill's final norm of ``x[:, -1:]``: rows a sequence apart, read in
+    place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, scale, bias = _norm_inputs((3, 77, 3072), torch.bfloat16, kind, seed=5)
+    _norm_vs_plain(x, lambda t: t[:, -1:], scale, bias, kind, torch.bfloat16)

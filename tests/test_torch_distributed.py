@@ -45,6 +45,10 @@ the reference test's tolerances:
    and the unsharded step (loss 1e-4, parameters 5e-4; weight decay 0),
    and so does a step at a capacity that drops slots; its sharded serving
    is case 7's ``phi``.
+10. ``kernels.ops.norm`` on DTensors (rows sharded over batch and
+    sequence; batch sharded with the features sharded, which are gathered):
+    y and the gradients of x, the scale and the bias equal the unsharded
+    call's (1e-6).
 """
 
 import dataclasses
@@ -58,6 +62,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Shard
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -81,6 +86,9 @@ SERVE = (("qwen", "qwen3-32b", "qwen_p", 512),
 DROP_CAP = 0.5       # a capacity at which phi3.5 TINY drops slots
 TOL = dict(atol=1e-4, rtol=1e-4)
 FWD_TOL = dict(atol=5e-4, rtol=5e-4)
+# Case 10's input placements on (data, model): the rows' shards (batch,
+# sequence), and the batch's with the features sharded.
+NORM_SHARDS = {"rows": (Shard(0), Shard(1)), "features": (Shard(0), Shard(2))}
 
 REFERENCE = textwrap.dedent("""
     import os, sys, pickle
@@ -412,6 +420,28 @@ def _ranks(rank: int, inputs: str, rendezvous: str, outdir: str) -> None:
             res["plain_manifest"] = plain.manifests[2]
         ck[cm] = res
     out["ckpt"] = ck
+
+    # 10. kernels.ops.norm on DTensors: rows keep their shards (the batch on
+    # data, the sequence on model), a feature dim sharded on model is
+    # gathered; the scale's and bias's gradients are Partial over the row
+    # shards and come out whole.
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import ops as K
+    nx, ns, nb, ndy = (torch.from_numpy(inp[k])
+                       for k in ("norm_x", "norm_s", "norm_b", "norm_dy"))
+    whole = (Replicate(),) * 2
+    for case, pl in NORM_SHARDS.items():
+        for kind in ("layernorm", "rmsnorm"):
+            leaves = [distribute_tensor(nx, mesh, pl).requires_grad_(),
+                      distribute_tensor(ns, mesh, whole).requires_grad_()]
+            if kind == "layernorm":
+                leaves.append(distribute_tensor(nb, mesh, whole).requires_grad_())
+            y = K.norm(*leaves[:2], leaves[2] if kind == "layernorm" else None, kind)
+            grads = torch.autograd.grad(y, leaves, distribute_tensor(ndy, mesh, y.placements))
+            out[f"norm_{case}_{kind}"] = (tuple(map(str, y.placements)),
+                                          y.full_tensor().detach().numpy(),
+                                          [g.full_tensor().numpy() for g in grads])
     with open(os.path.join(outdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
@@ -459,6 +489,10 @@ def _inputs():
         "sp_toks": rng.integers(0, 128, (8, 16)).astype(np.int32),
         "cp_x": rng.standard_normal((4, 1500)).astype(np.float32),
         "cp_err": (0.01 * rng.standard_normal((4, 1500))).astype(np.float32),
+        "norm_x": (2 * rng.standard_normal((4, 8, 16)) + 0.5).astype(np.float32),
+        "norm_s": (1 + 0.1 * rng.standard_normal(16)).astype(np.float32),
+        "norm_b": (0.1 * rng.standard_normal(16)).astype(np.float32),
+        "norm_dy": rng.standard_normal((4, 8, 16)).astype(np.float32),
     }
 
 
@@ -604,6 +638,30 @@ def test_sharded_checkpoint_is_an_unsharded_one(runs):
             assert res["restored"], cm
             assert res["manifest"] == ranks[0]["ckpt"][cm]["plain_manifest"], cm
     assert all(ranks[0]["ckpt"][cm]["bytes_equal"] for cm in ("commit", "session"))
+
+
+@pytest.mark.parametrize("case", list(NORM_SHARDS))
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+def test_norm_on_shards_equals_unsharded(runs, case, kind):
+    """Case 10: y, dx, dscale (and dbias) of ``ops.norm`` on each rank's
+    row shards equal the unsharded call's (1e-6: the scale's gradient is
+    summed over the ranks' rows in another order); y keeps the rows'
+    shards, a sharded feature dim comes out whole."""
+    from repro_torch.kernels import ops as K
+    inp, _, ranks = runs
+    leaves = [torch.from_numpy(inp[k]).requires_grad_() for k in ("norm_x", "norm_s")]
+    if kind == "layernorm":
+        leaves.append(torch.from_numpy(inp["norm_b"]).requires_grad_())
+    y = K.norm(*leaves[:2], leaves[2] if kind == "layernorm" else None, kind)
+    want = torch.autograd.grad(y, leaves, torch.from_numpy(inp["norm_dy"]))
+    kept = {"rows": ("S(0)", "S(1)"), "features": ("S(0)", "R")}[case]
+    for got in ranks:
+        placements, gy, grads = got[f"norm_{case}_{kind}"]
+        assert placements == kept
+        np.testing.assert_allclose(gy, y.detach().numpy(), atol=1e-6, rtol=1e-6)
+        assert len(grads) == len(want)
+        for g, w in zip(grads, want):
+            np.testing.assert_allclose(g, w.numpy(), atol=1e-6, rtol=1e-6)
 
 
 def test_launch_train_mesh_single_runs_unsharded_below_256_ranks(capsys):

@@ -208,22 +208,32 @@ def test_tiny_kernel_launches_by_hand(tiny_cells):
     """A checkpointed super-block runs its forward kernels twice a train
     step (qwen3 TINY: 2 super-blocks of one attention layer; recurrentgemma
     TINY: one super-block (rglru, rglru, local) and two rglru remainder
-    layers, not checkpointed); a decode step runs none (its one-token
-    functions are plain torch).  A train step's AdamW runs its kernel once
-    per parameter leaf (qwen3 TINY: 25 leaves, recurrentgemma TINY: 64)."""
+    layers, not checkpointed); a decode step runs only the norm kernel (its
+    other one-token functions are plain torch).  A train step's AdamW runs
+    its kernel once per parameter leaf (qwen3 TINY: 25 leaves,
+    recurrentgemma TINY: 64).
+
+    Norms: a qwen3 layer has 4 (before attention and FFN, and qk-norm's on
+    q and k), a recurrentgemma layer 2 (no qk-norm), and the final norm 1.
+    qwen3: 2 x 4 + 1 = 9 a forward (prefill, decode step), 2 x 2 x 4 + 1 =
+    17 in a train step with the recompute, 9 backward.  recurrentgemma:
+    5 x 2 + 1 = 11 a forward; a train step 3 x 2 x 2 (the super-block's
+    recompute) + 2 x 2 + 1 = 17, 11 backward."""
     launches = {k: {n: v["launches"] for n, v in r["kernels"].items()}
                 for k, r in tiny_cells.items()}
     assert launches["qwen3-32b/train_4k"] == {"flash_attention": 4,
                                               "flash_attention_bwd": 2,
+                                              "norm": 17, "norm_bwd": 9,
                                               "adamw": 25}
-    assert launches["qwen3-32b/prefill_32k"] == {"flash_attention": 2}
+    assert launches["qwen3-32b/prefill_32k"] == {"flash_attention": 2, "norm": 9}
     assert launches["recurrentgemma-9b/train_4k"] == {
         "rglru_scan": 6, "rglru_scan_bwd": 4, "flash_attention": 2,
-        "flash_attention_bwd": 1, "adamw": 64}
+        "flash_attention_bwd": 1, "norm": 17, "norm_bwd": 11, "adamw": 64}
     assert launches["recurrentgemma-9b/prefill_32k"] == {"rglru_scan": 4,
-                                                         "flash_attention": 1}
-    assert launches["qwen3-32b/decode_32k"] == {}
-    assert launches["recurrentgemma-9b/decode_32k"] == {}
+                                                         "flash_attention": 1,
+                                                         "norm": 11}
+    assert launches["qwen3-32b/decode_32k"] == {"norm": 9}
+    assert launches["recurrentgemma-9b/decode_32k"] == {"norm": 11}
 
 
 REF_FLOPS = textwrap.dedent("""
